@@ -1,0 +1,12 @@
+"""PyTorch / CUDA port of ccv_mppi_path_tracker_tpu.
+
+The JAX package beside this one is the reference; every module here mirrors
+its counterpart's path (``core/``, ``models/``, ``paths/``, ``ops/``,
+``kernels/``, ``solver/``, ``runtime/``, ``metrics/``). This slice ports the
+full-body model's main path: one MPPI control update through the fused
+rollout/cost/update kernel (``kernels/rollout_cost.py``, CUDA source in
+``csrc/rollout_cost.cu``) and the closed loop that repeats it.
+
+Importing the package imports torch and numpy only; the kernel is built with
+``nvcc`` at its first launch on a CUDA tensor.
+"""

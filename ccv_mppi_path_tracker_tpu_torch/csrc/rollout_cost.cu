@@ -1,0 +1,334 @@
+// Fused sample + rollout + cost + softmax-weighted update of one full-body
+// MPPI control step, written for Hopper (sm_90a).
+//
+// Replaces fused_sample_rollout_cost / _make_kernel in
+// ccv_mppi_path_tracker_tpu/kernels/rollout_cost.py (the Pallas TPU kernel),
+// full_body branch, in noise-input mode and in-kernel RNG mode, for any K.
+//
+// What bounds it on this card: FP32 and special-function work, not bytes.
+// Per sample and step it evaluates three sincos and one cos (ZMP direction,
+// roll, heading; pitch), and the min-distance scan costs about 3*T FMA/min
+// operations; it reads at most the injected noise once per pass and writes
+// one float per sample. wgmma and TMA have no role here: there is no matrix
+// product and no tile to stage.
+//
+// Design, simple and correct in this version:
+// - One thread per sample, kThreads per block. The thread holds the state,
+//   the running cost, the current control row u[t] and the next row u[t+1]
+//   (the ZMP finite differences read v and roll_v at t+1) in registers, and
+//   the colored-noise carry eps_prev[j].
+// - The centered reference constants [2(r-c), |r-c|^2] and u_prev sit in
+//   shared memory; every thread of a warp reads the same word (broadcast).
+// - Blocks run in parallel and in no order, so nothing is carried between
+//   them (the TPU kernel carries a running minimum across its sequential
+//   grid). Each block takes the minimum m_b of its valid costs, weighs its
+//   samples by w = exp(-(cost - m_b)/lambda) and writes m_b, sum w and the
+//   (T-1)*U sums of w*u[t,j] to its row of a partials buffer. The wrapper
+//   rescales each row by exp(-(m_b - m)/lambda) with m the global minimum
+//   and sums the rows: the same exact algebra as the sharded JAX path.
+// - The update needs u[t,j] after the cost is known. It is regenerated, not
+//   stored: noise-input mode re-reads the noise, RNG mode re-draws the same
+//   Philox numbers.
+// - Block sums are deterministic: a warp shuffle reduction, one shared
+//   memory slot per (warp, sum), then a fixed-order sum over the warps. The
+//   same inputs give bit-identical outputs on every run.
+// - Padded samples (index >= num_samples, compared as integers) neither
+//   enter the block minimum nor get weight.
+// - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, 0);
+//   Box-Muller over the top 23 bits of words 0 and 1 gives the normals of
+//   controls 2*pair (cosine) and 2*pair+1 (sine). Every normal is a pure
+//   function of (seed, step, k, t, j), independent of the block size.
+// - Precise logf/expf/sinf/cosf: no fast-math in this version. Block size,
+//   occupancy and fast-math are for later tuning.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//             -shared -Xcompiler -fPIC  (kernels/build.py), bound with ctypes.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kU = 5;                   // full-body controls
+constexpr int kPairs = (kU + 1) / 2;    // Box-Muller pairs per control row
+constexpr float kCap2 = 100.0f * 100.0f;  // DIST_CAP^2 (ops/mindist.py)
+constexpr float kTwoPi = 6.28318548f;   // 2*pi rounded to float32
+constexpr float kInv2p23 = 1.0f / 8388608.0f;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Slots of the scalar vector (kernels/rollout_cost.py pack_scalars).
+enum Scal {
+  kDt, kVRef, kPathW, kVW, kZmpW, kRollVW, kBackW, kYawW, kYawRef0,
+  kMass, kBase2Com, kIxx, kIyy, kIzz, kGz, kBeta, kLam, kNScal
+};
+
+__device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
+                                              uint32_t& c2, uint32_t& c3,
+                                              uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+}
+
+// Draws the control rows of one sample in time order, u[t, j] =
+// clamp(u_prev[t, j] + sigma[j] * eps[t, j]), with eps the (optionally
+// colored) standard normals: eps_t = beta*eps_{t-1} + sqrt(1-beta^2)*eta_t.
+struct RowSampler {
+  const float* noise;   // (T-1, U, K) standard normals, or nullptr (RNG mode)
+  const float* uprev;   // shared (T-1, U)
+  float sigma[kU], umin[kU], umax[kU];
+  float beta, bscale;
+  int num_samples, k;
+  bool valid, steer_off;
+  uint32_t seed, step;
+  float eps[kU];
+
+  __device__ __forceinline__ void row(int t, float u[kU]) {
+    float eta[2 * kPairs];
+    if (noise != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kU; ++j) {
+        eta[j] = valid ? noise[((size_t)t * kU + j) * num_samples + k] : 0.0f;
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) {
+        uint32_t c0 = (uint32_t)k, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = 0u;
+        philox4x32_10(c0, c1, c2, c3, seed, step);
+        const float u1 = (float)(c0 >> 9) * kInv2p23;
+        const float u2 = (float)(c1 >> 9) * kInv2p23;
+        const float r = sqrtf(-2.0f * log1pf(-u1));
+        const float theta = kTwoPi * u2;
+        eta[2 * p] = r * cosf(theta);
+        eta[2 * p + 1] = r * sinf(theta);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kU; ++j) {
+      const float e = (t == 0) ? eta[j] : beta * eps[j] + bscale * eta[j];
+      eps[j] = e;
+      float val = uprev[t * kU + j] + sigma[j] * e;
+      val = fminf(fmaxf(val, umin[j]), umax[j]);
+      if (steer_off && j == 2) val = 0.0f;
+      u[j] = val;
+    }
+  }
+};
+
+// clamp(min_j |p - ref_j|^2, 0, cap^2) in the centered expanded form
+// (ops/mindist.py): ref rows are [2(r_j-c), |r_j-c|^2], p is centered.
+__device__ __forceinline__ float path_d2(float x, float y, const float* ref,
+                                         int num_ref) {
+  const float pn = x * x + y * y;
+  float m = INFINITY;
+  for (int j = 0; j < num_ref; ++j) {
+    m = fminf(m, ref[3 * j + 2] - x * ref[3 * j] - y * ref[3 * j + 1]);
+  }
+  return fminf(fmaxf(pn + m, 0.0f), kCap2);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
+                              const float* __restrict__ sigma,
+                              const float* __restrict__ u_min,
+                              const float* __restrict__ u_max,
+                              const float* __restrict__ refc,
+                              const float* __restrict__ state0,
+                              const float* __restrict__ scal,
+                              const float* __restrict__ noise,
+                              float* __restrict__ costs,
+                              float* __restrict__ partials,
+                              int num_samples, int horizon, int num_ref,
+                              uint32_t seed, uint32_t step, int steer_off) {
+  extern __shared__ float smem[];
+  __shared__ float s_min[kWarps];
+  const int tm1 = horizon - 1;
+  const int nacc = 1 + tm1 * kU;  // sum w, then sum w*u[t, j]
+  float* s_ref = smem;                 // num_ref * 3
+  float* s_uprev = s_ref + 3 * num_ref;  // tm1 * kU
+  float* s_wsum = s_uprev + tm1 * kU;    // kWarps * nacc
+
+  for (int i = threadIdx.x; i < 3 * num_ref; i += kThreads) s_ref[i] = refc[i];
+  for (int i = threadIdx.x; i < tm1 * kU; i += kThreads) s_uprev[i] = u_prev[i];
+  __syncthreads();
+
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const float dt = scal[kDt], v_ref = scal[kVRef];
+  const float path_w = scal[kPathW], v_w = scal[kVW], zmp_w = scal[kZmpW];
+  const float rollv_w = scal[kRollVW], back_w = scal[kBackW];
+  const float mass = scal[kMass], c = scal[kBase2Com], ixx = scal[kIxx];
+  const float beta = scal[kBeta];
+
+  RowSampler smp;
+  smp.noise = noise;
+  smp.uprev = s_uprev;
+#pragma unroll
+  for (int j = 0; j < kU; ++j) {
+    smp.sigma[j] = sigma[j];
+    smp.umin[j] = u_min[j];
+    smp.umax[j] = u_max[j];
+    smp.eps[j] = 0.0f;
+  }
+  smp.beta = beta;
+  smp.bscale = sqrtf(1.0f - beta * beta);
+  smp.num_samples = num_samples;
+  smp.k = k;
+  smp.valid = k < num_samples;
+  smp.steer_off = steer_off != 0;
+  smp.seed = seed;
+  smp.step = step;
+
+  // --- rollout + cost (ops/costs.py full_body_cost) ----------------------
+  float x = state0[0], y = state0[1], yaw = state0[2];
+  float roll = state0[3], pitch = state0[4];
+  const float dyaw0 = yaw - scal[kYawRef0];
+  float cost = scal[kYawW] * dyaw0 * dyaw0;
+  // reciprocals hoisted out of the loop, as in the TPU kernel
+  const float rdt = 1.0f / dt;
+  const float bz = mass * scal[kGz];
+  const float rbz = 1.0f / bz;
+
+  float cur[kU], nxt[kU];
+  smp.row(0, cur);
+  for (int t = 0; t < horizon - 2; ++t) {
+    smp.row(t + 1, nxt);
+    cost += path_w * path_d2(x, y, s_ref, num_ref);
+    const float v = cur[0], w = cur[1], dir = cur[2], rv = cur[3], pv = cur[4];
+    const float dv = v - v_ref;
+    cost += v_w * dv * dv;
+    const float droll = nxt[3] - rv;
+    cost += rollv_w * droll * droll;
+    cost += back_w * (v < 0.0f ? v * v : 0.0f);
+    // ZMP-y (models/full_body.py zmp_chain; only M_O_x is needed)
+    const float da = (nxt[0] - v) * rdt;
+    const float ac = v * w;
+    float sd, cd;
+    sincosf(dir, &sd, &cd);
+    const float ay = da * sd + ac * cd;
+    const float hgx = ixx * droll * rdt;
+    float sr, cr;
+    sincosf(roll, &sr, &cr);
+    const float com_y = -c * sr;
+    const float com_z = c * cosf(pitch) * cr;
+    const float by = -mass * ay;
+    const float mo_x = com_y * bz - com_z * by - hgx;
+    const float zmp_y = mo_x * rbz;
+    cost += zmp_w * zmp_y * zmp_y;
+    // Euler step; the states at T-2 and T-1 are never read by the cost
+    float sh, ch;
+    sincosf(yaw + dir, &sh, &ch);
+    x = x + v * ch * dt;
+    y = y + v * sh * dt;
+    yaw = yaw + w * dt;
+    roll = roll + rv * dt;
+    pitch = pitch + pv * dt;
+#pragma unroll
+    for (int j = 0; j < kU; ++j) cur[j] = nxt[j];
+  }
+  if (smp.valid) costs[k] = cost;
+
+  // --- block minimum over valid samples ----------------------------------
+  const float cm = warp_min(smp.valid ? cost : INFINITY);
+  if (lane == 0) s_min[warp] = cm;
+  __syncthreads();
+  float m_block = s_min[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) m_block = fminf(m_block, s_min[i]);
+
+  // --- weighted sums under the block baseline ----------------------------
+  const float neg_rlam = -1.0f / scal[kLam];
+  const float wgt = smp.valid ? expf((cost - m_block) * neg_rlam) : 0.0f;
+  float* wsum = s_wsum + warp * nacc;
+  const float sw = warp_sum(wgt);
+  if (lane == 0) wsum[0] = sw;
+  for (int t = 0; t < tm1; ++t) {
+    smp.row(t, cur);
+#pragma unroll
+    for (int j = 0; j < kU; ++j) {
+      const float s = warp_sum(wgt * cur[j]);
+      if (lane == 0) wsum[1 + t * kU + j] = s;
+    }
+  }
+  __syncthreads();
+
+  float* out = partials + (size_t)blockIdx.x * (nacc + 1);
+  if (threadIdx.x == 0) out[0] = m_block;
+  for (int i = threadIdx.x; i < nacc; i += kThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) s += s_wsum[wi * nacc + i];
+    out[1 + i] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int rollout_cost_block_threads() { return kThreads; }
+
+int rollout_cost_num_scalars() { return kNScal; }
+
+const char* rollout_cost_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launches the kernel on `stream`. Returns the cudaError_t of the launch
+// (0 on success). partials is (ceil(K / kThreads), 2 + (T-1)*U): per block
+// [m_b, sum w, sum w*u[t, j] ...]. noise may be null (RNG mode).
+int rollout_cost_full_body(const float* u_prev, const float* sigma,
+                           const float* u_min, const float* u_max,
+                           const float* refc, const float* state0,
+                           const float* scal, const float* noise,
+                           float* costs, float* partials, int num_samples,
+                           int horizon, int num_ref, unsigned int seed,
+                           unsigned int step, int steer_off, void* stream) {
+  if (num_samples < 1 || horizon < 2 || num_ref < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (num_samples + kThreads - 1) / kThreads;
+  const size_t tm1u = static_cast<size_t>(horizon - 1) * kU;
+  const size_t smem = sizeof(float) *
+      (3 * static_cast<size_t>(num_ref) + tm1u + kWarps * (1 + tm1u));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_cost_full_body_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  rollout_cost_full_body_kernel<<<blocks, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs, partials,
+      num_samples, horizon, num_ref, seed, step, steer_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

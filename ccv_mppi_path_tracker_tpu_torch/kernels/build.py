@@ -1,0 +1,85 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` at first use.
+
+Each source compiles on its own into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. Libraries go to ``build/torch_kernels/`` at the repository root,
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused. Only the sources in the checkout and the
+CUDA toolkit's headers are used.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LOADED = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels are built on the machine with the card"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str):
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+
+    Returns (path, seconds, log): log is nvcc's output, which holds the
+    ``-Xptxas -v`` register and spill report, or None when nothing was built.
+    """
+    out = library_path(name)
+    if out.exists():
+        return out, 0.0, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, seconds, proc.stdout + proc.stderr
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build if needed and load ``csrc/<name>.cu``'s library (once per
+    process)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path, _, _ = build(name)
+        lib = ctypes.CDLL(str(path))
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,234 @@
+"""Fused sample + rollout + cost + weighted update: wrapper of the CUDA
+kernel ``csrc/rollout_cost.cu`` and its plain PyTorch version.
+
+Counterpart of ``fused_sample_rollout_cost`` in the JAX package's
+``kernels/rollout_cost.py`` (the Pallas TPU kernel), full-body branch, in
+noise-input mode and in-kernel RNG mode, for any K. Sampled controls and
+rollout states never reach device memory: the kernel writes the (K,) costs
+and one row of partial sums per block, which the wrapper finishes here.
+
+On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverParams
+from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
+from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
+from ccv_mppi_path_tracker_tpu_torch.models import full_body
+from ccv_mppi_path_tracker_tpu_torch.ops.costs import full_body_cost
+from ccv_mppi_path_tracker_tpu_torch.ops.mindist import center_ref
+from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import sample_controls
+
+SOURCE = "ccv_mppi_path_tracker_tpu_torch/csrc/rollout_cost.cu"
+U_DIM = 5  # full-body controls; the kernel's only branch in this port
+S_DIM = 5
+
+# Scalar slots, the JAX package's pack_scalars layout without its elite
+# threshold slot: [dt, v_ref, path_w, v_w, zmp_w, roll_v_w, back_w, yaw_w,
+# yaw_ref0, mass, base2com, Ixx, Iyy, Izz, gravity_z, noise_beta, lam]
+NSCAL = 17
+
+
+def pack_scalars(dt, cp: CostParams, yaw_ref0, model_params, noise_beta, lam):
+    """The (NSCAL,) float32 scalar vector, stacked on ``yaw_ref0``'s device.
+    Python numbers become device fills, so no value is copied from the host."""
+    mp = model_params
+    vals = [
+        dt, cp.v_ref, cp.path_weight, cp.v_weight, cp.zmp_weight,
+        cp.roll_v_weight, cp.back_weight, cp.yaw_weight, yaw_ref0,
+        mp.mass, mp.base2com, mp.inertia[0], mp.inertia[1], mp.inertia[2],
+        mp.gravity_z, noise_beta, lam,
+    ]
+    dev = yaw_ref0.device
+    return torch.stack([
+        v.to(torch.float32) if isinstance(v, torch.Tensor)
+        else torch.full((), v, dtype=torch.float32, device=dev)
+        for v in vals
+    ])
+
+
+def _unpack_scalars(scal):
+    dt = scal[0]
+    cp = CostParams(v_ref=scal[1], path_weight=scal[2], v_weight=scal[3],
+                    zmp_weight=scal[4], roll_v_weight=scal[5],
+                    back_weight=scal[6], yaw_weight=scal[7])
+    mp = full_body.FullBodyParams(mass=scal[9], base2com=scal[10],
+                                  inertia=scal[11:14], gravity_z=scal[14])
+    return dt, cp, scal[8], mp, scal[15], scal[16]
+
+
+def fused_sample_rollout_cost_reference(
+    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
+    num_samples: int, steer_off: bool = False,
+    noise: Optional[torch.Tensor] = None,
+):
+    """Plain PyTorch version of the kernel: same arguments and outputs.
+
+    Samples with the eager ops (RNG mode draws the kernel's own Philox
+    normals, ``core/random.py philox_normals``), rolls out with the
+    sequential Euler step the kernel runs, and reduces with one global
+    softmax under the baseline min(costs).
+    """
+    tm1, u_dim = u_prev.shape
+    dt, cp, yaw_ref0, mp, beta, lam = _unpack_scalars(scal)
+    if noise is None:
+        noise = philox_normals(seed, step, num_samples, tm1, u_dim,
+                               device=u_prev.device, dtype=u_prev.dtype)
+    sp = SolverParams(control_noise=sigma, lam=lam, u_min=u_min, u_max=u_max,
+                      noise_beta=beta)
+    u = sample_controls(u_prev, sp, num_samples, steer_off=steer_off, noise=noise)
+    states = rollout(full_body.step, state0.expand(num_samples, -1), u, dt)
+    zmp = full_body.zmp_chain(states, u, dt, mp)
+    ref = RefWindow(xy=ref_xy, yaw=yaw_ref0.expand(ref_xy.shape[0]))
+    costs = full_body_cost(states, u, zmp, ref, cp)
+    w = torch.exp((costs - torch.amin(costs)) * (-1.0 / lam))
+    u_num = torch.sum(w[None, :, None] * u, dim=1)
+    return costs, u_num, torch.sum(w)
+
+
+def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
+                  num_samples, noise):
+    if u_prev.dim() != 2 or u_prev.shape[1] != U_DIM or u_prev.shape[0] < 1:
+        raise ValueError(f"u_prev must be (T-1, {U_DIM}), got {tuple(u_prev.shape)}")
+    tm1 = u_prev.shape[0]
+    shapes = {
+        "sigma": (sigma, (U_DIM,)), "u_min": (u_min, (U_DIM,)),
+        "u_max": (u_max, (U_DIM,)), "state0": (state0, (S_DIM,)),
+        "scal": (scal, (NSCAL,)),
+    }
+    if noise is not None:
+        shapes["noise"] = (noise, (tm1, num_samples, U_DIM))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if ref_xy.dim() != 2 or ref_xy.shape[1] != 2 or ref_xy.shape[0] < 1:
+        raise ValueError(f"ref_xy must be (R, 2), got {tuple(ref_xy.shape)}")
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    tensors = [u_prev, sigma, u_min, u_max, ref_xy, state0, scal]
+    tensors += [noise] if noise is not None else []
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused kernel takes float32 only, got {t.dtype}")
+        if t.device != u_prev.device:
+            raise ValueError(f"all inputs must be on {u_prev.device}, got {t.device}")
+    for name, t in (("u_prev", u_prev), ("sigma", sigma), ("u_min", u_min),
+                    ("u_max", u_max), ("scal", scal)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _bind(lib):
+    if getattr(lib, "_rollout_cost_bound", False):
+        return lib
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn = lib.rollout_cost_full_body
+    fn.argtypes = [p] * 10 + [i, i, i, u, u, i, p]
+    fn.restype = i
+    lib.rollout_cost_block_threads.argtypes = []
+    lib.rollout_cost_block_threads.restype = i
+    lib.rollout_cost_num_scalars.argtypes = []
+    lib.rollout_cost_num_scalars.restype = i
+    lib.rollout_cost_error_string.argtypes = [i]
+    lib.rollout_cost_error_string.restype = ctypes.c_char_p
+    if lib.rollout_cost_num_scalars() != NSCAL:
+        raise RuntimeError("csrc/rollout_cost.cu scalar layout differs from NSCAL")
+    lib._rollout_cost_bound = True
+    return lib
+
+
+class KernelLaunch:
+    """One kernel launch with its operands prepared on the device: the
+    centered reference constants [2(r-c), |r-c|^2], the start state
+    translated by -c, the noise transposed to a contiguous (T-1, U, K), and
+    the outputs. :meth:`run` launches on the current stream and raises on a
+    launch error; :meth:`finish` reduces the per-block partials."""
+
+    def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
+                 step, num_samples, steer_off, noise):
+        from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
+
+        self.lib = _bind(load_library("rollout_cost"))
+        dev = u_prev.device
+        self.tm1 = u_prev.shape[0]
+        self.lam = scal[16]
+        c, rc2, rn = center_ref(ref_xy)
+        refc = torch.cat([rc2, rn[:, None]], dim=1).contiguous()
+        s0 = torch.cat([state0[:2] - c, state0[2:]]).contiguous()
+        noise_t = None if noise is None else noise.permute(0, 2, 1).contiguous()
+        blocks = -(-num_samples // self.lib.rollout_cost_block_threads())
+        self.costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
+        self.partials = torch.empty((blocks, 2 + self.tm1 * U_DIM),
+                                    dtype=torch.float32, device=dev)
+        # operands stay referenced by self until the launch is dropped
+        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t)
+        self.device = dev
+        self.args = (
+            u_prev.data_ptr(), sigma.data_ptr(), u_min.data_ptr(),
+            u_max.data_ptr(), refc.data_ptr(), s0.data_ptr(), scal.data_ptr(),
+            None if noise_t is None else noise_t.data_ptr(),
+            self.costs.data_ptr(), self.partials.data_ptr(), num_samples,
+            self.tm1 + 1, refc.shape[0], seed & 0xFFFFFFFF, step & 0xFFFFFFFF,
+            int(steer_off),
+        )
+
+    def run(self):
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self.lib.rollout_cost_full_body(*self.args, stream)
+        if err != 0:
+            msg = self.lib.rollout_cost_error_string(err).decode()
+            raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
+
+    def finish(self):
+        """(u_num, norm): each block's sums rescaled from its own baseline
+        m_b to the global minimum m by exp(-(m_b - m)/lambda), then summed."""
+        m_blk, norm_blk = self.partials[:, 0], self.partials[:, 1]
+        scale = torch.exp((m_blk - torch.amin(m_blk)) * (-1.0 / self.lam))
+        norm = torch.sum(scale * norm_blk)
+        u_num = torch.sum(scale[:, None] * self.partials[:, 2:], dim=0)
+        return u_num.reshape(self.tm1, U_DIM), norm
+
+
+def fused_sample_rollout_cost(
+    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
+    num_samples: int, steer_off: bool = False,
+    noise: Optional[torch.Tensor] = None,
+):
+    """Sample, roll out and cost K full-body trajectories and accumulate the
+    softmax-weighted update, in one kernel.
+
+    u_prev: (T-1, 5) sampling mean; sigma/u_min/u_max: (5,); ref_xy: (R, 2)
+    reference window; state0: (5,); scal: (NSCAL,) from :func:`pack_scalars`.
+    seed/step: the cycle's Philox key (RNG mode, ``noise=None``). noise:
+    optional standard normals (T-1, K, 5), the layout of ``sample_controls``.
+    All float32 on one device.
+
+    Returns (costs (K,), u_num (T-1, 5), norm ()) under the baseline
+    min(costs): ``u_opt = u_num / norm``. A CPU tensor runs
+    :func:`fused_sample_rollout_cost_reference`; a CUDA tensor launches the
+    kernel, counted in ``fused_sample_rollout_cost.launches``.
+    """
+    _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
+                  num_samples, noise)
+    args = (u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
+            num_samples, steer_off, noise)
+    if u_prev.device.type == "cpu":
+        return fused_sample_rollout_cost_reference(*args)
+    if u_prev.device.type != "cuda":
+        raise ValueError(f"no fused kernel for device {u_prev.device}")
+    launch = KernelLaunch(*args)
+    launch.run()
+    fused_sample_rollout_cost.launches += 1
+    return (launch.costs,) + launch.finish()
+
+
+fused_sample_rollout_cost.launches = 0

@@ -1,0 +1,7 @@
+"""Dynamics models; importing the package registers the built-in ones."""
+
+from ccv_mppi_path_tracker_tpu_torch.models import full_body  # noqa: F401
+from ccv_mppi_path_tracker_tpu_torch.models.base import Model
+from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model, register_model
+
+__all__ = ["Model", "get_model", "register_model"]
