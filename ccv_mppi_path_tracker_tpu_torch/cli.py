@@ -3,7 +3,8 @@
     python -m ccv_mppi_path_tracker_tpu_torch run --preset full_body --steps 200 \\
         --num-samples 102400 --horizon 30
 
-runs a closed-loop tracking experiment on the launch-file preset through the
+runs a closed-loop tracking experiment on a launch-file preset (diff_drive,
+steering_diff_drive or full_body; diff_drive by default) through the
 fused CUDA kernel (``--no-kernel``: the eager path) and prints the
 calc_e_rmse.py metrics, as the JAX package's ``run`` does.
 """
@@ -17,7 +18,8 @@ import torch
 
 
 def _add_run_args(p):
-    p.add_argument("--preset", default="full_body", choices=["full_body"])
+    p.add_argument("--preset", default="diff_drive",
+                   choices=["diff_drive", "steering_diff_drive", "full_body"])
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--num-samples", type=int, default=None)
     p.add_argument("--horizon", type=int, default=15)
@@ -28,6 +30,15 @@ def _add_run_args(p):
                         "error, never a fallback to the CPU")
     p.add_argument("--no-kernel", action="store_true",
                    help="run the eager tensor path instead of the fused kernel")
+    p.add_argument("--shift-warm-start", action="store_true",
+                   help="center sampling on the one-step-shifted previous "
+                        "optimum (the reference does not shift)")
+    p.add_argument("--delay", type=float, default=None,
+                   help="actuation-latency compensation in seconds: solve "
+                        "from the delay-predicted state")
+    p.add_argument("--elite-frac", type=float, default=None,
+                   help="keep softmax weight only on this best cost fraction "
+                        "of the samples (on the kernel and eager paths)")
 
 
 def cmd_run(args):
@@ -43,11 +54,18 @@ def cmd_run(args):
     if args.num_samples:
         kwargs["num_samples"] = args.num_samples
     cfg, sp, cp, course = PRESETS[args.preset](**kwargs)
+    opts = {}
+    if args.shift_warm_start:
+        opts["shift_warm_start"] = True
+    if args.delay is not None:
+        opts["delay"] = args.delay
+    if args.elite_frac is not None:
+        opts["elite_frac"] = args.elite_frac
     use_kernel = not args.no_kernel
     print(f"solver path: {'fused kernel' if use_kernel else 'eager'} on {device}")
     out = run_tracking_experiment(
         cfg, sp, cp, course, num_steps=args.steps, dt=args.dt, seed=args.seed,
-        use_kernel=use_kernel,
+        use_kernel=use_kernel, solver_options=opts or None,
     )
     m = out["metrics"]
     print(f"Time: {round(m['time'], 1)}")

@@ -1,8 +1,16 @@
-"""Named experiment presets (port of ``core/presets.py``).
+"""Named experiment presets: the reference's launch-file operating points
+(port of ``core/presets.py``). Each returns (cfg, sp, cp, course), the course
+a NumPy (N, 2) array.
 
-:func:`full_body_launch` is the operating point of
-launch/full_body_mppi.launch:7-22,29-31 (v_ref 2.0, path 10, zmp 10,
-roll_v 0.5, yaw 2, back 1, roll_off true; course A=1.5, f=0.127, delta=0).
+- :func:`diff_drive_launch`: launch/diff_drive_mppi.launch:6-17 (path_weight
+  10, v_ref 1.2, v_max 2.0; sine course A=1.0, f=0.25, delta=0).
+- :func:`steering_launch`: launch/steering_diff_drive_mppi.launch:7-28 (K=1000
+  override, same weights and course).
+- :func:`full_body_launch`: launch/full_body_mppi.launch:7-22,29-31 (v_ref
+  2.0, path 10, zmp 10, roll_v 0.5, yaw 2, back 1, roll_off true; course
+  A=1.5, f=0.127, delta=0).
+- :func:`rate_limited_launch`: the rate-limited steering family (not in the
+  reference) on the diff-drive course.
 """
 
 from __future__ import annotations
@@ -10,7 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ccv_mppi_path_tracker_tpu_torch.core.config import full_body_config
+from ccv_mppi_path_tracker_tpu_torch.core.config import (
+    diff_drive_config,
+    full_body_config,
+    rate_limited_steering_config,
+    steering_diff_drive_config,
+)
 from ccv_mppi_path_tracker_tpu_torch.paths.courses import sum_of_cosines_course
 
 
@@ -21,13 +34,28 @@ def _course(amplitude, frequency, length, dtype):
         deltas=(0.0, 0.0, 0.0),
         resolution=0.1,
         course_length=length,
-        dtype=dtype,
+        dtype=np.float64 if dtype == torch.float64 else np.float32,
     )
+
+
+def diff_drive_launch(num_samples=1000, horizon=15, dtype=torch.float32, device=None):
+    cfg, sp, cp = diff_drive_config(
+        num_samples=num_samples, horizon=horizon, path_weight=10.0,
+        v_weight=1.0, v_ref=1.2, v_max=2.0, dtype=dtype, device=device,
+    )
+    return cfg, sp, cp, _course(1.0, 0.25, 10.0, dtype)
+
+
+def steering_launch(num_samples=1000, horizon=15, dtype=torch.float32, device=None):
+    cfg, sp, cp = steering_diff_drive_config(
+        num_samples=num_samples, horizon=horizon, path_weight=10.0,
+        v_weight=1.0, v_ref=1.2, v_max=2.0, dtype=dtype, device=device,
+    )
+    return cfg, sp, cp, _course(1.0, 0.25, 10.0, dtype)
 
 
 def full_body_launch(num_samples=10000, horizon=15, dtype=torch.float32,
                      roll_off=True, device=None):
-    """Returns (cfg, sp, cp, course); the course is a NumPy (N, 2) array."""
     cfg, sp, cp = full_body_config(
         num_samples=num_samples,
         horizon=horizon,
@@ -43,8 +71,21 @@ def full_body_launch(num_samples=10000, horizon=15, dtype=torch.float32,
         dtype=dtype,
         device=device,
     )
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    return cfg, sp, cp, _course(1.5, 0.127, 20.0, np_dtype)
+    return cfg, sp, cp, _course(1.5, 0.127, 20.0, dtype)
 
 
-PRESETS = {"full_body": full_body_launch}
+def rate_limited_launch(num_samples=10000, horizon=15, dtype=torch.float32,
+                        device=None):
+    cfg, sp, cp = rate_limited_steering_config(
+        num_samples=num_samples, horizon=horizon, path_weight=10.0,
+        dtype=dtype, device=device,
+    )
+    return cfg, sp, cp, _course(1.0, 0.25, 10.0, dtype)
+
+
+PRESETS = {
+    "diff_drive": diff_drive_launch,
+    "steering_diff_drive": steering_launch,
+    "full_body": full_body_launch,
+    "rate_limited_steering": rate_limited_launch,
+}

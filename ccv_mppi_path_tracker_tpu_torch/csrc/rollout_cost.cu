@@ -1,34 +1,44 @@
-// Fused sample + rollout + cost + softmax-weighted update of one full-body
-// MPPI control step, written for Hopper (sm_90a).
+// Fused sample + rollout + cost + softmax-weighted update of one MPPI
+// control step, written for Hopper (sm_90a).
 //
 // Replaces fused_sample_rollout_cost / _make_kernel in
-// ccv_mppi_path_tracker_tpu/kernels/rollout_cost.py (the Pallas TPU kernel),
-// full_body branch, in noise-input mode and in-kernel RNG mode, for any K.
+// ccv_mppi_path_tracker_tpu/kernels/rollout_cost.py (the Pallas TPU kernel):
+// its four model branches (unicycle, steering_unicycle,
+// rate_limited_steering, full_body), noise-input and in-kernel RNG modes, any
+// K, and the three passes of elite sampling: costs only (accumulate = 0),
+// costs in (the costs-free second pass) and the cost threshold (scal slot 17)
+// that zeroes the weight of every sample above it.
 //
 // What bounds it on this card: FP32 and special-function work, not bytes.
-// Per sample and step it evaluates three sincos and one cos (ZMP direction,
-// roll, heading; pitch), and the min-distance scan costs about 3*T FMA/min
-// operations; it reads at most the injected noise once per pass and writes
-// one float per sample. wgmma and TMA have no role here: there is no matrix
-// product and no tile to stage.
+// Per sample and step the tracking models evaluate one sincos, the full-body
+// model three sincos and one cos (ZMP direction, roll, heading; pitch), and
+// the min-distance scan costs about 3*T FMA/min operations; the kernel reads
+// at most the injected noise (and, in the costs-in pass, one cost) per
+// sample and writes one float per sample. wgmma and TMA have no role here:
+// there is no matrix product and no tile to stage.
 //
 // Design, simple and correct in this version:
-// - One thread per sample, kThreads per block. The thread holds the state,
-//   the running cost, the current control row u[t] and the next row u[t+1]
-//   (the ZMP finite differences read v and roll_v at t+1) in registers, and
-//   the colored-noise carry eps_prev[j].
+// - One thread per sample, kThreads per block. The model is a template
+//   parameter: U and S are compile-time, one instantiation per model, and the
+//   per-model rollout + cost body is chosen at compile time. The thread holds
+//   the state, the running cost and the current control row in registers
+//   (full_body also the next row: the ZMP finite differences read v and
+//   roll_v at t+1), and the colored-noise carry eps_prev[j].
 // - The centered reference constants [2(r-c), |r-c|^2] and u_prev sit in
 //   shared memory; every thread of a warp reads the same word (broadcast).
 // - Blocks run in parallel and in no order, so nothing is carried between
 //   them (the TPU kernel carries a running minimum across its sequential
 //   grid). Each block takes the minimum m_b of its valid costs, weighs its
-//   samples by w = exp(-(cost - m_b)/lambda) and writes m_b, sum w and the
-//   (T-1)*U sums of w*u[t,j] to its row of a partials buffer. The wrapper
-//   rescales each row by exp(-(m_b - m)/lambda) with m the global minimum
-//   and sums the rows: the same exact algebra as the sharded JAX path.
+//   samples by w = exp(-(cost - m_b)/lambda), zero above the threshold, and
+//   writes m_b, sum w and the (T-1)*U sums of w*u[t,j] to its row of a
+//   partials buffer. The wrapper rescales each row by exp(-(m_b - m)/lambda)
+//   with m the global minimum and sums the rows: the same exact algebra as
+//   the sharded JAX path. m_b is over all valid costs, not the elites only,
+//   so a block without elites writes zero sums under a finite m_b.
 // - The update needs u[t,j] after the cost is known. It is regenerated, not
 //   stored: noise-input mode re-reads the noise, RNG mode re-draws the same
-//   Philox numbers.
+//   Philox numbers. The costs-in pass regenerates the controls of the pass
+//   that computed the costs in the same way, and skips the rollout.
 // - Block sums are deterministic: a warp shuffle reduction, one shared
 //   memory slot per (warp, sum), then a fixed-order sum over the warps. The
 //   same inputs give bit-identical outputs on every run.
@@ -36,8 +46,12 @@
 //   enter the block minimum nor get weight.
 // - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, 0);
 //   Box-Muller over the top 23 bits of words 0 and 1 gives the normals of
-//   controls 2*pair (cosine) and 2*pair+1 (sine). Every normal is a pure
+//   controls 2*pair (cosine) and 2*pair+1 (sine). (U+1)/2 pairs per row: for
+//   U = 3 the fourth normal is drawn and dropped. Every normal is a pure
 //   function of (seed, step, k, t, j), independent of the block size.
+// - rate_limited_steering's steer and rate limits come in as two arguments
+//   from the registered model's constants, not as compile-time constants, so
+//   a re-registered variant needs no rebuild.
 // - Precise logf/expf/sinf/cosf: no fast-math in this version. Block size,
 //   occupancy and fast-math are for later tuning.
 //
@@ -52,8 +66,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kU = 5;                   // full-body controls
-constexpr int kPairs = (kU + 1) / 2;    // Box-Muller pairs per control row
 constexpr float kCap2 = 100.0f * 100.0f;  // DIST_CAP^2 (ops/mindist.py)
 constexpr float kTwoPi = 6.28318548f;   // 2*pi rounded to float32
 constexpr float kInv2p23 = 1.0f / 8388608.0f;
@@ -62,8 +74,17 @@ constexpr unsigned kFull = 0xffffffffu;
 // Slots of the scalar vector (kernels/rollout_cost.py pack_scalars).
 enum Scal {
   kDt, kVRef, kPathW, kVW, kZmpW, kRollVW, kBackW, kYawW, kYawRef0,
-  kMass, kBase2Com, kIxx, kIyy, kIzz, kGz, kBeta, kLam, kNScal
+  kMass, kBase2Com, kIxx, kIyy, kIzz, kGz, kBeta, kLam, kThresh, kNScal
 };
+
+// Model ids, in the order of kernels/rollout_cost.py KERNEL_MODELS.
+enum ModelId { kUnicycle, kSteering, kRateLimited, kFullBody, kNumModels };
+
+template <int M> struct Dims;
+template <> struct Dims<kUnicycle> { static constexpr int U = 2, S = 3; };
+template <> struct Dims<kSteering> { static constexpr int U = 3, S = 3; };
+template <> struct Dims<kRateLimited> { static constexpr int U = 3, S = 4; };
+template <> struct Dims<kFullBody> { static constexpr int U = 5, S = 5; };
 
 __device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
                                               uint32_t& c2, uint32_t& c3,
@@ -86,22 +107,25 @@ __device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
 // Draws the control rows of one sample in time order, u[t, j] =
 // clamp(u_prev[t, j] + sigma[j] * eps[t, j]), with eps the (optionally
 // colored) standard normals: eps_t = beta*eps_{t-1} + sqrt(1-beta^2)*eta_t.
+// Row 0 restarts the recurrence, so one sampler serves both passes over t.
+template <int U>
 struct RowSampler {
+  static constexpr int kPairs = (U + 1) / 2;  // Box-Muller pairs per row
   const float* noise;   // (T-1, U, K) standard normals, or nullptr (RNG mode)
   const float* uprev;   // shared (T-1, U)
-  float sigma[kU], umin[kU], umax[kU];
+  float sigma[U], umin[U], umax[U];
   float beta, bscale;
   int num_samples, k;
   bool valid, steer_off;
   uint32_t seed, step;
-  float eps[kU];
+  float eps[U];
 
-  __device__ __forceinline__ void row(int t, float u[kU]) {
+  __device__ __forceinline__ void row(int t, float u[U]) {
     float eta[2 * kPairs];
     if (noise != nullptr) {
 #pragma unroll
-      for (int j = 0; j < kU; ++j) {
-        eta[j] = valid ? noise[((size_t)t * kU + j) * num_samples + k] : 0.0f;
+      for (int j = 0; j < U; ++j) {
+        eta[j] = valid ? noise[((size_t)t * U + j) * num_samples + k] : 0.0f;
       }
     } else {
 #pragma unroll
@@ -117,11 +141,12 @@ struct RowSampler {
       }
     }
 #pragma unroll
-    for (int j = 0; j < kU; ++j) {
+    for (int j = 0; j < U; ++j) {
       const float e = (t == 0) ? eta[j] : beta * eps[j] + bscale * eta[j];
       eps[j] = e;
-      float val = uprev[t * kU + j] + sigma[j] * e;
+      float val = uprev[t * U + j] + sigma[j] * e;
       val = fminf(fmaxf(val, umin[j]), umax[j]);
+      // channel 2 (direction, steer or steer rate) of any model with U > 2
       if (steer_off && j == 2) val = 0.0f;
       u[j] = val;
     }
@@ -140,75 +165,60 @@ __device__ __forceinline__ float path_d2(float x, float y, const float* ref,
   return fminf(fmaxf(pn + m, 0.0f), kCap2);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+// Rollout + cost of one sample, unicycle / steering / rate-limited models
+// (ops/costs.py tracking_cost): path term over all T states, velocity term
+// over the T-1 controls. Heading is yaw (unicycle), yaw plus the steer
+// control (steering), or yaw plus the steer state before this step's slew
+// (rate-limited: then rate = clip(u2), steer = clip(steer + rate*dt)).
+template <int M>
+__device__ __forceinline__ float tracking_cost(RowSampler<Dims<M>::U>& smp,
+                                               const float* s0, const float* scal,
+                                               const float* ref, int num_ref,
+                                               int tm1, float steer_max,
+                                               float rate_max) {
+  constexpr int U = Dims<M>::U;
+  const float dt = scal[kDt], v_ref = scal[kVRef];
+  const float path_w = scal[kPathW], v_w = scal[kVW];
+  float x = s0[0], y = s0[1], yaw = s0[2];
+  float steer = 0.0f;
+  if constexpr (M == kRateLimited) steer = s0[3];
+  float cost = 0.0f;
+  float u[U];
+  for (int t = 0; t < tm1; ++t) {
+    smp.row(t, u);
+    cost += path_w * path_d2(x, y, ref, num_ref);
+    const float v = u[0], w = u[1];
+    const float dv = v - v_ref;
+    cost += v_w * dv * dv;
+    float heading = yaw;
+    if constexpr (M == kSteering) heading = yaw + u[2];
+    if constexpr (M == kRateLimited) heading = yaw + steer;
+    float sh, ch;
+    sincosf(heading, &sh, &ch);
+    x = x + v * ch * dt;
+    y = y + v * sh * dt;
+    yaw = yaw + w * dt;
+    if constexpr (M == kRateLimited) {
+      const float rate = fminf(fmaxf(u[2], -rate_max), rate_max);
+      steer = fminf(fmaxf(steer + rate * dt, -steer_max), steer_max);
+    }
+  }
+  return cost + path_w * path_d2(x, y, ref, num_ref);  // final state's term
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
-                              const float* __restrict__ sigma,
-                              const float* __restrict__ u_min,
-                              const float* __restrict__ u_max,
-                              const float* __restrict__ refc,
-                              const float* __restrict__ state0,
-                              const float* __restrict__ scal,
-                              const float* __restrict__ noise,
-                              float* __restrict__ costs,
-                              float* __restrict__ partials,
-                              int num_samples, int horizon, int num_ref,
-                              uint32_t seed, uint32_t step, int steer_off) {
-  extern __shared__ float smem[];
-  __shared__ float s_min[kWarps];
-  const int tm1 = horizon - 1;
-  const int nacc = 1 + tm1 * kU;  // sum w, then sum w*u[t, j]
-  float* s_ref = smem;                 // num_ref * 3
-  float* s_uprev = s_ref + 3 * num_ref;  // tm1 * kU
-  float* s_wsum = s_uprev + tm1 * kU;    // kWarps * nacc
-
-  for (int i = threadIdx.x; i < 3 * num_ref; i += kThreads) s_ref[i] = refc[i];
-  for (int i = threadIdx.x; i < tm1 * kU; i += kThreads) s_uprev[i] = u_prev[i];
-  __syncthreads();
-
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
+// Rollout + cost of one sample, full-body model (ops/costs.py
+// full_body_cost): every term over t in [0, T-3], plus the initial-yaw term.
+__device__ __forceinline__ float full_body_cost(RowSampler<5>& smp,
+                                                const float* s0,
+                                                const float* scal,
+                                                const float* ref, int num_ref,
+                                                int horizon) {
   const float dt = scal[kDt], v_ref = scal[kVRef];
   const float path_w = scal[kPathW], v_w = scal[kVW], zmp_w = scal[kZmpW];
   const float rollv_w = scal[kRollVW], back_w = scal[kBackW];
   const float mass = scal[kMass], c = scal[kBase2Com], ixx = scal[kIxx];
-  const float beta = scal[kBeta];
-
-  RowSampler smp;
-  smp.noise = noise;
-  smp.uprev = s_uprev;
-#pragma unroll
-  for (int j = 0; j < kU; ++j) {
-    smp.sigma[j] = sigma[j];
-    smp.umin[j] = u_min[j];
-    smp.umax[j] = u_max[j];
-    smp.eps[j] = 0.0f;
-  }
-  smp.beta = beta;
-  smp.bscale = sqrtf(1.0f - beta * beta);
-  smp.num_samples = num_samples;
-  smp.k = k;
-  smp.valid = k < num_samples;
-  smp.steer_off = steer_off != 0;
-  smp.seed = seed;
-  smp.step = step;
-
-  // --- rollout + cost (ops/costs.py full_body_cost) ----------------------
-  float x = state0[0], y = state0[1], yaw = state0[2];
-  float roll = state0[3], pitch = state0[4];
+  float x = s0[0], y = s0[1], yaw = s0[2];
+  float roll = s0[3], pitch = s0[4];
   const float dyaw0 = yaw - scal[kYawRef0];
   float cost = scal[kYawW] * dyaw0 * dyaw0;
   // reciprocals hoisted out of the loop, as in the TPU kernel
@@ -216,11 +226,11 @@ rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
   const float bz = mass * scal[kGz];
   const float rbz = 1.0f / bz;
 
-  float cur[kU], nxt[kU];
+  float cur[5], nxt[5];
   smp.row(0, cur);
   for (int t = 0; t < horizon - 2; ++t) {
     smp.row(t + 1, nxt);
-    cost += path_w * path_d2(x, y, s_ref, num_ref);
+    cost += path_w * path_d2(x, y, ref, num_ref);
     const float v = cur[0], w = cur[1], dir = cur[2], rv = cur[3], pv = cur[4];
     const float dv = v - v_ref;
     cost += v_w * dv * dv;
@@ -251,9 +261,92 @@ rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
     roll = roll + rv * dt;
     pitch = pitch + pv * dt;
 #pragma unroll
-    for (int j = 0; j < kU; ++j) cur[j] = nxt[j];
+    for (int j = 0; j < 5; ++j) cur[j] = nxt[j];
   }
-  if (smp.valid) costs[k] = cost;
+  return cost;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// costs_in != nullptr: the costs-free elite pass (no rollout, no cost
+// output). accumulate == 0: the costs-only pass (no update, no partials).
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+rollout_cost_kernel(const float* __restrict__ u_prev,
+                    const float* __restrict__ sigma,
+                    const float* __restrict__ u_min,
+                    const float* __restrict__ u_max,
+                    const float* __restrict__ refc,
+                    const float* __restrict__ state0,
+                    const float* __restrict__ scal,
+                    const float* __restrict__ noise,
+                    const float* __restrict__ costs_in,
+                    float* __restrict__ costs,
+                    float* __restrict__ partials,
+                    int num_samples, int horizon, int num_ref,
+                    uint32_t seed, uint32_t step, int steer_off, int accumulate,
+                    float steer_max, float rate_max) {
+  constexpr int U = Dims<M>::U;
+  extern __shared__ float smem[];
+  __shared__ float s_min[kWarps];
+  const int tm1 = horizon - 1;
+  const int nacc = 1 + tm1 * U;  // sum w, then sum w*u[t, j]
+  float* s_ref = smem;                   // num_ref * 3
+  float* s_uprev = s_ref + 3 * num_ref;  // tm1 * U
+  float* s_wsum = s_uprev + tm1 * U;     // kWarps * nacc
+
+  for (int i = threadIdx.x; i < 3 * num_ref; i += kThreads) s_ref[i] = refc[i];
+  for (int i = threadIdx.x; i < tm1 * U; i += kThreads) s_uprev[i] = u_prev[i];
+  __syncthreads();
+
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const float beta = scal[kBeta];
+  RowSampler<U> smp;
+  smp.noise = noise;
+  smp.uprev = s_uprev;
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    smp.sigma[j] = sigma[j];
+    smp.umin[j] = u_min[j];
+    smp.umax[j] = u_max[j];
+    smp.eps[j] = 0.0f;
+  }
+  smp.beta = beta;
+  smp.bscale = sqrtf(1.0f - beta * beta);
+  smp.num_samples = num_samples;
+  smp.k = k;
+  smp.valid = k < num_samples;
+  smp.steer_off = steer_off != 0;
+  smp.seed = seed;
+  smp.step = step;
+
+  // --- rollout + cost, or the costs of an earlier pass -------------------
+  float cost;
+  if (costs_in != nullptr) {
+    cost = smp.valid ? costs_in[k] : INFINITY;
+  } else {
+    if constexpr (M == kFullBody) {
+      cost = full_body_cost(smp, state0, scal, s_ref, num_ref, horizon);
+    } else {
+      cost = tracking_cost<M>(smp, state0, scal, s_ref, num_ref, tm1,
+                              steer_max, rate_max);
+    }
+    if (smp.valid) costs[k] = cost;
+    if (!accumulate) return;  // uniform over the grid
+  }
 
   // --- block minimum over valid samples ----------------------------------
   const float cm = warp_min(smp.valid ? cost : INFINITY);
@@ -263,18 +356,20 @@ rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
 #pragma unroll
   for (int i = 1; i < kWarps; ++i) m_block = fminf(m_block, s_min[i]);
 
-  // --- weighted sums under the block baseline ----------------------------
+  // --- weighted sums under the block baseline, elites only ---------------
   const float neg_rlam = -1.0f / scal[kLam];
-  const float wgt = smp.valid ? expf((cost - m_block) * neg_rlam) : 0.0f;
+  const bool live = smp.valid && cost <= scal[kThresh];
+  const float wgt = live ? expf((cost - m_block) * neg_rlam) : 0.0f;
   float* wsum = s_wsum + warp * nacc;
   const float sw = warp_sum(wgt);
   if (lane == 0) wsum[0] = sw;
+  float cur[U];
   for (int t = 0; t < tm1; ++t) {
     smp.row(t, cur);
 #pragma unroll
-    for (int j = 0; j < kU; ++j) {
+    for (int j = 0; j < U; ++j) {
       const float s = warp_sum(wgt * cur[j]);
-      if (lane == 0) wsum[1 + t * kU + j] = s;
+      if (lane == 0) wsum[1 + t * U + j] = s;
     }
   }
   __syncthreads();
@@ -289,6 +384,32 @@ rollout_cost_full_body_kernel(const float* __restrict__ u_prev,
   }
 }
 
+template <int M>
+int launch(const float* u_prev, const float* sigma, const float* u_min,
+           const float* u_max, const float* refc, const float* state0,
+           const float* scal, const float* noise, const float* costs_in,
+           float* costs, float* partials, int num_samples, int horizon,
+           int num_ref, unsigned int seed, unsigned int step, int steer_off,
+           int accumulate, float steer_max, float rate_max,
+           cudaStream_t stream) {
+  constexpr int U = Dims<M>::U;
+  const int blocks = (num_samples + kThreads - 1) / kThreads;
+  const size_t tm1u = static_cast<size_t>(horizon - 1) * U;
+  const size_t smem = sizeof(float) *
+      (3 * static_cast<size_t>(num_ref) + tm1u + kWarps * (1 + tm1u));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rollout_cost_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  rollout_cost_kernel<M><<<blocks, kThreads, smem, stream>>>(
+      u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,
+      partials, num_samples, horizon, num_ref, seed, step, steer_off,
+      accumulate, steer_max, rate_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -297,38 +418,53 @@ int rollout_cost_block_threads() { return kThreads; }
 
 int rollout_cost_num_scalars() { return kNScal; }
 
+// U * 16 + S of model id `model`, or -1 for an unknown id.
+int rollout_cost_model_dims(int model) {
+  switch (model) {
+    case kUnicycle: return Dims<kUnicycle>::U * 16 + Dims<kUnicycle>::S;
+    case kSteering: return Dims<kSteering>::U * 16 + Dims<kSteering>::S;
+    case kRateLimited: return Dims<kRateLimited>::U * 16 + Dims<kRateLimited>::S;
+    case kFullBody: return Dims<kFullBody>::U * 16 + Dims<kFullBody>::S;
+    default: return -1;
+  }
+}
+
 const char* rollout_cost_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches the kernel on `stream`. Returns the cudaError_t of the launch
-// (0 on success). partials is (ceil(K / kThreads), 2 + (T-1)*U): per block
-// [m_b, sum w, sum w*u[t, j] ...]. noise may be null (RNG mode).
-int rollout_cost_full_body(const float* u_prev, const float* sigma,
-                           const float* u_min, const float* u_max,
-                           const float* refc, const float* state0,
-                           const float* scal, const float* noise,
-                           float* costs, float* partials, int num_samples,
-                           int horizon, int num_ref, unsigned int seed,
-                           unsigned int step, int steer_off, void* stream) {
-  if (num_samples < 1 || horizon < 2 || num_ref < 1) {
+// Launches the kernel of model id `model` on `stream`. Returns the
+// cudaError_t of the launch (0 on success). noise may be null (RNG mode).
+// costs_in non-null: the costs-free pass, costs unused (may be null).
+// accumulate == 0: the costs-only pass, partials unused (may be null).
+// Otherwise partials is (ceil(K / kThreads), 2 + (T-1)*U): per block
+// [m_b, sum w, sum w*u[t, j] ...].
+int rollout_cost(int model, const float* u_prev, const float* sigma,
+                 const float* u_min, const float* u_max, const float* refc,
+                 const float* state0, const float* scal, const float* noise,
+                 const float* costs_in, float* costs, float* partials,
+                 int num_samples, int horizon, int num_ref, unsigned int seed,
+                 unsigned int step, int steer_off, int accumulate,
+                 float steer_max, float rate_max, void* stream) {
+  if (num_samples < 1 || horizon < 2 || num_ref < 1 ||
+      (costs_in == nullptr && costs == nullptr) ||
+      ((costs_in != nullptr || accumulate) && partials == nullptr) ||
+      (costs_in != nullptr && !accumulate)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (num_samples + kThreads - 1) / kThreads;
-  const size_t tm1u = static_cast<size_t>(horizon - 1) * kU;
-  const size_t smem = sizeof(float) *
-      (3 * static_cast<size_t>(num_ref) + tm1u + kWarps * (1 + tm1u));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rollout_cost_full_body_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define ROLLOUT_COST_ARGS                                                    \
+  u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,   \
+      partials, num_samples, horizon, num_ref, seed, step, steer_off,        \
+      accumulate, steer_max, rate_max, s
+  switch (model) {
+    case kUnicycle: return launch<kUnicycle>(ROLLOUT_COST_ARGS);
+    case kSteering: return launch<kSteering>(ROLLOUT_COST_ARGS);
+    case kRateLimited: return launch<kRateLimited>(ROLLOUT_COST_ARGS);
+    case kFullBody: return launch<kFullBody>(ROLLOUT_COST_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  rollout_cost_full_body_kernel<<<blocks, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs, partials,
-      num_samples, horizon, num_ref, seed, step, steer_off);
-  return static_cast<int>(cudaGetLastError());
+#undef ROLLOUT_COST_ARGS
 }
 
 }  // extern "C"

@@ -2,10 +2,11 @@
 kernel ``csrc/rollout_cost.cu`` and its plain PyTorch version.
 
 Counterpart of ``fused_sample_rollout_cost`` in the JAX package's
-``kernels/rollout_cost.py`` (the Pallas TPU kernel), full-body branch, in
-noise-input mode and in-kernel RNG mode, for any K. Sampled controls and
-rollout states never reach device memory: the kernel writes the (K,) costs
-and one row of partial sums per block, which the wrapper finishes here.
+``kernels/rollout_cost.py`` (the Pallas TPU kernel): the four model
+branches, noise-input and in-kernel RNG mode, any K, and the elite passes
+(costs only, costs in, cost threshold). Sampled controls and rollout states
+never reach device memory: the kernel writes the (K,) costs and one row of
+partial sums per block, which the wrapper finishes here.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -22,30 +23,40 @@ from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
 from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
 from ccv_mppi_path_tracker_tpu_torch.models import full_body
-from ccv_mppi_path_tracker_tpu_torch.ops.costs import full_body_cost
+from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
+from ccv_mppi_path_tracker_tpu_torch.ops.costs import full_body_cost, tracking_cost
 from ccv_mppi_path_tracker_tpu_torch.ops.mindist import center_ref
-from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout
+from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout, steer_limits
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import sample_controls
 
 SOURCE = "ccv_mppi_path_tracker_tpu_torch/csrc/rollout_cost.cu"
-U_DIM = 5  # full-body controls; the kernel's only branch in this port
-S_DIM = 5
 
-# Scalar slots, the JAX package's pack_scalars layout without its elite
-# threshold slot: [dt, v_ref, path_w, v_w, zmp_w, roll_v_w, back_w, yaw_w,
-# yaw_ref0, mass, base2com, Ixx, Iyy, Izz, gravity_z, noise_beta, lam]
-NSCAL = 17
+# Models the kernel implements; the index is the model id of the C entry
+# point (csrc/rollout_cost.cu ModelId).
+KERNEL_MODELS = ("unicycle", "steering_unicycle", "rate_limited_steering", "full_body")
+
+# Scalar slots, the JAX package's pack_scalars layout: [dt, v_ref, path_w,
+# v_w, zmp_w, roll_v_w, back_w, yaw_w, yaw_ref0, mass, base2com, Ixx, Iyy,
+# Izz, gravity_z, noise_beta, lam, cost_thresh]
+NSCAL = 18
 
 
-def pack_scalars(dt, cp: CostParams, yaw_ref0, model_params, noise_beta, lam):
+def pack_scalars(dt, cp: CostParams, yaw_ref0, model_params=None, noise_beta=0.0,
+                 lam=1.0, cost_thresh=None):
     """The (NSCAL,) float32 scalar vector, stacked on ``yaw_ref0``'s device.
-    Python numbers become device fills, so no value is copied from the host."""
+    ``model_params=None`` (the models without physical parameters) fills the
+    mass and inertia slots with zeros; ``cost_thresh=None`` is +inf (no
+    elite mask). Python numbers become device fills, so no value is copied
+    from the host."""
     mp = model_params
+    phys = [0.0] * 6 if mp is None else [
+        mp.mass, mp.base2com, mp.inertia[0], mp.inertia[1], mp.inertia[2],
+        mp.gravity_z,
+    ]
     vals = [
         dt, cp.v_ref, cp.path_weight, cp.v_weight, cp.zmp_weight,
-        cp.roll_v_weight, cp.back_weight, cp.yaw_weight, yaw_ref0,
-        mp.mass, mp.base2com, mp.inertia[0], mp.inertia[1], mp.inertia[2],
-        mp.gravity_z, noise_beta, lam,
+        cp.roll_v_weight, cp.back_weight, cp.yaw_weight, yaw_ref0, *phys,
+        noise_beta, lam, float("inf") if cost_thresh is None else cost_thresh,
     ]
     dev = yaw_ref0.device
     return torch.stack([
@@ -62,85 +73,109 @@ def _unpack_scalars(scal):
                     back_weight=scal[6], yaw_weight=scal[7])
     mp = full_body.FullBodyParams(mass=scal[9], base2com=scal[10],
                                   inertia=scal[11:14], gravity_z=scal[14])
-    return dt, cp, scal[8], mp, scal[15], scal[16]
+    return dt, cp, scal[8], mp, scal[15], scal[16], scal[17]
 
 
 def fused_sample_rollout_cost_reference(
     u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
-    num_samples: int, steer_off: bool = False,
-    noise: Optional[torch.Tensor] = None,
+    num_samples: int, model: str, steer_off: bool = False,
+    noise: Optional[torch.Tensor] = None, accumulate: bool = True,
+    costs_in: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel: same arguments and outputs.
 
     Samples with the eager ops (RNG mode draws the kernel's own Philox
-    normals, ``core/random.py philox_normals``), rolls out with the
-    sequential Euler step the kernel runs, and reduces with one global
-    softmax under the baseline min(costs).
+    normals, ``core/random.py philox_normals``), rolls out with the model's
+    sequential Euler step as the kernel does, costs with the built-in cost,
+    and reduces with one global softmax under the baseline min(costs),
+    weights zeroed above the threshold in ``scal``.
     """
     tm1, u_dim = u_prev.shape
-    dt, cp, yaw_ref0, mp, beta, lam = _unpack_scalars(scal)
+    dt, cp, yaw_ref0, mp, beta, lam, thresh = _unpack_scalars(scal)
     if noise is None:
         noise = philox_normals(seed, step, num_samples, tm1, u_dim,
                                device=u_prev.device, dtype=u_prev.dtype)
     sp = SolverParams(control_noise=sigma, lam=lam, u_min=u_min, u_max=u_max,
                       noise_beta=beta)
     u = sample_controls(u_prev, sp, num_samples, steer_off=steer_off, noise=noise)
-    states = rollout(full_body.step, state0.expand(num_samples, -1), u, dt)
-    zmp = full_body.zmp_chain(states, u, dt, mp)
-    ref = RefWindow(xy=ref_xy, yaw=yaw_ref0.expand(ref_xy.shape[0]))
-    costs = full_body_cost(states, u, zmp, ref, cp)
+    if costs_in is not None:
+        costs = costs_in
+    else:
+        states = rollout(get_model(model).step, state0.expand(num_samples, -1), u, dt)
+        ref = RefWindow(xy=ref_xy, yaw=yaw_ref0.expand(ref_xy.shape[0]))
+        if model == "full_body":
+            costs = full_body_cost(states, u, full_body.zmp_chain(states, u, dt, mp),
+                                   ref, cp)
+        else:
+            costs = tracking_cost(states, u, ref, cp)
+    if not accumulate:
+        return costs, None, None
     w = torch.exp((costs - torch.amin(costs)) * (-1.0 / lam))
+    w = torch.where(costs <= thresh, w, 0.0)
     u_num = torch.sum(w[None, :, None] * u, dim=1)
     return costs, u_num, torch.sum(w)
 
 
 def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
-                  num_samples, noise):
-    if u_prev.dim() != 2 or u_prev.shape[1] != U_DIM or u_prev.shape[0] < 1:
-        raise ValueError(f"u_prev must be (T-1, {U_DIM}), got {tuple(u_prev.shape)}")
+                  num_samples, model, noise, accumulate, costs_in):
+    if model not in KERNEL_MODELS:
+        raise ValueError(f"the fused kernel implements {KERNEL_MODELS}, not {model!r}")
+    m = get_model(model)
+    u_dim, s_dim = m.num_controls, m.num_states
+    if u_prev.dim() != 2 or u_prev.shape[1] != u_dim or u_prev.shape[0] < 1:
+        raise ValueError(f"u_prev must be (T-1, {u_dim}), got {tuple(u_prev.shape)}")
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    if costs_in is not None and not accumulate:
+        raise ValueError("the costs-in pass exists to accumulate")
     tm1 = u_prev.shape[0]
     shapes = {
-        "sigma": (sigma, (U_DIM,)), "u_min": (u_min, (U_DIM,)),
-        "u_max": (u_max, (U_DIM,)), "state0": (state0, (S_DIM,)),
+        "sigma": (sigma, (u_dim,)), "u_min": (u_min, (u_dim,)),
+        "u_max": (u_max, (u_dim,)), "state0": (state0, (s_dim,)),
         "scal": (scal, (NSCAL,)),
     }
     if noise is not None:
-        shapes["noise"] = (noise, (tm1, num_samples, U_DIM))
+        shapes["noise"] = (noise, (tm1, num_samples, u_dim))
+    if costs_in is not None:
+        shapes["costs_in"] = (costs_in, (num_samples,))
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if ref_xy.dim() != 2 or ref_xy.shape[1] != 2 or ref_xy.shape[0] < 1:
         raise ValueError(f"ref_xy must be (R, 2), got {tuple(ref_xy.shape)}")
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     tensors = [u_prev, sigma, u_min, u_max, ref_xy, state0, scal]
-    tensors += [noise] if noise is not None else []
+    tensors += [t for t in (noise, costs_in) if t is not None]
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32 only, got {t.dtype}")
         if t.device != u_prev.device:
             raise ValueError(f"all inputs must be on {u_prev.device}, got {t.device}")
     for name, t in (("u_prev", u_prev), ("sigma", sigma), ("u_min", u_min),
-                    ("u_max", u_max), ("scal", scal)):
-        if not t.is_contiguous():
+                    ("u_max", u_max), ("scal", scal), ("costs_in", costs_in)):
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 def _bind(lib):
     if getattr(lib, "_rollout_cost_bound", False):
         return lib
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    fn = lib.rollout_cost_full_body
-    fn.argtypes = [p] * 10 + [i, i, i, u, u, i, p]
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    fn = lib.rollout_cost
+    fn.argtypes = [i] + [p] * 11 + [i, i, i, u, u, i, i, f, f, p]
     fn.restype = i
-    lib.rollout_cost_block_threads.argtypes = []
-    lib.rollout_cost_block_threads.restype = i
-    lib.rollout_cost_num_scalars.argtypes = []
-    lib.rollout_cost_num_scalars.restype = i
+    for name in ("rollout_cost_block_threads", "rollout_cost_num_scalars"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.rollout_cost_model_dims.argtypes = [i]
+    lib.rollout_cost_model_dims.restype = i
     lib.rollout_cost_error_string.argtypes = [i]
     lib.rollout_cost_error_string.restype = ctypes.c_char_p
     if lib.rollout_cost_num_scalars() != NSCAL:
         raise RuntimeError("csrc/rollout_cost.cu scalar layout differs from NSCAL")
+    for mid, name in enumerate(KERNEL_MODELS):
+        m = get_model(name)
+        if lib.rollout_cost_model_dims(mid) != m.num_controls * 16 + m.num_states:
+            raise RuntimeError(f"csrc/rollout_cost.cu model {mid} is not {name}")
     lib._rollout_cost_bound = True
     return lib
 
@@ -153,74 +188,98 @@ class KernelLaunch:
     launch error; :meth:`finish` reduces the per-block partials."""
 
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
-                 step, num_samples, steer_off, noise):
+                 step, num_samples, model, steer_off=False, noise=None,
+                 accumulate=True, costs_in=None):
         from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
         self.lib = _bind(load_library("rollout_cost"))
         dev = u_prev.device
-        self.tm1 = u_prev.shape[0]
+        self.tm1, self.u_dim = u_prev.shape
         self.lam = scal[16]
         c, rc2, rn = center_ref(ref_xy)
         refc = torch.cat([rc2, rn[:, None]], dim=1).contiguous()
         s0 = torch.cat([state0[:2] - c, state0[2:]]).contiguous()
         noise_t = None if noise is None else noise.permute(0, 2, 1).contiguous()
         blocks = -(-num_samples // self.lib.rollout_cost_block_threads())
-        self.costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
-        self.partials = torch.empty((blocks, 2 + self.tm1 * U_DIM),
-                                    dtype=torch.float32, device=dev)
+        self.costs = costs_in
+        if costs_in is None:
+            self.costs = torch.empty(num_samples, dtype=torch.float32, device=dev)
+        self.partials = None
+        if accumulate:
+            self.partials = torch.empty((blocks, 2 + self.tm1 * self.u_dim),
+                                        dtype=torch.float32, device=dev)
+        steer_max, rate_max = 0.0, 0.0
+        if model == "rate_limited_steering":
+            steer_max, rate_max = steer_limits(model)
         # operands stay referenced by self until the launch is dropped
         self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t)
         self.device = dev
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         self.args = (
-            u_prev.data_ptr(), sigma.data_ptr(), u_min.data_ptr(),
-            u_max.data_ptr(), refc.data_ptr(), s0.data_ptr(), scal.data_ptr(),
-            None if noise_t is None else noise_t.data_ptr(),
-            self.costs.data_ptr(), self.partials.data_ptr(), num_samples,
-            self.tm1 + 1, refc.shape[0], seed & 0xFFFFFFFF, step & 0xFFFFFFFF,
-            int(steer_off),
+            KERNEL_MODELS.index(model), u_prev.data_ptr(), sigma.data_ptr(),
+            u_min.data_ptr(), u_max.data_ptr(), refc.data_ptr(), s0.data_ptr(),
+            scal.data_ptr(), ptr(noise_t), ptr(costs_in),
+            None if costs_in is not None else self.costs.data_ptr(),
+            ptr(self.partials), num_samples, self.tm1 + 1, refc.shape[0],
+            seed & 0xFFFFFFFF, step & 0xFFFFFFFF, int(steer_off), int(accumulate),
+            steer_max, rate_max,
         )
 
     def run(self):
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = self.lib.rollout_cost_full_body(*self.args, stream)
+            err = self.lib.rollout_cost(*self.args, stream)
         if err != 0:
             msg = self.lib.rollout_cost_error_string(err).decode()
             raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
 
     def finish(self):
         """(u_num, norm): each block's sums rescaled from its own baseline
-        m_b to the global minimum m by exp(-(m_b - m)/lambda), then summed."""
+        m_b to the global minimum m by exp(-(m_b - m)/lambda), then summed;
+        (None, None) after a costs-only pass."""
+        if self.partials is None:
+            return None, None
         m_blk, norm_blk = self.partials[:, 0], self.partials[:, 1]
         scale = torch.exp((m_blk - torch.amin(m_blk)) * (-1.0 / self.lam))
         norm = torch.sum(scale * norm_blk)
         u_num = torch.sum(scale[:, None] * self.partials[:, 2:], dim=0)
-        return u_num.reshape(self.tm1, U_DIM), norm
+        return u_num.reshape(self.tm1, self.u_dim), norm
 
 
 def fused_sample_rollout_cost(
     u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
-    num_samples: int, steer_off: bool = False,
-    noise: Optional[torch.Tensor] = None,
+    num_samples: int, model: str, steer_off: bool = False,
+    noise: Optional[torch.Tensor] = None, accumulate: bool = True,
+    costs_in: Optional[torch.Tensor] = None,
 ):
-    """Sample, roll out and cost K full-body trajectories and accumulate the
-    softmax-weighted update, in one kernel.
+    """Sample, roll out and cost K trajectories of ``model`` and accumulate
+    the softmax-weighted update, in one kernel.
 
-    u_prev: (T-1, 5) sampling mean; sigma/u_min/u_max: (5,); ref_xy: (R, 2)
-    reference window; state0: (5,); scal: (NSCAL,) from :func:`pack_scalars`.
-    seed/step: the cycle's Philox key (RNG mode, ``noise=None``). noise:
-    optional standard normals (T-1, K, 5), the layout of ``sample_controls``.
-    All float32 on one device.
+    u_prev: (T-1, U) sampling mean; sigma/u_min/u_max: (U,); ref_xy: (R, 2)
+    reference window; state0: (S,); scal: (NSCAL,) from :func:`pack_scalars`,
+    whose last slot is the elite threshold (+inf: no mask). seed/step: the
+    cycle's Philox key (RNG mode, ``noise=None``). noise: optional standard
+    normals (T-1, K, U), the layout of ``sample_controls``. All float32 on
+    one device; U and S are the registered model's.
 
-    Returns (costs (K,), u_num (T-1, 5), norm ()) under the baseline
+    accumulate=False: the costs-only pass (the first pass of two-pass elite):
+    returns (costs, None, None). costs_in: the costs-free pass, (K,) costs
+    of an earlier pass with the same seed, step and noise: the kernel
+    regenerates the same controls, skips the rollout, and returns
+    (costs_in, u_num, norm).
+
+    Returns (costs (K,), u_num (T-1, U), norm ()) under the baseline
     min(costs): ``u_opt = u_num / norm``. A CPU tensor runs
     :func:`fused_sample_rollout_cost_reference`; a CUDA tensor launches the
     kernel, counted in ``fused_sample_rollout_cost.launches``.
     """
     _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
-                  num_samples, noise)
+                  num_samples, model, noise, accumulate, costs_in)
     args = (u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
-            num_samples, steer_off, noise)
+            num_samples, model, steer_off, noise, accumulate, costs_in)
     if u_prev.device.type == "cpu":
         return fused_sample_rollout_cost_reference(*args)
     if u_prev.device.type != "cuda":

@@ -1,6 +1,11 @@
 """Dynamics models; importing the package registers the built-in ones."""
 
-from ccv_mppi_path_tracker_tpu_torch.models import full_body  # noqa: F401
+from ccv_mppi_path_tracker_tpu_torch.models import (  # noqa: F401
+    full_body,
+    rate_limited_steering,
+    steering_unicycle,
+    unicycle,
+)
 from ccv_mppi_path_tracker_tpu_torch.models.base import Model
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model, register_model
 

@@ -18,6 +18,14 @@ class Model:
     aux_from_rollout: optional post-rollout pass over the whole trajectory,
         (states (T, ..., S), controls (T-1, ..., U), dt, params) -> dict.
     default_params: optional (device, dtype) -> the model's parameters.
+    cost_fn: optional per-trajectory cost override, (states (T, K, S),
+        controls (T-1, K, U), aux, ref: RefWindow, cp: CostParams) -> (K,).
+        The eager path uses it in place of the built-in cost; the fused
+        kernel computes the built-in cost only.
+    constants: numeric constants baked into ``step`` (rate_limited_steering's
+        steer and rate limits). Code that re-derives the dynamics outside
+        ``step`` (the closed-form rollout, the fused kernel) reads them from
+        here, so a re-registered variant stays consistent with its step.
     """
 
     name: str
@@ -26,6 +34,8 @@ class Model:
     step: Callable
     aux_from_rollout: Optional[Callable] = None
     default_params: Optional[Callable] = None
+    cost_fn: Optional[Callable] = None
+    constants: Optional[dict] = None
 
     @property
     def num_states(self) -> int:

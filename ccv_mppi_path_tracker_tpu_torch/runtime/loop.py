@@ -36,6 +36,7 @@ def simulate(
     plant: Optional[Plant] = None,
     num_steps: int = 100,
     use_kernel: bool = False,
+    solver_options: Optional[dict] = None,
 ):
     """Run ``num_steps`` control cycles against the plant.
 
@@ -43,13 +44,24 @@ def simulate(
     plant; the plant's process noise (if any) is drawn from the cycle's
     generator stream 1 (core/random.py). Returns (final ctrl, logs) with
     logs "state" (N, S) and "u0" (N, U) tensors on the device.
+
+    solver_options: extra keyword options of every cycle's ``mppi_step``
+    (shift_warm_start, delay, elite_frac). ``"elite_stale": True`` (with
+    elite_frac) runs single-pass elite: each cycle masks at the previous
+    cycle's threshold, +inf on the first cycle.
     """
     if plant is None:
         plant = Plant(model_name=cfg.model)
-    if model_params is None:
-        model_params = get_model(cfg.model).default_params(
-            device=state0.device, dtype=state0.dtype
-        )
+    model = get_model(cfg.model)
+    if model_params is None and model.default_params is not None:
+        model_params = model.default_params(device=state0.device, dtype=state0.dtype)
+    opts = dict(solver_options or {})
+    elite_stale = opts.pop("elite_stale", False)
+    if elite_stale:
+        if opts.get("elite_frac") is None:
+            raise ValueError("elite_stale requires elite_frac")
+        opts["elite_stale_thresh"] = torch.full((), torch.inf, dtype=state0.dtype,
+                                                device=state0.device)
     state = state0
     states, u0s = [], []
     for _ in range(num_steps):
@@ -58,8 +70,10 @@ def simulate(
             generator = cycle_generator(ctrl.seed, ctrl.step, state.device, stream=1)
         ctrl, res = mppi_step(
             cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-            use_kernel=use_kernel, lean=True,
+            use_kernel=use_kernel, lean=True, **opts,
         )
+        if elite_stale:
+            opts["elite_stale_thresh"] = res.stats["elite_thresh"]
         state = plant.step(state, res.u0, dt, generator=generator)
         states.append(state)
         u0s.append(res.u0)
@@ -78,6 +92,7 @@ def run_tracking_experiment(
     seed: int = 0,
     use_kernel: bool = False,
     resolution: float = 0.1,
+    solver_options: Optional[dict] = None,
 ):
     """Run a tracking experiment on the device of ``sp``; return logs and
     the calc_e_rmse metrics.
@@ -86,6 +101,7 @@ def run_tracking_experiment(
     course heading (the reference spawns the robot on the course).
     ``resolution`` is the course generator's sample spacing (the reference's
     ``resolution`` param): it sets the reference-window stride.
+    ``solver_options`` go to :func:`simulate`.
     """
     device, dtype = sp.lam.device, sp.lam.dtype
     model = get_model(cfg.model)
@@ -99,7 +115,7 @@ def run_tracking_experiment(
         cfg, ctrl, torch.as_tensor(state0, dtype=dtype, device=device), path,
         torch.full((), dt, dtype=dtype, device=device), sp, cp,
         model_params=model_params, plant=plant, num_steps=num_steps,
-        use_kernel=use_kernel,
+        use_kernel=use_kernel, solver_options=solver_options,
     )
     logs = {k: v.cpu().numpy() for k, v in logs.items()}
     xy = np.concatenate([state0[None, :2], logs["state"][:, :2]], axis=0)

@@ -3,10 +3,11 @@
 The JAX kernel runs in interpret mode on the CPU with the ``tile_noise``
 input; the port's wrapper, given CPU tensors, runs its plain PyTorch version
 (kernels/rollout_cost.py). Both see the same float32 inputs, made with
-numpy from a seed, with roll_off=False weights so the ZMP and roll-rate
-terms are live. Tolerances are tests/test_kernel.py's: costs rtol 2e-5,
-u_opt = u_num/norm rtol 2e-5 atol 2e-6 (float32 rounding between the two
-evaluation orders).
+numpy from a seed, for each of the four models: the JAX package's launch
+preset of the model, with roll_off=False weights for full_body so the ZMP
+and roll-rate terms are live. Tolerances are tests/test_kernel.py's: costs
+rtol 2e-5, u_opt = u_num/norm rtol 2e-5 atol 2e-6 (float32 rounding between
+the two evaluation orders).
 
 Also checked: the torch Philox4x32-10 of the kernel's RNG mode against
 published known-answer vectors and an independent numpy uint64 version, and
@@ -20,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from ccv_mppi_path_tracker_tpu.core.presets import full_body_launch as jax_full_body_launch
+from ccv_mppi_path_tracker_tpu.core.presets import PRESETS as JAX_PRESETS
 from ccv_mppi_path_tracker_tpu.kernels.rollout_cost import (
     fused_sample_rollout_cost as jax_fused,
     pack_scalars as jax_pack_scalars,
@@ -36,77 +37,112 @@ from ccv_mppi_path_tracker_tpu_torch.core.random import (
     philox_normals,
 )
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
-    NSCAL,
     fused_sample_rollout_cost,
     fused_sample_rollout_cost_reference,
 )
 
 T = 12
 DT = 0.1
+# model -> (its JAX launch preset, its start state after x and y)
+MODELS = {
+    "unicycle": ("diff_drive", (0.1,)),
+    "steering_unicycle": ("steering_diff_drive", (0.1,)),
+    "rate_limited_steering": ("rate_limited_steering", (0.1, 0.2)),
+    "full_body": ("full_body", (0.1, 0.02, -0.03)),
+}
 
 
-def _inputs(k, beta=0.0, seed=0):
-    """float32 numpy inputs of one kernel call, from the JAX package's
-    full-body launch preset with roll_off=False."""
-    cfg, sp, cp, course = jax_full_body_launch(
-        num_samples=k, horizon=T, dtype=np.float32, roll_off=False
-    )
+def _inputs(k, model="full_body", beta=0.0, seed=0, cost_thresh=None):
+    """float32 numpy inputs of one kernel call, from the JAX package's launch
+    preset of ``model`` (full_body with roll_off=False)."""
+    preset, rest = MODELS[model]
+    kw = {"roll_off": False} if model == "full_body" else {}
+    cfg, sp, cp, course = JAX_PRESETS[preset](
+        num_samples=k, horizon=T, dtype=np.float32, **kw)
+    assert cfg.model == model
     sp = dataclasses.replace(sp, noise_beta=np.asarray(beta, np.float32))
+    u_dim = np.asarray(sp.u_min).shape[0]
     rng = np.random.RandomState(seed)
-    state = np.array([0.05, course[0, 1] + 0.1, 0.1, 0.02, -0.03], np.float32)
+    state = np.array([0.05, course[0, 1] + 0.1, *rest], np.float32)
     path = JaxPathBuffer.from_points(course, 0.1, dtype=np.float32)
     ref = jax_resample(path, jnp.asarray(state[:2]), cp.v_ref, jnp.float32(DT), T)
-    scal = jax_pack_scalars(jnp.float32(DT), cp, ref.yaw[0], jax_default_params(),
-                            noise_beta=sp.noise_beta, lam=sp.lam)
+    mp = jax_default_params() if model == "full_body" else None
+    scal = jax_pack_scalars(jnp.float32(DT), cp, ref.yaw[0], mp,
+                            noise_beta=sp.noise_beta, lam=sp.lam,
+                            cost_thresh=cost_thresh)
     return {
-        "u_prev": (rng.randn(T - 1, 5) * 0.2).astype(np.float32),
+        "u_prev": (rng.randn(T - 1, u_dim) * 0.2).astype(np.float32),
         "sigma": np.asarray(sp.control_noise),
         "u_min": np.asarray(sp.u_min),
         "u_max": np.asarray(sp.u_max),
         "ref_xy": np.asarray(ref.xy),
         "state0": state,
         "scal": np.asarray(scal),
-        "noise": rng.randn(T - 1, k, 5).astype(np.float32),
+        "noise": rng.randn(T - 1, k, u_dim).astype(np.float32),
     }
 
 
-def _jax_kernel(inp, k, steer_off):
-    rows = tile_rows(T, 5, True, k)
+def _jax_kernel(inp, k, steer_off, model="full_body", **kw):
+    """The JAX kernel in interpret mode. Returns (costs, u_opt); with
+    ``costs_in``, costs is None; with ``accumulate=False``, u_opt is None."""
+    tm1, u_dim = inp["u_prev"].shape
+    rows = tile_rows(tm1 + 1, u_dim, True, k)
     noise = tile_noise(jnp.asarray(inp["noise"]), padded_k(k, rows))
-    costs, u_part, n_part = jax_fused(
+    out = jax_fused(
         jnp.asarray(inp["u_prev"]), jnp.asarray(inp["sigma"]),
         jnp.asarray(inp["u_min"]), jnp.asarray(inp["u_max"]),
         jnp.asarray(inp["ref_xy"]), jnp.asarray(inp["state0"]),
         jnp.asarray(inp["scal"]), jnp.zeros((1,), jnp.int32),
-        num_samples=k, model="full_body", steer_off=steer_off, noise=noise,
-        interpret=True,
+        num_samples=k, model=model, steer_off=steer_off, noise=noise,
+        interpret=True, **kw,
     )
-    u_num = np.asarray(u_part).sum(axis=(-2, -1)).reshape(T - 1, 5)
-    return np.asarray(costs), u_num / np.asarray(n_part).sum()
+    if kw.get("costs_in") is not None:
+        out = (None,) + tuple(out)
+    costs, u_part, n_part = out
+    costs = None if costs is None else np.asarray(costs)
+    if not kw.get("accumulate", True):
+        return costs, None
+    u_num = np.asarray(u_part).sum(axis=(-2, -1)).reshape(tm1, u_dim)
+    return costs, u_num / np.asarray(n_part).sum()
 
 
-def _port(inp, k, steer_off, noise=True, seed=0, step=0):
+def _port(inp, k, steer_off, noise=True, seed=0, step=0, model="full_body", **kw):
     t = {n: torch.tensor(v) for n, v in inp.items()}
     return fused_sample_rollout_cost(
         t["u_prev"], t["sigma"], t["u_min"], t["u_max"], t["ref_xy"],
-        t["state0"], t["scal"][:NSCAL], seed=seed, step=step, num_samples=k,
-        steer_off=steer_off, noise=t["noise"] if noise else None,
+        t["state0"], t["scal"], seed=seed, step=step, num_samples=k,
+        model=model, steer_off=steer_off, noise=t["noise"] if noise else None,
+        **kw,
     )
 
 
+def _case(model, k, steer_off, beta):
+    # the full_body cases keep the ids they had before the other models came
+    name = f"{k}-{steer_off}-{beta}"
+    return pytest.param(model, k, steer_off, beta,
+                        id=name if model == "full_body" else f"{model}-{name}")
+
+
 @pytest.mark.parametrize(
-    "k,steer_off,beta",
-    [(4096, False, 0.0), (4096, True, 0.0), (1000, False, 0.0),
-     (1000, True, 0.0), (1000, False, 0.5)],
+    "model,k,steer_off,beta",
+    [_case("full_body", 4096, False, 0.0), _case("full_body", 4096, True, 0.0),
+     _case("full_body", 1000, False, 0.0), _case("full_body", 1000, True, 0.0),
+     _case("full_body", 1000, False, 0.5),
+     _case("unicycle", 1000, False, 0.5), _case("unicycle", 1000, True, 0.0),
+     _case("steering_unicycle", 1000, False, 0.0),
+     _case("steering_unicycle", 1000, True, 0.0),
+     _case("rate_limited_steering", 1000, False, 0.5),
+     _case("rate_limited_steering", 1000, True, 0.0)],
 )
-def test_plain_version_matches_jax_kernel(k, steer_off, beta):
-    inp = _inputs(k, beta=beta)
-    costs_j, u_opt_j = _jax_kernel(inp, k, steer_off)
-    costs, u_num, norm = _port(inp, k, steer_off)
-    assert costs.shape == (k,) and u_num.shape == (T - 1, 5) and norm.shape == ()
+def test_plain_version_matches_jax_kernel(model, k, steer_off, beta):
+    inp = _inputs(k, model=model, beta=beta)
+    u_dim = inp["u_prev"].shape[1]
+    costs_j, u_opt_j = _jax_kernel(inp, k, steer_off, model=model)
+    costs, u_num, norm = _port(inp, k, steer_off, model=model)
+    assert costs.shape == (k,) and u_num.shape == (T - 1, u_dim) and norm.shape == ()
     np.testing.assert_allclose(costs.numpy(), costs_j, rtol=2e-5)
     np.testing.assert_allclose((u_num / norm).numpy(), u_opt_j, rtol=2e-5, atol=2e-6)
-    if steer_off:
+    if steer_off and u_dim > 2:  # channel 2 exists: steer_off zeroes it
         assert np.all((u_num / norm).numpy()[:, 2] == 0.0)
 
 
@@ -163,14 +199,21 @@ def test_philox_normals_statistics_and_determinism():
     assert torch.equal(n[:, :1000], philox_normals(7, 3, 1000, 2, 5))
 
 
-def test_rng_mode_draws_the_philox_stream():
+@pytest.mark.parametrize("model", list(MODELS))
+def test_rng_mode_draws_the_philox_stream(model):
+    """RNG mode draws (U+1)//2 Box-Muller pairs a row and drops the last
+    normal for odd U, as the kernel does."""
     k = 1000
-    inp = _inputs(k)
-    inp["noise"] = philox_normals(11, 4, k, T - 1, 5).numpy()
-    injected = _port(inp, k, False)
-    drawn = _port(inp, k, False, noise=False, seed=11, step=4)
+    inp = _inputs(k, model=model)
+    u_dim = inp["u_prev"].shape[1]
+    inp["noise"] = philox_normals(11, 4, k, T - 1, u_dim).numpy()
+    injected = _port(inp, k, False, model=model)
+    drawn = _port(inp, k, False, noise=False, seed=11, step=4, model=model)
     for a, b in zip(injected, drawn):
         assert torch.equal(a, b)
+    if u_dim == 3:
+        np.testing.assert_array_equal(inp["noise"],
+                                      philox_normals(11, 4, k, T - 1, 4).numpy()[..., :3])
 
 
 def test_rng_mode_update_is_the_sample_mean_at_huge_lambda():
@@ -194,10 +237,11 @@ def test_wrapper_cpu_path_is_the_plain_version():
     inp = _inputs(k)
     t = {n: torch.tensor(v) for n, v in inp.items()}
     args = (t["u_prev"], t["sigma"], t["u_min"], t["u_max"], t["ref_xy"],
-            t["state0"], t["scal"][:NSCAL])
+            t["state0"], t["scal"])
+    kw = dict(seed=1, step=2, num_samples=k, model="full_body")
     before = fused_sample_rollout_cost.launches
-    a = fused_sample_rollout_cost(*args, seed=1, step=2, num_samples=k)
-    b = fused_sample_rollout_cost_reference(*args, seed=1, step=2, num_samples=k)
+    a = fused_sample_rollout_cost(*args, **kw)
+    b = fused_sample_rollout_cost_reference(*args, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert fused_sample_rollout_cost.launches == before

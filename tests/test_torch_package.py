@@ -117,7 +117,7 @@ def _kernel_args(**over):
         u_prev=torch.zeros(9, 5), sigma=torch.full((5,), 0.5),
         u_min=-torch.ones(5), u_max=torch.ones(5),
         ref_xy=torch.rand(10, 2), state0=torch.zeros(5),
-        scal=torch.ones(NSCAL),
+        scal=torch.ones(NSCAL), model="full_body",
     )
     args.update(over)
     return args
@@ -132,8 +132,15 @@ def _kernel_args(**over):
         ({"ref_xy": torch.rand(10, 3)}, ValueError),
         ({"u_prev": torch.zeros(5, 9).t()}, ValueError),
         ({"noise": torch.zeros(9, 7, 5)}, ValueError),
+        ({"model": "no_such_model"}, ValueError),
+        ({"model": "unicycle"}, ValueError),
+        ({"costs_in": torch.zeros(8), "accumulate": False}, ValueError),
+        ({"costs_in": torch.zeros(7)}, ValueError),
+        ({"costs_in": torch.zeros(8, dtype=torch.float64)}, TypeError),
     ],
-    ids=["float64", "u_dim", "scal_len", "ref_cols", "non_contiguous", "noise_shape"],
+    ids=["float64", "u_dim", "scal_len", "ref_cols", "non_contiguous", "noise_shape",
+         "unknown_model", "model_dims", "costs_in_without_update", "costs_in_shape",
+         "costs_in_float64"],
 )
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(over, error):
     with pytest.raises(error):

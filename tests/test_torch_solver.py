@@ -1,5 +1,5 @@
 """The port's control step and closed loop against the JAX package and the
-float64 NumPy oracle, with the same injected noise.
+float64 NumPy oracle, with the same injected noise, for the four models.
 
 - eager path at float64: JAX mppi_step and oracle_step, rtol 1e-9 atol 1e-12
   (tests/test_solver_parity.py's tolerance);
@@ -9,6 +9,8 @@ float64 NumPy oracle, with the same injected noise.
 - a 5-cycle closed loop, port against JAX, per-cycle injected noise.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from ccv_mppi_path_tracker_tpu.core import ControllerState as JaxControllerState
-from ccv_mppi_path_tracker_tpu.core.config import full_body_config as jax_full_body_config
+from ccv_mppi_path_tracker_tpu.core import config as jax_config
 from ccv_mppi_path_tracker_tpu.models.full_body import default_params as jax_default_params
 from ccv_mppi_path_tracker_tpu.models.full_body import step as jax_model_step
 from ccv_mppi_path_tracker_tpu.oracle import oracle_step
@@ -24,7 +26,7 @@ from ccv_mppi_path_tracker_tpu.paths import PathBuffer as JaxPathBuffer
 from ccv_mppi_path_tracker_tpu.solver import mppi_step as jax_mppi_step
 from ccv_mppi_path_tracker_tpu_torch.convert import from_numpy
 from ccv_mppi_path_tracker_tpu_torch.core import ControllerState, SolverConfig
-from ccv_mppi_path_tracker_tpu_torch.core.presets import full_body_launch
+from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS, full_body_launch
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import fused_sample_rollout_cost
 from ccv_mppi_path_tracker_tpu_torch.models.full_body import step as port_model_step
 from ccv_mppi_path_tracker_tpu_torch.paths import sum_of_cosines_course
@@ -36,6 +38,15 @@ DT = 0.1
 F64 = dict(rtol=1e-9, atol=1e-12)
 F32 = dict(rtol=2e-5, atol=2e-6)
 
+# model -> (JAX config of its node, start state)
+MODELS = {
+    "unicycle": (jax_config.diff_drive_config, [0.0, -0.1, 0.15]),
+    "steering_unicycle": (jax_config.steering_diff_drive_config, [0.0, -0.1, 0.15]),
+    "rate_limited_steering": (jax_config.rate_limited_steering_config,
+                              [0.0, -0.1, 0.15, 0.1]),
+    "full_body": (jax_config.full_body_config, [0.0, -0.1, 0.15, 0.02, -0.03]),
+}
+
 
 def _course():
     return sum_of_cosines_course(amplitudes=(1.0, 0.3, 0.0),
@@ -46,21 +57,25 @@ def _course():
 class Case:
     """One control-step problem, built in both packages from numpy."""
 
-    def __init__(self, k, f64=True, steer_off=False, seed=42, horizon=T):
+    def __init__(self, k, f64=True, steer_off=False, seed=42, horizon=T,
+                 model="full_body"):
         np_dtype = np.float64 if f64 else np.float32
         self.dtype = torch.float64 if f64 else torch.float32
         self.k, self.horizon = k, horizon
-        self.jcfg, self.jsp, self.jcp = jax_full_body_config(
-            num_samples=k, horizon=horizon, steer_off=steer_off, dtype=np_dtype)
-        self.cfg = SolverConfig(model="full_body", num_samples=k, horizon=horizon,
+        config, state = MODELS[model]
+        jcfg, self.jsp, self.jcp = config(num_samples=k, horizon=horizon,
+                                          dtype=np_dtype)
+        self.jcfg = dataclasses.replace(jcfg, steer_off=steer_off)
+        self.cfg = SolverConfig(model=model, num_samples=k, horizon=horizon,
                                 steer_off=steer_off)
+        u_dim = np.asarray(self.jsp.u_min).shape[0]
         rng = np.random.RandomState(seed)
-        self.noise = rng.randn(horizon - 1, k, 5).astype(np_dtype)
-        self.u_prev = (rng.randn(horizon - 1, 5) * 0.1).astype(np_dtype)
-        self.state = np.array([0.0, -0.1, 0.15, 0.02, -0.03], np_dtype)
+        self.noise = rng.randn(horizon - 1, k, u_dim).astype(np_dtype)
+        self.u_prev = (rng.randn(horizon - 1, u_dim) * 0.1).astype(np_dtype)
+        self.state = np.array(state, np_dtype)
         self.course = _course()
         self.jpath = JaxPathBuffer.from_points(self.course, 0.1, dtype=np_dtype)
-        self.jmp = jax_default_params(np_dtype)
+        self.jmp = jax_default_params(np_dtype) if model == "full_body" else None
         self.sp, self.cp, self.mp, self.tu, self.path = from_numpy(
             self.jsp, self.jcp, self.jmp, self.u_prev, self.jpath, dtype=self.dtype)
 
@@ -90,14 +105,27 @@ def close(port, ref, tol):
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), **tol)
 
 
+def _step_case(opts, name, model="full_body"):
+    # the full_body cases keep the ids they had before the other models came
+    return pytest.param(opts, model,
+                        id=name if model == "full_body" else f"{model}-{name}")
+
+
 @pytest.mark.parametrize(
-    "opts",
-    [{}, {"lean": True}, {"shift_warm_start": True}, {"delay": 0.05},
-     {"delay": 0.05, "shift_warm_start": True, "lean": True}],
-    ids=["full", "lean", "shift", "delay", "delay_shift_lean"],
+    "opts,model",
+    [_step_case({}, "full"), _step_case({"lean": True}, "lean"),
+     _step_case({"shift_warm_start": True}, "shift"),
+     _step_case({"delay": 0.05}, "delay"),
+     _step_case({"delay": 0.05, "shift_warm_start": True, "lean": True},
+                "delay_shift_lean")]
+    + [_step_case(opts, name, model)
+       for model in ("unicycle", "steering_unicycle", "rate_limited_steering")
+       for opts, name in (({}, "full"),
+                          ({"delay": 0.05, "shift_warm_start": True, "lean": True},
+                           "delay_shift_lean"))],
 )
-def test_eager_step_matches_jax_f64(opts):
-    case = Case(64)
+def test_eager_step_matches_jax_f64(opts, model):
+    case = Case(64, model=model)
     jctrl, jres = case.jax(**opts)
     ctrl, res = case.port(**opts)
     close(res.u_opt, jres.u_opt, F64)
@@ -114,10 +142,21 @@ def test_eager_step_matches_jax_f64(opts):
         close(res.stats[name], jres.stats[name], F64)
 
 
-@pytest.mark.parametrize("lean", [False, True])
-@pytest.mark.parametrize("steer_off", [False, True])
-def test_kernel_step_matches_jax_kernel_f32(lean, steer_off):
-    case = Case(1000, f64=False, steer_off=steer_off)  # 1000: masked tail
+def _kernel_case(lean, steer_off, model="full_body"):
+    name = f"{lean}-{steer_off}"
+    return pytest.param(lean, steer_off, model,
+                        id=name if model == "full_body" else f"{model}-{name}")
+
+
+@pytest.mark.parametrize(
+    "lean,steer_off,model",
+    [_kernel_case(lean, steer_off) for steer_off in (False, True)
+     for lean in (False, True)]
+    + [_kernel_case(False, False, model)
+       for model in ("unicycle", "steering_unicycle", "rate_limited_steering")],
+)
+def test_kernel_step_matches_jax_kernel_f32(lean, steer_off, model):
+    case = Case(1000, f64=False, steer_off=steer_off, model=model)  # masked tail
     _, jres = case.jax(use_kernel=True, kernel_interpret=True, lean=lean)
     before = fused_sample_rollout_cost.launches
     _, res = case.port(use_kernel=True, lean=lean)
@@ -203,15 +242,20 @@ def test_solver_wrapper_equals_mppi_step():
     assert torch.equal(a.u_opt, b.u_opt)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_tracking_experiment_on_cpu(use_kernel):
-    cfg, sp, cp, course = full_body_launch(num_samples=512, horizon=15)
+@pytest.mark.parametrize(
+    "use_kernel,preset",
+    [pytest.param(uk, p, id=f"{uk}" if p == "full_body" else f"{p}-{uk}")
+     for p in PRESETS for uk in (False, True)],
+)
+def test_tracking_experiment_on_cpu(use_kernel, preset):
+    cfg, sp, cp, course = PRESETS[preset](num_samples=512, horizon=15)
     before = fused_sample_rollout_cost.launches
     out = run_tracking_experiment(cfg, sp, cp, course, num_steps=30,
                                   use_kernel=use_kernel)
     assert fused_sample_rollout_cost.launches == before
-    assert out["logs"]["state"].shape == (30, 5)
-    assert out["logs"]["u0"].shape == (30, 5)
+    s_dim, u_dim = cfg.num_states, cfg.num_controls
+    assert out["logs"]["state"].shape == (30, s_dim)
+    assert out["logs"]["u0"].shape == (30, u_dim)
     assert np.isfinite(out["logs"]["state"]).all()
     assert out["ctrl"].step == 30
     assert out["metrics"]["rmse"] < 0.15
