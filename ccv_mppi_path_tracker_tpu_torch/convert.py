@@ -4,7 +4,9 @@
 FullBodyParams, warm start and PathBuffer as plain NumPy data (the objects
 themselves after ``np.asarray`` of each field, or dicts of field name to
 array) and returns this port's dataclasses on one device and dtype, so both
-packages compute on identical parameters. Nothing here imports jax.
+packages compute on identical parameters. A fleet's warm start (B, T-1, U)
+and a stacked per-robot PathBuffer (xy (B, N, 2), num_valid (B,)) carry over
+with their robot axis. Nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ def from_numpy(sp, cp, model_params, u_prev, path, device=None, dtype=torch.floa
     if model_params is not None:
         mp = _tensors(model_params, FullBodyParams, dtype, device)
     p = path if isinstance(path, dict) else vars(path)
+    num_valid = np.asarray(p["num_valid"])
     return (
         _tensors(sp, SolverParams, dtype, device),
         _tensors(cp, CostParams, dtype, device),
@@ -47,7 +50,8 @@ def from_numpy(sp, cp, model_params, u_prev, path, device=None, dtype=torch.floa
         torch.as_tensor(np.asarray(u_prev), device=device).to(dtype),
         PathBuffer(
             xy=torch.as_tensor(np.asarray(p["xy"]), device=device).to(dtype),
-            num_valid=int(np.asarray(p["num_valid"])),
+            num_valid=(int(num_valid) if num_valid.ndim == 0 else
+                       torch.as_tensor(num_valid, dtype=torch.int64, device=device)),
             resolution=torch.as_tensor(np.asarray(p["resolution"]),
                                        device=device).to(dtype),
         ),

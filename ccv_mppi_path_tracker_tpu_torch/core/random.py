@@ -1,15 +1,19 @@
 """PRNG policy: every random draw of a control cycle is a pure function of
-the run's integer ``seed`` and the cycle counter ``step``.
+the run's integer ``seed``, the cycle counter ``step`` and, in a fleet, the
+robot index ``b``.
 
 - The eager path draws its exploration noise from a ``torch.Generator``
   seeded by :func:`cycle_seed` (``stream`` 0); the plant's process noise
-  uses ``stream`` 1. No global RNG state is read or written.
+  uses ``stream`` 1. No global RNG state is read or written. A fleet's robot
+  b seeds its own generator from (seed, step, stream, b); robot 0's seed is
+  the single-robot one.
 - The fused kernel draws its own normals with Philox4x32-10 keyed by
-  ``(seed, step)`` at counter ``(k, t, pair, 0)`` and Box-Muller over the top
-  23 bits of words 0 and 1 (csrc/rollout_cost.cu). :func:`philox_normals` is
-  the same generator in plain torch: its uint32 arithmetic is emulated in
-  int64 with ``& 0xFFFFFFFF``, so the kernel and its plain version draw the
-  same samples.
+  ``(seed, step)`` at counter ``(k, t, pair, b)`` (b = 0 for one robot) and
+  Box-Muller over the top 23 bits of words 0 and 1 (csrc/rollout_cost.cu).
+  :func:`philox_normals` is the same generator in plain torch: its uint32
+  arithmetic is emulated in int64 with ``& 0xFFFFFFFF``, so the kernel and
+  its plain version draw the same samples. Robot 0 of a fleet draws the
+  single-robot stream, and no normal depends on B or the block size.
 """
 
 from __future__ import annotations
@@ -29,16 +33,18 @@ PHILOX_ROUNDS = 10
 TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 
 
-def cycle_seed(seed: int, step: int, stream: int = 0) -> int:
-    """A 63-bit generator seed derived from (seed, step, stream)."""
-    state = np.random.SeedSequence([seed & _MASK, step & _MASK, stream])
+def cycle_seed(seed: int, step: int, stream: int = 0, robot: int = 0) -> int:
+    """A 63-bit generator seed derived from (seed, step, stream, robot).
+    NumPy's SeedSequence pads its entropy with zeros to four words, so robot
+    0 gives the seed of (seed, step, stream) alone."""
+    state = np.random.SeedSequence([seed & _MASK, step & _MASK, stream, robot])
     return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
-def cycle_generator(seed: int, step: int, device, stream: int = 0):
+def cycle_generator(seed: int, step: int, device, stream: int = 0, robot: int = 0):
     """A fresh ``torch.Generator`` on ``device`` for one cycle's draws."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(cycle_seed(seed, step, stream))
+    gen.manual_seed(cycle_seed(seed, step, stream, robot))
     return gen
 
 
@@ -67,18 +73,22 @@ def philox4x32(counter, key):
 
 
 def philox_normals(seed: int, step: int, num_samples: int, tm1: int,
-                   u_dim: int, device=None, dtype=torch.float32):
+                   u_dim: int, robot=0, device=None, dtype=torch.float32):
     """Standard normals (T-1, K, U) of the kernel's RNG mode: entry
-    (t, k, j) comes from counter (k, t, j // 2, 0) under key (seed, step),
-    the cosine half of Box-Muller for even j and the sine half for odd j."""
+    (t, k, j) comes from counter (k, t, j // 2, robot) under key (seed,
+    step), the cosine half of Box-Muller for even j and the sine half for
+    odd j. ``robot`` is an int, or a 1-D tensor of robot indices: then the
+    result is (B, T-1, K, U), row b the normals of robot ``robot[b]``."""
     n_pairs = (u_dim + 1) // 2
+    rob = torch.as_tensor(robot, dtype=torch.int64, device=device)
+    lead = tuple(rob.shape)
     t = torch.arange(tm1, dtype=torch.int64, device=device).view(tm1, 1, 1)
     k = torch.arange(num_samples, dtype=torch.int64, device=device).view(1, -1, 1)
     p = torch.arange(n_pairs, dtype=torch.int64, device=device).view(1, 1, -1)
-    shape = (tm1, num_samples, n_pairs)
+    shape = lead + (tm1, num_samples, n_pairs)
     x0, x1, _, _ = philox4x32(
         (k.expand(shape), t.expand(shape), p.expand(shape),
-         torch.zeros(shape, dtype=torch.int64, device=device)),
+         rob.view(lead + (1, 1, 1)).expand(shape)),
         (seed, step),
     )
     scale = 1.0 / (1 << 23)
@@ -87,4 +97,4 @@ def philox_normals(seed: int, step: int, num_samples: int, tm1: int,
     r = torch.sqrt(-2.0 * torch.log1p(-u1))
     theta = TWO_PI_F32 * u2
     normals = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
-    return normals.reshape(tm1, num_samples, 2 * n_pairs)[..., :u_dim].to(dtype)
+    return normals.reshape(shape[:-1] + (2 * n_pairs,))[..., :u_dim].to(dtype)

@@ -5,9 +5,11 @@
 // ccv_mppi_path_tracker_tpu/kernels/rollout_cost.py (the Pallas TPU kernel):
 // its four model branches (unicycle, steering_unicycle,
 // rate_limited_steering, full_body), noise-input and in-kernel RNG modes, any
-// K, and the three passes of elite sampling: costs only (accumulate = 0),
-// costs in (the costs-free second pass) and the cost threshold (scal slot 17)
-// that zeroes the weight of every sample above it.
+// K, the three passes of elite sampling: costs only (accumulate = 0), costs
+// in (the costs-free second pass) and the cost threshold (scal slot 17) that
+// zeroes the weight of every sample above it; the second moment (the sums of
+// w*u^2 that adaptive sigma reads); and the fleet grid (B robots in one
+// launch).
 //
 // What bounds it on this card: FP32 and special-function work, not bytes.
 // Per sample and step the tracking models evaluate one sincos, the full-body
@@ -35,6 +37,16 @@
 //   with m the global minimum and sums the rows: the same exact algebra as
 //   the sharded JAX path. m_b is over all valid costs, not the elites only,
 //   so a block without elites writes zero sums under a finite m_b.
+// - Second moment: a second template flag. When set, the row grows by the
+//   (T-1)*U sums of (w*u[t,j])*u[t,j] after the first-moment sums, and the
+//   wrapper rescales them with the same block factors. When clear, the
+//   kernel is the first-moment kernel with no added work or registers.
+// - Fleet grid: gridDim.y = B robots, gridDim.x = the K blocks of one robot.
+//   blockIdx.y offsets every per-robot operand (u_prev, the centered
+//   reference rows, the centered start state, the scalars, the noise, the
+//   costs in and out, the partials); sigma and the box are shared. Each
+//   robot's baseline is the minimum over its own blocks only: the wrapper
+//   reduces the partials per robot.
 // - The update needs u[t,j] after the cost is known. It is regenerated, not
 //   stored: noise-input mode re-reads the noise, RNG mode re-draws the same
 //   Philox numbers. The costs-in pass regenerates the controls of the pass
@@ -44,11 +56,14 @@
 //   same inputs give bit-identical outputs on every run.
 // - Padded samples (index >= num_samples, compared as integers) neither
 //   enter the block minimum nor get weight.
-// - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, 0);
-//   Box-Muller over the top 23 bits of words 0 and 1 gives the normals of
-//   controls 2*pair (cosine) and 2*pair+1 (sine). (U+1)/2 pairs per row: for
-//   U = 3 the fourth normal is drawn and dropped. Every normal is a pure
-//   function of (seed, step, k, t, j), independent of the block size.
+// - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, b)
+//   with b the robot (0 for one robot); Box-Muller over the top 23 bits of
+//   words 0 and 1 gives the normals of controls 2*pair (cosine) and
+//   2*pair+1 (sine). (U+1)/2 pairs per row: for U = 3 the fourth normal is
+//   drawn and dropped. Every normal is a pure function of (seed, step, b, k,
+//   t, j), independent of the block size and of B; robot 0 of a fleet draws
+//   the single-robot stream. A launch may start at another robot index
+//   (first_robot), so robot b of a fleet is one launch of its own too.
 // - rate_limited_steering's steer and rate limits come in as two arguments
 //   from the registered model's constants, not as compile-time constants, so
 //   a re-registered variant needs no rebuild.
@@ -117,7 +132,7 @@ struct RowSampler {
   float beta, bscale;
   int num_samples, k;
   bool valid, steer_off;
-  uint32_t seed, step;
+  uint32_t seed, step, robot;
   float eps[U];
 
   __device__ __forceinline__ void row(int t, float u[U]) {
@@ -130,7 +145,7 @@ struct RowSampler {
     } else {
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
-        uint32_t c0 = (uint32_t)k, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = 0u;
+        uint32_t c0 = (uint32_t)k, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = robot;
         philox4x32_10(c0, c1, c2, c3, seed, step);
         const float u1 = (float)(c0 >> 9) * kInv2p23;
         const float u2 = (float)(c1 >> 9) * kInv2p23;
@@ -280,7 +295,8 @@ __device__ __forceinline__ float warp_min(float v) {
 
 // costs_in != nullptr: the costs-free elite pass (no rollout, no cost
 // output). accumulate == 0: the costs-only pass (no update, no partials).
-template <int M>
+// M2: also the second-moment sums. Grid (ceil(K / kThreads), B).
+template <int M, bool M2>
 __global__ void __launch_bounds__(kThreads)
 rollout_cost_kernel(const float* __restrict__ u_prev,
                     const float* __restrict__ sigma,
@@ -294,19 +310,32 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
                     float* __restrict__ costs,
                     float* __restrict__ partials,
                     int num_samples, int horizon, int num_ref,
-                    uint32_t seed, uint32_t step, int steer_off, int accumulate,
-                    float steer_max, float rate_max) {
+                    uint32_t seed, uint32_t step, uint32_t first_robot,
+                    int steer_off, int accumulate, float steer_max,
+                    float rate_max) {
   constexpr int U = Dims<M>::U;
+  constexpr int S = Dims<M>::S;
   extern __shared__ float smem[];
   __shared__ float s_min[kWarps];
   const int tm1 = horizon - 1;
-  const int nacc = 1 + tm1 * U;  // sum w, then sum w*u[t, j]
+  const int nu = tm1 * U;
+  const int nacc = 1 + (M2 ? 2 : 1) * nu;  // sum w, sum w*u[t, j], [sum w*u^2]
   float* s_ref = smem;                   // num_ref * 3
   float* s_uprev = s_ref + 3 * num_ref;  // tm1 * U
-  float* s_wsum = s_uprev + tm1 * U;     // kWarps * nacc
+  float* s_wsum = s_uprev + nu;          // kWarps * nacc
+
+  // this block's robot: offset every per-robot operand
+  const int robot = blockIdx.y;
+  u_prev += (size_t)robot * nu;
+  refc += (size_t)robot * 3 * num_ref;
+  state0 += (size_t)robot * S;
+  scal += (size_t)robot * kNScal;
+  if (noise != nullptr) noise += (size_t)robot * nu * num_samples;
+  if (costs_in != nullptr) costs_in += (size_t)robot * num_samples;
+  if (costs != nullptr) costs += (size_t)robot * num_samples;
 
   for (int i = threadIdx.x; i < 3 * num_ref; i += kThreads) s_ref[i] = refc[i];
-  for (int i = threadIdx.x; i < tm1 * U; i += kThreads) s_uprev[i] = u_prev[i];
+  for (int i = threadIdx.x; i < nu; i += kThreads) s_uprev[i] = u_prev[i];
   __syncthreads();
 
   const int k = blockIdx.x * kThreads + threadIdx.x;
@@ -332,6 +361,7 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
   smp.steer_off = steer_off != 0;
   smp.seed = seed;
   smp.step = step;
+  smp.robot = first_robot + (uint32_t)robot;
 
   // --- rollout + cost, or the costs of an earlier pass -------------------
   float cost;
@@ -368,13 +398,18 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
     smp.row(t, cur);
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      const float s = warp_sum(wgt * cur[j]);
+      const float wu = wgt * cur[j];
+      const float s = warp_sum(wu);
       if (lane == 0) wsum[1 + t * U + j] = s;
+      if constexpr (M2) {
+        const float s2 = warp_sum(wu * cur[j]);
+        if (lane == 0) wsum[1 + nu + t * U + j] = s2;
+      }
     }
   }
   __syncthreads();
 
-  float* out = partials + (size_t)blockIdx.x * (nacc + 1);
+  float* out = partials + ((size_t)robot * gridDim.x + blockIdx.x) * (nacc + 1);
   if (threadIdx.x == 0) out[0] = m_block;
   for (int i = threadIdx.x; i < nacc; i += kThreads) {
     float s = 0.0f;
@@ -384,29 +419,30 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
   }
 }
 
-template <int M>
+template <int M, bool M2>
 int launch(const float* u_prev, const float* sigma, const float* u_min,
            const float* u_max, const float* refc, const float* state0,
            const float* scal, const float* noise, const float* costs_in,
            float* costs, float* partials, int num_samples, int horizon,
-           int num_ref, unsigned int seed, unsigned int step, int steer_off,
-           int accumulate, float steer_max, float rate_max,
+           int num_ref, unsigned int seed, unsigned int step,
+           unsigned int first_robot, int steer_off, int accumulate,
+           float steer_max, float rate_max, int num_robots,
            cudaStream_t stream) {
   constexpr int U = Dims<M>::U;
-  const int blocks = (num_samples + kThreads - 1) / kThreads;
+  const dim3 grid((num_samples + kThreads - 1) / kThreads, num_robots);
   const size_t tm1u = static_cast<size_t>(horizon - 1) * U;
   const size_t smem = sizeof(float) *
-      (3 * static_cast<size_t>(num_ref) + tm1u + kWarps * (1 + tm1u));
+      (3 * static_cast<size_t>(num_ref) + tm1u + kWarps * (1 + (M2 ? 2 : 1) * tm1u));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        rollout_cost_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rollout_cost_kernel<M, M2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  rollout_cost_kernel<M><<<blocks, kThreads, smem, stream>>>(
+  rollout_cost_kernel<M, M2><<<grid, kThreads, smem, stream>>>(
       u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,
-      partials, num_samples, horizon, num_ref, seed, step, steer_off,
-      accumulate, steer_max, rate_max);
+      partials, num_samples, horizon, num_ref, seed, step, first_robot,
+      steer_off, accumulate, steer_max, rate_max);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,34 +472,45 @@ const char* rollout_cost_error_string(int code) {
 // Launches the kernel of model id `model` on `stream`. Returns the
 // cudaError_t of the launch (0 on success). noise may be null (RNG mode).
 // costs_in non-null: the costs-free pass, costs unused (may be null).
-// accumulate == 0: the costs-only pass, partials unused (may be null).
-// Otherwise partials is (ceil(K / kThreads), 2 + (T-1)*U): per block
-// [m_b, sum w, sum w*u[t, j] ...].
+// accumulate == 0: the costs-only pass, partials unused (may be null), and
+// second_moment must be 0. Otherwise partials is (B, ceil(K / kThreads),
+// 2 + (1 + second_moment) * (T-1)*U): per robot and block [m_b, sum w,
+// sum w*u[t, j] ..., with second_moment sum w*u[t, j]^2 ...].
+// num_robots = B: every per-robot operand has a leading (B,) axis; sigma,
+// u_min and u_max are shared. Robot b draws the RNG stream of robot index
+// first_robot + b.
 int rollout_cost(int model, const float* u_prev, const float* sigma,
                  const float* u_min, const float* u_max, const float* refc,
                  const float* state0, const float* scal, const float* noise,
                  const float* costs_in, float* costs, float* partials,
                  int num_samples, int horizon, int num_ref, unsigned int seed,
-                 unsigned int step, int steer_off, int accumulate,
-                 float steer_max, float rate_max, void* stream) {
-  if (num_samples < 1 || horizon < 2 || num_ref < 1 ||
+                 unsigned int step, unsigned int first_robot, int steer_off,
+                 int accumulate, float steer_max, float rate_max,
+                 int num_robots, int second_moment, void* stream) {
+  if (num_samples < 1 || horizon < 2 || num_ref < 1 || num_robots < 1 ||
+      num_robots > 65535 ||
       (costs_in == nullptr && costs == nullptr) ||
       ((costs_in != nullptr || accumulate) && partials == nullptr) ||
-      (costs_in != nullptr && !accumulate)) {
+      (costs_in != nullptr && !accumulate) || (second_moment && !accumulate)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ROLLOUT_COST_ARGS                                                    \
   u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,   \
-      partials, num_samples, horizon, num_ref, seed, step, steer_off,        \
-      accumulate, steer_max, rate_max, s
+      partials, num_samples, horizon, num_ref, seed, step, first_robot,      \
+      steer_off, accumulate, steer_max, rate_max, num_robots, s
+#define ROLLOUT_COST_CASE(M)                                                 \
+  case M:                                                                    \
+    return second_moment ? launch<M, true>(ROLLOUT_COST_ARGS)                \
+                         : launch<M, false>(ROLLOUT_COST_ARGS);
   switch (model) {
-    case kUnicycle: return launch<kUnicycle>(ROLLOUT_COST_ARGS);
-    case kSteering: return launch<kSteering>(ROLLOUT_COST_ARGS);
-    case kRateLimited: return launch<kRateLimited>(ROLLOUT_COST_ARGS);
-    case kFullBody: return launch<kFullBody>(ROLLOUT_COST_ARGS);
+    ROLLOUT_COST_CASE(kUnicycle)
+    ROLLOUT_COST_CASE(kSteering)
+    ROLLOUT_COST_CASE(kRateLimited)
+    ROLLOUT_COST_CASE(kFullBody)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef ROLLOUT_COST_CASE
 #undef ROLLOUT_COST_ARGS
 }
 

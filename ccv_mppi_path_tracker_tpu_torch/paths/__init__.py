@@ -5,6 +5,8 @@ from ccv_mppi_path_tracker_tpu_torch.paths.resample import (
     PathBuffer,
     nearest_index,
     resample_reference,
+    resample_references,
 )
 
-__all__ = ["PathBuffer", "nearest_index", "resample_reference", "sum_of_cosines_course"]
+__all__ = ["PathBuffer", "nearest_index", "resample_reference", "resample_references",
+           "sum_of_cosines_course"]

@@ -2,7 +2,8 @@
 
 Replaces the reference's ``get_CurrentIndex``/``calc_RefPath``
 (src/diff_drive_mppi.cpp:126-181). The resampling runs on the path's device
-with no host round-trip.
+with no host round-trip; :func:`resample_references` does it for a fleet in
+one batched pass, on one shared path or on a path per robot.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ class PathBuffer:
     resolution: () tensor, arc-length spacing the course was sampled at
         (the reference's ``resolution`` param, src/diff_drive_mppi.cpp:29).
         A tensor, so the index step below is a true division on the device.
+
+    A fleet's per-robot paths (:meth:`stack`) carry a leading robot axis:
+    xy (B, N_max, 2), num_valid a (B,) int64 tensor, resolution (B,).
     """
 
     xy: torch.Tensor
-    num_valid: int
+    num_valid: int | torch.Tensor
     resolution: torch.Tensor
 
     @staticmethod
@@ -49,6 +53,18 @@ class PathBuffer:
             num_valid=n,
             resolution=torch.as_tensor(np.asarray(resolution, np_dtype),
                                        device=device),
+        )
+
+    @staticmethod
+    def stack(paths):
+        """Per-robot paths of one capacity stacked along a leading robot
+        axis (the JAX package stacks PathBuffer pytrees the same way)."""
+        xy = torch.stack([p.xy for p in paths])
+        return PathBuffer(
+            xy=xy,
+            num_valid=torch.as_tensor([int(p.num_valid) for p in paths],
+                                      dtype=torch.int64, device=xy.device),
+            resolution=torch.stack([p.resolution for p in paths]),
         )
 
 
@@ -86,4 +102,22 @@ def resample_reference(path: PathBuffer, pos, v_ref, dt, horizon: int) -> RefWin
     seg = xy[1:] - xy[:-1]
     yaw = torch.atan2(seg[:, 1], seg[:, 0])
     yaw = torch.cat([yaw, yaw[-1:]])
+    return RefWindow(xy=xy, yaw=yaw)
+
+
+def resample_references(path: PathBuffer, pos, v_ref, dt, horizon: int) -> RefWindow:
+    """:func:`resample_reference` for B robots at ``pos`` (B, 2), in one
+    batched pass (``torch.func.vmap``: no loop over robots, no host read).
+    ``path`` is one path shared by the fleet (xy (N, 2)) or a path per robot
+    (xy (B, N, 2), from :meth:`PathBuffer.stack`). Returns xy (B, T, 2) and
+    yaw (B, T)."""
+    dims = 0 if path.xy.dim() == 3 else None
+
+    def one(xy, num_valid, resolution, p):
+        ref = resample_reference(PathBuffer(xy, num_valid, resolution), p, v_ref, dt,
+                                 horizon)
+        return ref.xy, ref.yaw
+
+    xy, yaw = torch.func.vmap(one, in_dims=(dims, dims, dims, 0))(
+        path.xy, path.num_valid, path.resolution, pos)
     return RefWindow(xy=xy, yaw=yaw)

@@ -1,14 +1,20 @@
-"""Closed-loop receding-horizon driver (port of ``runtime/loop.py``).
+"""Closed-loop receding-horizon drivers (port of ``runtime/loop.py``).
 
-:func:`simulate` is the counterpart of the JAX package's
-``build_simulate_scan``: controller and plant alternate on the device for
-``num_steps`` cycles, here as a Python loop over cycles in place of
-``lax.scan``. No cycle reads a value back to the host; the logs are stacked
-at the end.
+- :func:`simulate` is the counterpart of the JAX package's
+  ``build_simulate_scan``: controller and plant alternate on the device for
+  ``num_steps`` cycles, here as a Python loop over cycles in place of
+  ``lax.scan``. No cycle reads a value back to the host; the logs are
+  stacked at the end.
+- :class:`ControlLoop` is host-driven stepping for a live plant: the caller
+  feeds the measured state each cycle (with a wall-clock-measured dt, as the
+  reference's run loop, src/diff_drive_mppi.cpp:346-348) and reads back the
+  command.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -16,7 +22,7 @@ import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
-from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
@@ -78,6 +84,99 @@ def simulate(
         states.append(state)
         u0s.append(res.u0)
     return ctrl, {"state": torch.stack(states), "u0": torch.stack(u0s)}
+
+
+@dataclasses.dataclass
+class ControlLoop:
+    """Host-driven control loop for live plants.
+
+    Mirrors the reference run() loop: dt is measured wall-clock between
+    cycles (src/diff_drive_mppi.cpp:346-348). Every cycle runs
+    :func:`mppi_step` on the device of ``sp``; the only transfers are the
+    measured state in and whatever the caller reads from the returned
+    StepResult.
+
+    sigma_adapt: covariance-adaptive importance sampling (PAPERS.md, "MPPI
+        using Covariance Variable Importance Sampling"): the EMA coefficient
+        a feeding the step's stats["sigma_suggest"] back into
+        sp.control_noise each cycle, (1-a)*sigma + a*suggest clipped to
+        [lo, hi] x the initial sigma (``sigma_bounds``). 0 keeps sigma fixed
+        (the reference). The JAX loop does this float32 arithmetic in NumPy
+        after reading the suggestion back; here the same float32 operations
+        run as torch ops on the device, so the cycle makes no host sync.
+    solver_options: extra keyword options of every cycle's mppi_step
+        (use_kernel, elite_frac, noise, shift_warm_start, delay, lean, ...).
+        ``"elite_stale": True`` (with elite_frac) holds the single-pass
+        elite threshold between cycles, +inf on the first cycle and after
+        :meth:`set_path`.
+    """
+
+    cfg: SolverConfig
+    sp: SolverParams
+    cp: CostParams
+    path: PathBuffer
+    model_params: object = None
+    nominal_dt: float = 0.1
+    sigma_adapt: float = 0.0
+    sigma_bounds: tuple = (0.25, 4.0)  # clip range, x initial sigma
+    solver_options: Optional[dict] = None
+
+    def __post_init__(self):
+        opts = dict(self.solver_options or {})
+        self._elite_stale = opts.pop("elite_stale", False)
+        if self._elite_stale and opts.get("elite_frac") is None:
+            raise ValueError("elite_stale requires elite_frac")
+        self._opts = opts
+        self._device, self._dtype = self.sp.lam.device, self.sp.lam.dtype
+        self._reset_thresh()
+        self._sigma0 = self.sp.control_noise
+        self._last_time = None
+        model = get_model(self.cfg.model)
+        self.ctrl = ControllerState.initial(0, self.cfg.horizon, model.num_controls,
+                                            dtype=self._dtype, device=self._device)
+
+    def _reset_thresh(self):
+        self._thresh = None
+        if self._elite_stale:
+            self._thresh = torch.full((), torch.inf, dtype=self._dtype,
+                                      device=self._device)
+
+    def set_path(self, path: PathBuffer):
+        """Swap the reference course. The stale elite threshold belongs to
+        the old course, so the next cycle runs unmasked, as a first cycle
+        does."""
+        self.path = path
+        self._reset_thresh()
+
+    def measure_dt(self) -> float:
+        now = time.monotonic()
+        dt = self.nominal_dt if self._last_time is None else now - self._last_time
+        self._last_time = now
+        return dt
+
+    def step(self, state, dt: Optional[float] = None) -> StepResult:
+        """One control cycle: returns the StepResult for the measured state."""
+        if dt is None:
+            dt = self.measure_dt()
+        state = torch.as_tensor(state, dtype=self._dtype, device=self._device)
+        opts = dict(self._opts)
+        if self._elite_stale:
+            opts["elite_stale_thresh"] = self._thresh
+        self.ctrl, res = mppi_step(
+            self.cfg, self.ctrl, state, self.path,
+            torch.full((), dt, dtype=self._dtype, device=self._device), self.sp,
+            self.cp, model_params=self.model_params, adapt_sigma=self.sigma_adapt > 0,
+            **opts,
+        )
+        if self._elite_stale:
+            self._thresh = res.stats["elite_thresh"]
+        if self.sigma_adapt > 0:
+            a = self.sigma_adapt
+            sigma = (1 - a) * self.sp.control_noise + a * res.stats["sigma_suggest"]
+            lo, hi = self.sigma_bounds
+            sigma = torch.clamp(sigma, lo * self._sigma0, hi * self._sigma0)
+            self.sp = dataclasses.replace(self.sp, control_noise=sigma)
+        return res
 
 
 def run_tracking_experiment(

@@ -59,6 +59,7 @@ def mppi_step(
     delay: Optional[float] = None,
     elite_frac: Optional[float] = None,
     elite_stale_thresh=None,
+    adapt_sigma: bool = False,
     lean: bool = False,
 ):
     """Run one MPPI control cycle. Returns (next ControllerState, StepResult).
@@ -85,8 +86,14 @@ def mppi_step(
         elite_frac, whose threshold of the current costs is reported for the
         next cycle. A cycle in which it masks every sample holds the
         sampling mean and sets stats["elite_stale_empty"].
+    adapt_sigma: also compute stats["sigma_suggest"] (U,), the per-channel
+        std of the weighted sample distribution around the update, averaged
+        over the horizon (covariance-adaptive importance sampling; fed back
+        into SolverParams.control_noise by runtime/loop.py ControlLoop). The
+        kernel path takes the weighted sums of u^2 from the kernel's second
+        moment. An empty stale-elite cycle suggests sp.control_noise.
     lean: return only u_opt/u0 (ref/opt_states None; stats empty except
-        elite_thresh, which a caller feeds back).
+        elite_thresh and sigma_suggest, which a caller feeds back).
     """
     if elite_stale_thresh is not None and elite_frac is None:
         raise ValueError("elite_stale_thresh requires elite_frac (for the next threshold)")
@@ -105,10 +112,11 @@ def mppi_step(
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
         kw = dict(seed=ctrl.seed, step=ctrl.step, num_samples=cfg.num_samples,
-                  model=cfg.model, steer_off=cfg.steer_off, noise=noise)
+                  model=cfg.model, steer_off=cfg.steer_off, noise=noise,
+                  second_moment=adapt_sigma)
         scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta, sp.lam,
                             cost_thresh=elite_stale_thresh)
-        costs, u_num, norm = fused_sample_rollout_cost(
+        costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
             *kargs, scal, accumulate=not two_pass, **kw)
         if lean:
             stats = {}
@@ -120,14 +128,18 @@ def mppi_step(
         if two_pass:
             scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta,
                                 sp.lam, cost_thresh=stats["elite_thresh"])
-            _, u_num, norm = fused_sample_rollout_cost(*kargs, scal, costs_in=costs,
-                                                       **kw)
+            _, u_num, norm, *u2_num = fused_sample_rollout_cost(
+                *kargs, scal, costs_in=costs, **kw)
+        safe_norm = norm
         if elite_stale_thresh is not None:
             empty = norm <= 0.0
             stats["elite_stale_empty"] = empty
-            u_opt = torch.where(empty, u_mean, u_num / torch.where(empty, 1.0, norm))
+            safe_norm = torch.where(empty, 1.0, norm)
+            u_opt = torch.where(empty, u_mean, u_num / safe_norm)
         else:
             u_opt = u_num / norm
+        if adapt_sigma:
+            stats["sigma_suggest"] = _sigma_suggest(u2_num[0] / safe_norm, u_opt)
     else:
         generator = None
         if noise is None:
@@ -150,17 +162,32 @@ def mppi_step(
         u_opt = weighted_update(weights, u_samples)
         if elite_stale_thresh is not None:
             u_opt = torch.where(stats["elite_stale_empty"], u_mean, u_opt)
+        if adapt_sigma:
+            stats["sigma_suggest"] = _sigma_suggest(
+                weighted_update(weights, u_samples * u_samples), u_opt)
+    if adapt_sigma and elite_stale_thresh is not None:
+        # an empty stale cycle carries no information: suggest the
+        # configured sigma, not a value that would poison the feedback
+        stats["sigma_suggest"] = torch.where(stats["elite_stale_empty"],
+                                             sp.control_noise, stats["sigma_suggest"])
 
     next_ctrl = ControllerState(u_prev=u_opt, seed=ctrl.seed, step=ctrl.step + 1)
     if lean:
-        # only the threshold a stale-elite caller feeds back survives
-        keep = {"elite_thresh": stats["elite_thresh"]} if "elite_thresh" in stats else {}
+        # only what a caller feeds back survives
+        keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}
         return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=None,
                                      opt_states=None, stats=keep)
     opt_states = _opt_rollout(cfg.model, model, state, u_opt, dt)
     return next_ctrl, StepResult(
         u_opt=u_opt, u0=u_opt[0], ref=ref, opt_states=opt_states, stats=stats
     )
+
+
+def _sigma_suggest(m2, u_opt):
+    """Per-channel std of the weighted sample distribution, averaged over t:
+    sqrt(mean_t max(E_w[u^2] - u_opt^2, 0))."""
+    var = torch.clamp(m2 - u_opt * u_opt, min=0.0)
+    return torch.sqrt(torch.mean(var, dim=0))
 
 
 def _opt_rollout(model_name, model, state, u_opt, dt):

@@ -6,8 +6,9 @@
 Drives ccv_mppi_path_tracker_tpu_torch only (no JAX) through its main paths:
 the MPPI control update of each of the four models through the fused CUDA
 kernel at the benchmark's size (K=102400 samples, T=30 horizon, float32),
-elite sampling (two-pass and stale-threshold), and the closed loops that
-repeat them. Phases, each printed on one line, the first failure ending the
+elite sampling (two-pass and stale-threshold), adaptive sigma through
+ControlLoop, the fleet (B=256 robots in one launch), and the closed loops
+that repeat them. Phases, each printed on one line, the first failure ending the
 run with a non-zero exit:
 
   1. build the kernel from csrc/ with nvcc; print the card and its power limit;
@@ -33,7 +34,29 @@ run with a non-zero exit:
      stale elite 0.1; finite states, RMSE < 0.15 m, exact launch counts;
   7. the command line: `run` for each preset on the kernel and the eager
      path, and full_body with --elite-frac 0.1;
-  8. CUDA-event timings (median of repetitions after warm-up).
+  8. CUDA-event timings (median of repetitions after warm-up);
+  9. second moment (adaptive sigma), every model at K=102400 T=30 and at
+     K=10000: the kernel vs its plain version in noise-input and RNG mode,
+     and in the two-pass and stale elite flows; u2_num/norm under the
+     u_opt bound's form, sigma_suggest at the JAX tests' rtol 2e-4 atol 1e-6;
+ 10. mppi_step(adapt_sigma=True) kernel-lean vs eager-lean, same noise,
+     every model (phase 5's no-host-sync sweep also runs adapt_sigma and the
+     fleet step's kernel arm);
+ 11. ControlLoop(sigma_adapt=0.2), 200 cycles at K=102400 T=30 on the kernel
+     path with the plant fed back: full_body, diff_drive, full_body with
+     elite 0.1 (two launches a cycle), diff_drive with stale elite and a
+     set_path swap at cycle 100; RMSE < 0.15 m, sigma inside its bounds and
+     moved from sigma0, exact launch counts;
+ 12. the fleet kernel at B=256 K=1024 T=15 (scripts/bench_suite.py's fleet
+     shape): every model vs the plain version in noise and RNG mode, robot
+     b of the launch bit-equal to a single launch of robot b, and one robot's
+     costs offset by 1e3 (each robot's own baseline);
+ 13. fleet closed loops, 200 ticks of build_fleet_step(use_kernel=True) at
+     B=256 K=1024 T=15, diff_drive and full_body, robots fanned +-0.4 m:
+     every robot within 0.3 m of the course, exactly 200 launches;
+ 14. the `fleet` command, 64 robots, 200 ticks, kernel and eager arm;
+ 15. CUDA-event timings of the new modes: the second-moment kernel vs the
+     vanilla one, the fleet kernel, the fleet tick on both arms.
 
 The last three lines are the kernels JSON line, the card's name and power
 limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without
@@ -54,6 +77,7 @@ ROOT = Path(__file__).resolve().parent
 
 K_MAIN, T_MAIN = 102_400, 30   # bench.py's flagship control update
 K_REF, T_REF = 10_000, 15      # full_body_launch defaults (reference node)
+B_FLEET, K_FLEET, T_FLEET = 256, 1024, 15  # scripts/bench_suite.py's fleet shape
 COST_RTOL = 2e-5               # tests/test_kernel.py costs tolerance
 STEPS = 200
 ELITE = 0.1
@@ -84,6 +108,9 @@ def nvidia_smi(query):
 def u_bound(u_ref):
     """scripts/tpu_smoke.py's parity bound on u_opt."""
     return 5e-4 * float(u_ref.abs().max()) + 5e-5
+
+
+SIGMA_RTOL, SIGMA_ATOL = 2e-4, 1e-6  # tests/test_solver_options.py:137-139
 
 
 def main():
@@ -117,11 +144,17 @@ def main():
         fused_sample_rollout_cost_reference,
         pack_scalars,
     )
+    from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import elite_threshold
-    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer, resample_reference
-    from ccv_mppi_path_tracker_tpu_torch.runtime import run_tracking_experiment
-    from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.paths import (
+        PathBuffer,
+        resample_reference,
+        resample_references,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.runtime import ControlLoop, run_tracking_experiment
+    from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _sigma_suggest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -299,6 +332,20 @@ def main():
             print(f"  {s['model']} {opts or 'vanilla'}: u_opt max abs err {err:.3e} "
                   f"(bound {bound:.3e})", flush=True)
     stale = torch.full((), 50.0, device=dev)
+
+    def fan(course, num_robots, s_dim):
+        """num_robots start states on the course start, fanned +-0.4 m in y."""
+        st = torch.zeros((num_robots, s_dim), device=dev)
+        st[:, 1] = float(course[0, 1]) + torch.linspace(-0.4, 0.4, num_robots, device=dev)
+        return st
+
+    fcfg, fsp, fcp, fcourse = PRESETS["diff_drive"](num_samples=K_FLEET, horizon=T_FLEET,
+                                                    device=dev)
+    fleet_args = (init_fleet(fcfg, B_FLEET, device=dev), fan(fcourse, B_FLEET, 3),
+                  PathBuffer.from_points(fcourse, 0.1, device=dev),
+                  torch.full((), 0.1, device=dev), fsp, fcp)
+    fleet_kernel_step = build_fleet_step(fcfg, use_kernel=True)
+    fleet_kernel_step(*fleet_args)  # warm-up outside the sync check
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # any host sync now raises
     try:
@@ -307,11 +354,16 @@ def main():
                 for lean in (True, False):
                     for opts in ({}, {"elite_frac": ELITE},
                                  {"elite_frac": ELITE, "elite_stale_thresh": stale}):
-                        mppi_step(*step_args, use_kernel=use_kernel, lean=lean, **opts)
+                        for adapt in (False, True):
+                            mppi_step(*step_args, use_kernel=use_kernel, lean=lean,
+                                      adapt_sigma=adapt, **opts)
+        fleet_kernel_step(*fleet_args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     print("  no host sync inside mppi_step (every model; kernel and eager, lean "
-          "and full, vanilla, two-pass and stale elite; RNG mode)", flush=True)
+          "and full, vanilla, two-pass and stale elite, each with and without "
+          "adapt_sigma; RNG mode) nor in the fleet step's kernel arm "
+          f"(B={B_FLEET} K={K_FLEET} T={T_FLEET})", flush=True)
 
     # --- 6. closed loops through the user entry point ----------------------
     loops = [("full_body", {}, 1), ("diff_drive", {}, 1),
@@ -444,6 +496,310 @@ def main():
         spread = f"[{min(times[name]):.4f}, {max(times[name]):.4f}]"
         print(f"  {name}: {ms:.4f} ms {spread}{rate}", flush=True)
 
+    # --- 9. second moment (adaptive sigma) ------------------------------
+    def m2_check(tag, kern, plain):
+        """u_opt under the u_opt bound, u2_num/norm under the same form, and
+        sigma_suggest at the JAX tests' tolerance; returns the larger of the
+        two absolute errors."""
+        (_, uk, nk, u2k), (_, ur, nr, u2r) = kern, plain
+        torch.cuda.synchronize()
+        err_u, bound_u = u_err(tag, uk / nk, ur / nr)
+        err_2, bound_2 = u_err(f"{tag} u2_num/norm", u2k / nk, u2r / nr)
+        sk = _sigma_suggest(u2k / nk, uk / nk)
+        sr = _sigma_suggest(u2r / nr, ur / nr)
+        excess = float(((sk - sr).abs() - (SIGMA_ATOL + SIGMA_RTOL * sr.abs())).max())
+        rel = float(((sk - sr).abs() / sr.abs()).max())
+        print(f"  {tag}: u_opt max abs err {err_u:.3e} (bound {bound_u:.3e}); "
+              f"u2_num/norm {err_2:.3e} (bound {bound_2:.3e}); sigma_suggest max rel "
+              f"err {rel:.3e} (rtol {SIGMA_RTOL}, atol {SIGMA_ATOL})", flush=True)
+        require(excess <= 0.0, f"{tag}: sigma_suggest differs beyond rtol/atol")
+        return max(err_u, err_2)
+
+    print(f"[9 second moment] kernel vs plain version, T={T_MAIN}", flush=True)
+    for preset in PRESET_MODELS:
+        for k in (K_MAIN, K_REF):
+            s = setup(preset, k, T_MAIN, seed=6)
+            model = s["model"]
+            kw = dict(num_samples=k, model=model, second_moment=True)
+            nkw = dict(kw, seed=0, step=0, noise=s["noise"])
+            rkw = dict(kw, seed=7, step=8)
+            m2_check(f"{model} K={k} noise", kernel_fn(*s["kargs"], **nkw),
+                     plain_fn(*s["kargs"], **nkw))
+            err = m2_check(f"{model} K={k} RNG", kernel_fn(*s["kargs"], **rkw),
+                           plain_fn(*s["kargs"], **rkw))
+            if k != K_MAIN:
+                continue
+            max_abs_err[f"{model}_m2"] = err
+            # two-pass elite: costs only, threshold, costs in with u^2
+            costs = kernel_fn(*s["kargs"], accumulate=False, **rkw)[0]
+            thresh = elite_threshold(costs, ELITE)
+            pthresh = elite_threshold(plain_fn(*s["kargs"], accumulate=False, **rkw)[0],
+                                      ELITE)
+            max_abs_err[f"{model}_m2_elite"] = m2_check(
+                f"{model} K={k} two-pass elite",
+                kernel_fn(*s["kargs"][:6], s["scal"](thresh), costs_in=costs, **rkw),
+                plain_fn(*s["kargs"][:6], s["scal"](pthresh), **rkw))
+            # stale elite: one pass masked at a given threshold
+            max_abs_err[f"{model}_m2_stale"] = m2_check(
+                f"{model} K={k} threshold pass",
+                kernel_fn(*s["kargs"][:6], s["scal"](thresh), **rkw),
+                plain_fn(*s["kargs"][:6], s["scal"](thresh), **rkw))
+
+    # --- 10. mppi_step(adapt_sigma=True), kernel-lean vs eager-lean ---------
+    print(f"[10 adapt_sigma] kernel-lean vs eager-lean K={K_MAIN} T={T_MAIN}", flush=True)
+    for preset in PRESET_MODELS:
+        s = setup(preset, K_MAIN, T_MAIN, seed=3)
+        ctrl = ControllerState(u_prev=s["u_prev"], seed=0, step=0)
+        step_args = (s["cfg"], ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+        for opts in ({}, {"elite_frac": ELITE}):
+            kw = dict(model_params=s["mp"], noise=s["noise"], lean=True, adapt_sigma=True,
+                      **opts)
+            _, rk = mppi_step(*step_args, use_kernel=True, **kw)
+            _, re = mppi_step(*step_args, use_kernel=False, **kw)
+            err, bound = u_err(f"{s['model']} adapt_sigma {opts}", rk.u_opt, re.u_opt)
+            sk, se = rk.stats["sigma_suggest"], re.stats["sigma_suggest"]
+            rel = float(((sk - se).abs() / se.abs()).max())
+            print(f"  {s['model']} {opts or 'vanilla'}: u_opt max abs err {err:.3e} "
+                  f"(bound {bound:.3e}); sigma_suggest max rel err {rel:.3e}; lean "
+                  f"stats {sorted(rk.stats)}", flush=True)
+            require(bool(((sk - se).abs() <= SIGMA_ATOL + SIGMA_RTOL * se.abs()).all()),
+                    f"{s['model']} adapt_sigma {opts}: sigma_suggest differs")
+
+    # --- 11. ControlLoop with adaptive sigma ------------------------------
+    controls = [("full_body", {}, 1, False), ("diff_drive", {}, 1, False),
+                ("full_body", {"elite_frac": ELITE}, 2, False),
+                ("diff_drive", {"elite_frac": ELITE, "elite_stale": True}, 1, True)]
+    for preset, opts, per_cycle, swap in controls:
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN,
+                                              device=dev)
+        m = get_model(cfg.model)
+        loop = ControlLoop(cfg=cfg, sp=sp, cp=cp,
+                           path=PathBuffer.from_points(course, 0.1, device=dev),
+                           sigma_adapt=0.2, solver_options=dict(opts, use_kernel=True))
+        start = np.zeros(m.num_states)
+        start[:2] = course[0]
+        start[2] = np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0])
+        state = torch.tensor(start, dtype=torch.float32, device=dev)
+        states, reset = [], None
+        fused_sample_rollout_cost.launches = 0
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            if swap and i == STEPS // 2:
+                loop.set_path(PathBuffer.from_points(course, 0.1, device=dev))
+                reset = bool(torch.isinf(loop._thresh))
+            res = loop.step(state, dt=0.1)
+            state = m.step(state, res.u0, 0.1)
+            states.append(state)
+        xy = torch.stack(states)[:, :2].cpu().numpy()
+        wall = time.perf_counter() - t0
+        n = fused_sample_rollout_cost.launches
+        name = f"{cfg.model}_sigma" + ("_elite_stale" if opts.get("elite_stale")
+                                       else "_elite" if opts else "")
+        launches[name] = n
+        loop_rate[name] = STEPS / wall
+        rmse = tracking_metrics(np.concatenate([start[None, :2], xy]), course,
+                                dt=0.1)["rmse"]
+        sigma, sigma0 = loop.sp.control_noise, sp.control_noise
+        inside = bool(((sigma >= 0.25 * sigma0 - 1e-7) & (sigma <= 4.0 * sigma0 + 1e-7)).all())
+        moved = not bool(torch.allclose(sigma, sigma0))
+        finite = bool(np.isfinite(xy).all())
+        print(f"[11 ControlLoop] {preset} sigma_adapt=0.2 {opts or ''}"
+              f"{' set_path at cycle 100' if swap else ''}: {STEPS} cycles K={K_MAIN} "
+              f"T={T_MAIN}: RMSE {rmse:.4f} m, sigma {sigma.cpu().numpy().round(4).tolist()} "
+              f"(sigma0 {sigma0.cpu().numpy().round(4).tolist()}), inside bounds {inside}, "
+              f"moved {moved}, kernel launches {n}"
+              f"{'' if reset is None else f', threshold reset to +inf by set_path {reset}'}; "
+              f"{STEPS / wall:.1f} cycles/s (host clock)", flush=True)
+        require(finite and rmse < 0.15, f"{name}: RMSE {rmse} (finite {finite})")
+        require(inside and moved, f"{name}: sigma not adapted inside its bounds")
+        require(n == per_cycle * STEPS, f"{name}: {n} launches, not {per_cycle * STEPS}")
+        require(reset is not False, f"{name}: set_path kept the stale threshold")
+
+    # --- 12. fleet kernel vs plain version ----------------------------------
+    def fleet_setup(preset, seed):
+        """B_FLEET robots scattered along the first 8 m of the course."""
+        model, rest = PRESET_MODELS[preset]
+        kw = {"roll_off": False} if model == "full_body" else {}
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_FLEET, horizon=T_FLEET,
+                                              device=dev, **kw)
+        m = get_model(model)
+        rng = np.random.RandomState(seed)
+        st = np.zeros((B_FLEET, m.num_states))
+        st[:, 0] = rng.uniform(0.0, 8.0, B_FLEET)
+        st[:, 1] = np.interp(st[:, 0], course[:, 0], course[:, 1]) + 0.3 * rng.randn(B_FLEET)
+        st[:, 2:] = np.asarray(rest) + 0.05 * rng.randn(B_FLEET, len(rest))
+        states = torch.tensor(st, dtype=torch.float32, device=dev)
+        u_prev = torch.tensor(rng.randn(B_FLEET, T_FLEET - 1, m.num_controls) * 0.2,
+                              dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        noise = torch.randn((B_FLEET, T_FLEET - 1, K_FLEET, m.num_controls),
+                            generator=gen, device=dev)
+        dt = torch.full((), 0.1, device=dev)
+        mp = m.default_params(device=dev) if m.default_params else None
+        ref = resample_references(PathBuffer.from_points(course, 0.1, device=dev),
+                                  states[:, :2], cp.v_ref, dt, T_FLEET)
+        scal = pack_scalars(dt, cp, ref.yaw[:, 0], mp, sp.noise_beta, sp.lam)
+        return model, (u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, states,
+                       scal), noise
+
+    def fleet_compare(tag, kern, plain):
+        (ck, uk, nk), (cr, ur, nr) = kern, plain
+        torch.cuda.synchronize()
+        cost_rel = float(((ck - cr).abs() / cr.abs()).max())
+        require(bool(torch.isfinite(ck).all()), f"{tag}: non-finite kernel costs")
+        err, bound = u_err(tag, uk / nk[:, None, None], ur / nr[:, None, None])
+        print(f"  {tag}: costs max rel err {cost_rel:.3e} (rtol {COST_RTOL}); u_opt "
+              f"max abs err over robots {err:.3e} (bound {bound:.3e})", flush=True)
+        require(cost_rel <= COST_RTOL, f"{tag}: costs differ by {cost_rel}")
+        return err
+
+    print(f"[12 fleet kernel] B={B_FLEET} K={K_FLEET} T={T_FLEET}, one launch", flush=True)
+    fleet_cases = {}
+    for preset in PRESET_MODELS:
+        model, fargs, fnoise = fleet_setup(preset, seed=8)
+        fleet_cases[model] = fargs
+        kw = dict(num_samples=K_FLEET, model=model)
+        nkw, rkw = dict(kw, seed=0, step=0, noise=fnoise), dict(kw, seed=11, step=12)
+        fleet_compare(f"{model} noise", kernel_fn(*fargs, **nkw), plain_fn(*fargs, **nkw))
+        batched = kernel_fn(*fargs, **rkw)
+        max_abs_err[f"{model}_fleet"] = fleet_compare(f"{model} RNG", batched,
+                                                      plain_fn(*fargs, **rkw))
+        same = []
+        for b in (0, 1, 128, B_FLEET - 1):
+            one = kernel_fn(*(a[b] if i in (0, 4, 5, 6) else a for i, a in enumerate(fargs)),
+                            robot=b, **rkw)
+            same.append(all(bool(torch.equal(x[b], y)) for x, y in zip(batched, one)))
+        # one robot's costs 1e3 higher: under a baseline shared across robots
+        # its weights would underflow to 0 (exp(-1e3/lambda)) and u_opt be NaN
+        off = batched[0].clone()
+        off[5] += 1e3
+        okern = kernel_fn(*fargs, costs_in=off, **rkw)
+        fleet_compare(f"{model} robot 5 costs +1e3", (off,) + okern[1:],
+                      (off,) + plain_fn(*fargs, costs_in=off, **rkw)[1:])
+        u5_err, _ = u_err(f"{model} robot 5 offset vs not", okern[1][5] / okern[2][5],
+                          batched[1][5] / batched[2][5])
+        print(f"  {model}: robot b of the launch bit-equal to a launch of robot b alone "
+              f"(b = 0, 1, 128, {B_FLEET - 1}): {same}; robot 5 with costs +1e3 keeps "
+              f"its update (max abs change {u5_err:.3e})", flush=True)
+        require(all(same), f"{model}: fleet robot differs from its own launch")
+
+    # --- 13. fleet closed loops -------------------------------------------
+    for preset in ("diff_drive", "full_body"):
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_FLEET, horizon=T_FLEET,
+                                              device=dev)
+        m = get_model(cfg.model)
+        path = PathBuffer.from_points(course, 0.1, device=dev)
+        states = fan(course, B_FLEET, m.num_states)
+        step_fn = build_fleet_step(cfg, use_kernel=True)
+        ctrls = init_fleet(cfg, B_FLEET, seed=1, device=dev)
+        dt = torch.full((), 0.1, device=dev)
+        fused_sample_rollout_cost.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            ctrls, res = step_fn(ctrls, states, path, dt, sp, cp)
+            states = m.step(states, res.u0, dt)
+        final = states.cpu().numpy()
+        wall = time.perf_counter() - t0
+        n = fused_sample_rollout_cost.launches
+        launches[f"{cfg.model}_fleet"] = n
+        d = np.min(np.linalg.norm(final[:, None, :2] - course[None, :, :], axis=-1), axis=1)
+        progress = bool((final[:, 0] > 0.5 * course[-1, 0]).all())
+        print(f"[13 fleet closed loop] {preset} B={B_FLEET} K={K_FLEET} T={T_FLEET}, "
+              f"{STEPS} ticks: distance to the course at the end max {d.max():.4f} m, "
+              f"mean {d.mean():.4f} m; past half the course {progress}; kernel launches "
+              f"{n}; {B_FLEET * STEPS / wall:.1f} robot-updates/s (host clock)", flush=True)
+        require(bool(np.isfinite(final).all()) and bool((d < 0.3).all()) and progress,
+                f"{preset} fleet: a robot ended {d.max()} m from the course")
+        require(n == STEPS, f"{preset} fleet: {n} launches, not {STEPS}")
+
+    # --- 14. the fleet command --------------------------------------------
+    for extra in ([], ["--no-kernel"]):
+        argv = ["fleet", "--preset", "diff_drive", "--robots", "64", "--steps", str(STEPS),
+                *extra]
+        fused_sample_rollout_cost.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = buf.getvalue().splitlines()
+        n = fused_sample_rollout_cost.launches
+        worst = float(lines[1].split("worst=")[1])
+        print(f"[14 cli] {' '.join(argv)}: rc {rc}, {' | '.join(lines)}, kernel "
+              f"launches {n}", flush=True)
+        require(rc == 0 and worst < 0.15 and n == (0 if extra else STEPS),
+                f"cli {' '.join(argv)}")
+
+    # --- 15. timing of the new modes ----------------------------------------
+    arms = {}
+    for preset in PRESET_MODELS:
+        s = setup(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        model = s["model"]
+        mkw = dict(seed=1, step=2, num_samples=K_MAIN, model=model)
+        arms[f"{model}/vanilla_alone"] = (KernelLaunch(*s["kargs"], **mkw).run, 50)
+        arms[f"{model}/m2_alone"] = (
+            KernelLaunch(*s["kargs"], second_moment=True, **mkw).run, 50)
+        arms[f"{model}/m2_plain"] = (
+            lambda s=s, mkw=mkw: plain_fn(*s["kargs"], second_moment=True, **mkw), 3)
+        arms[f"{model}/update_kernel_lean_adapt"] = (
+            updater(s, "kernel", adapt_sigma=True), 20)
+        if preset in ("full_body", "diff_drive"):
+            costs = kernel_fn(*s["kargs"], accumulate=False, **mkw)[0]
+            thresh = elite_threshold(costs, ELITE)
+
+            def plain_elite_m2(s=s, mkw=mkw):
+                c = plain_fn(*s["kargs"], accumulate=False, **mkw)[0]
+                plain_fn(*s["kargs"][:6], s["scal"](elite_threshold(c, ELITE)),
+                         costs_in=c, second_moment=True, **mkw)
+
+            arms[f"{model}/m2_elite_pass2_alone"] = (KernelLaunch(
+                *s["kargs"][:6], s["scal"](thresh), costs_in=costs, second_moment=True,
+                **mkw).run, 50)
+            arms[f"{model}/m2_elite_plain"] = (plain_elite_m2, 3)
+            arms[f"{model}/m2_stale_alone"] = (KernelLaunch(
+                *s["kargs"][:6], s["scal"](thresh), second_moment=True, **mkw).run, 50)
+            arms[f"{model}/m2_stale_plain"] = (
+                lambda s=s, mkw=mkw, th=thresh: plain_fn(
+                    *s["kargs"][:6], s["scal"](th), second_moment=True, **mkw), 3)
+    for model, fargs in fleet_cases.items():
+        fkw = dict(seed=1, step=2, num_samples=K_FLEET, model=model)
+        arms[f"fleet/{model}/kernel_alone"] = (KernelLaunch(*fargs, **fkw).run, 50)
+        arms[f"fleet/{model}/plain_alone"] = (
+            lambda fargs=fargs, fkw=fkw: plain_fn(*fargs, **fkw), 3)
+    for preset in ("diff_drive", "full_body"):
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_FLEET, horizon=T_FLEET,
+                                              device=dev)
+        args = (fan(course, B_FLEET, cfg.num_states),
+                PathBuffer.from_points(course, 0.1, device=dev),
+                torch.full((), 0.1, device=dev), sp, cp)
+        for arm, use_kernel, inner in (("kernel", True, 20), ("eager", False, 3)):
+            carry = [init_fleet(cfg, B_FLEET, device=dev)]
+            step_fn = build_fleet_step(cfg, use_kernel=use_kernel)
+
+            def tick(carry=carry, step_fn=step_fn, args=args):
+                carry[0], _ = step_fn(carry[0], *args)
+            arms[f"fleet/{cfg.model}/tick_{arm}"] = (tick, inner)
+    for fn, inner in arms.values():  # warm-up
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in arms}
+    for r in range(reps):
+        order = list(arms) if r % 2 == 0 else list(reversed(arms))
+        for name in order:
+            fn, inner = arms[name]
+            times[name].append(event_ms(fn, inner))
+    med.update({name: statistics.median(v) for name, v in times.items()})
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    print(f"[15 timing] second moment at K={K_MAIN} T={T_MAIN}; fleet at B={B_FLEET} "
+          f"K={K_FLEET} T={T_FLEET}; median of {reps} CUDA-event reps, on {card} (after: "
+          f"sm clock, draw, limit, temp = {clocks})", flush=True)
+    for name in arms:
+        rate = ""
+        if "/tick_" in name:
+            rate = f"; {B_FLEET / (med[name] * 1e-3):.4e} robot-updates/s"
+        spread = f"[{min(times[name]):.4f}, {max(times[name]):.4f}]"
+        print(f"  {name}: {med[name]:.4f} ms {spread}{rate}", flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms):
         n = launches[path_key]
         require(n > 0, f"{name}: no launch in its main path's run")
@@ -464,6 +820,20 @@ def main():
         "rollout_cost_full_body_cost_threshold", "full_body_elite_stale",
         "full_body_stale",
         med["full_body/stale_kernel_alone"], med["full_body/stale_plain"]))
+    for m, key in (("full_body", "full_body_sigma"), ("unicycle", "unicycle_sigma")):
+        kernels.append(entry(f"rollout_cost_{m}_second_moment", key, f"{m}_m2",
+                             med[f"{m}/m2_alone"], med[f"{m}/m2_plain"]))
+    kernels.append(entry(
+        "rollout_cost_full_body_second_moment_elite_two_pass", "full_body_sigma_elite",
+        "full_body_m2_elite",
+        med["full_body/elite_pass1_alone"] + med["full_body/m2_elite_pass2_alone"],
+        med["full_body/m2_elite_plain"]))
+    kernels.append(entry(
+        "rollout_cost_unicycle_second_moment_cost_threshold", "unicycle_sigma_elite_stale",
+        "unicycle_m2_stale", med["unicycle/m2_stale_alone"], med["unicycle/m2_stale_plain"]))
+    for m in ("unicycle", "full_body"):
+        kernels.append(entry(f"rollout_cost_{m}_fleet", f"{m}_fleet", f"{m}_fleet",
+                             med[f"fleet/{m}/kernel_alone"], med[f"fleet/{m}/plain_alone"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
