@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -72,6 +73,29 @@ def build(name: str):
         )
     os.replace(tmp, out)
     return out, seconds, proc.stdout + proc.stderr
+
+
+def ptxas_summary(log: str):
+    """{entry function: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} from the ``-Xptxas -v`` report in nvcc's output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
+        if m:
+            cur.update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+            cur = None
+    return out
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -7,8 +7,15 @@ branches, noise-input and in-kernel RNG mode, any K, the elite passes
 (costs only, costs in, cost threshold), the second moment (adaptive sigma)
 and the fleet grid (a leading robot axis, B robots in one launch). Sampled
 controls and rollout states never reach device memory: the kernel writes
-the costs and one row of partial sums per block, which the wrapper
-finishes here.
+the costs, one row of partial sums per block, and, from the last block of
+each robot, the finished update.
+
+The launch shape is chosen here, from the shapes alone (:func:`launch_shape`):
+the store form (each control drawn once into a shared-memory tile) wherever
+32 samples' tiles fit in a block's shared memory, else the regenerate form
+(the update draws every control row again); and the threads per block by an
+occupancy model of the H100 and how evenly the blocks spread over its
+132 SMs.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -17,9 +24,12 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import re
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
@@ -44,6 +54,31 @@ NSCAL = 18
 
 # gridDim.y of the fleet grid
 MAX_ROBOTS = 65535
+
+# --- the H100 SXM (sm_90), for the launch-shape model ---
+NUM_SMS = 132
+SMEM_PER_SM = 233_472          # 228 KB of shared memory an SM hands out
+SMEM_PER_BLOCK = 232_448       # 227 KB a block may use
+SMEM_RESERVED = 1024           # the runtime's share of each resident block
+STATIC_SMEM = 64               # the kernel's static shared memory, rounded up
+MAX_DYNAMIC_SMEM = SMEM_PER_BLOCK - STATIC_SMEM  # csrc kMaxDynamicSmem
+REGS_PER_SM = 65_536
+MAX_WARPS_PER_SM = 64
+MAX_BLOCKS_PER_SM = 32
+MAX_THREADS = 256              # csrc kMaxThreads (__launch_bounds__)
+GROUP = 32                     # csrc kGroup: blocks per group of the finish
+# Registers per thread of each (model, form), as ptxas reports them for
+# sm_90a (chip_smoke.py phase 1 prints them, and the occupancy that follows
+# beside the CUDA occupancy calculator's): the __launch_bounds__ cap of 64,
+# except full_body's store form (csrc: uncapped, it uses 168).
+REGISTERS = {(m, f): 64 for m in KERNEL_MODELS for f in ("store", "regen")}
+REGISTERS["full_body", "store"] = 168
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA's H100 datasheet);
+# the INT32 rate is half the FP32 one.
+FP32_PEAK = 67e12
+INT32_PEAK = 33.5e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def pack_scalars(dt, cp: CostParams, yaw_ref0, model_params=None, noise_beta=0.0,
@@ -157,6 +192,283 @@ def _reference_one(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, num_sample
     return out
 
 
+def finish_reference(partials, lam, tm1: int, u_dim: int, second_moment: bool = False):
+    """Plain version of the kernel's finish: (u_num, norm[, u2_num]) of one
+    robot, or of each robot of a fleet, from its per-block partial rows.
+
+    partials: (..., blocks, row) rows [m_b, sum w, sums w*u[t, j] ..., with
+    the second moment sums w*u[t, j]^2 ...] (padding columns after them are
+    ignored); lam: (...) temperatures. Each row is rescaled from its own
+    baseline m_b to the robot's minimum m by exp(-(m_b - m)/lambda), then
+    the rows are summed: the exact algebra of the sharded JAX path."""
+    p = partials
+    lead = tuple(p.shape[:-2])
+    m_blk = p[..., 0]
+    neg_rlam = (-1.0 / lam)[..., None]
+    scale = torch.exp((m_blk - torch.amin(m_blk, dim=-1, keepdim=True)) * neg_rlam)
+    nu = tm1 * u_dim
+    shape = lead + (tm1, u_dim)
+    out = (torch.sum(scale[..., None] * p[..., 2:2 + nu], dim=-2).reshape(shape),
+           torch.sum(scale * p[..., 1], dim=-1))
+    if second_moment:
+        out += (torch.sum(scale[..., None] * p[..., 2 + nu:2 + 2 * nu],
+                          dim=-2).reshape(shape),)
+    return out
+
+
+# --- launch shape -----------------------------------------------------------
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def finish_groups(blocks: int) -> int:
+    """Groups of GROUP blocks per robot in the kernel's two-level finish
+    (one group: the block rows are reduced into the outputs directly)."""
+    return -(-blocks // GROUP)
+
+
+def row_floats(nu: int, second_moment: bool) -> int:
+    """Floats of one partial row, padded to a multiple of 4 (csrc
+    row_floats)."""
+    return _align4(2 + (2 if second_moment else 1) * nu)
+
+
+def pad_ref_count(num_ref: int) -> int:
+    """Reference rows after padding to a multiple of 4."""
+    return _align4(num_ref)
+
+
+def smem_bytes(model: str, form: str, second_moment: bool, accumulate: bool,
+               threads: int, horizon: int, num_ref: int) -> int:
+    """Dynamic shared memory of one block (csrc smem_floats, checked
+    against it when the library is bound): the padded reference rows, u_prev
+    and the weights row; then the control tile (store form), a slot per
+    (warp, sum) (regenerate form) or nothing (costs-only pass); at least the
+    finish's sums and the GROUP partial rows of a group (one row where those
+    do not fit)."""
+    nu = (horizon - 1) * get_model(model).num_controls
+    nacc = 1 + (2 if second_moment else 1) * nu
+    rs = row_floats(nu, second_moment)
+    big = 0
+    if accumulate:
+        big = nu * threads if form == "store" else (threads // 32) * nacc
+    rollout_floats = 4 * pad_ref_count(num_ref) + _align4(nu) + threads + big
+    if not accumulate:
+        return 4 * rollout_floats
+    want = _align4(nacc) + GROUP + GROUP * rs
+    least = _align4(nacc) + 4 + rs
+    fin = want if 4 * want <= MAX_DYNAMIC_SMEM else least
+    return 4 * max(rollout_floats, fin)
+
+
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory that one H100 SM holds at once (the occupancy calculator's rules:
+    registers allocated per warp in units of 256)."""
+    warps = threads // 32
+    regs_per_warp = -(-registers * 32 // 256) * 256
+    by_regs = REGS_PER_SM // (regs_per_warp * warps)
+    by_smem = SMEM_PER_SM // (smem + STATIC_SMEM + SMEM_RESERVED)
+    return min(by_regs, by_smem, MAX_WARPS_PER_SM // warps, MAX_BLOCKS_PER_SM)
+
+
+class LaunchShape(NamedTuple):
+    form: str            # "store" or "regen"
+    threads: int         # per block, a multiple of 32
+    blocks: int          # per robot
+    smem: int            # dynamic shared memory bytes per block
+    blocks_per_sm: int   # by the occupancy model
+
+
+def _spread(shape: LaunchShape):
+    """How one robot's blocks spread over the SMs, as a sort key: the waves
+    of resident blocks on the busiest SM (fractional, at least 1: a part-full
+    wave costs its share), then the samples that SM runs."""
+    per_sm = -(-shape.blocks // NUM_SMS)
+    return max(1.0, per_sm / shape.blocks_per_sm), per_sm * shape.threads
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(model: str, num_samples: int, horizon: int, num_ref: int,
+                 second_moment: bool = False, accumulate: bool = True,
+                 costs_in: bool = False, form: Optional[str] = None,
+                 threads: Optional[int] = None) -> LaunchShape:
+    """The form and the threads per block of one launch, from its shapes.
+
+    Form: the store form wherever the control tiles of 32 samples fit in a
+    block's shared memory, else the regenerate form (the store form was the
+    faster at every shape measured, PERF.md). The passes of two-pass elite
+    take the regenerate form: the costs-only pass (``accumulate=False``) has
+    no update, and the costs-in pass (``costs_in``) has no rollout, so it
+    draws each control once in either form, and the regenerate form holds
+    more warps (full_body: 0.0860 against 0.1131 ms, PERF.md).
+    Threads: among the multiples of 32 up to MAX_THREADS whose block fits,
+    the one whose blocks spread most evenly over the 132 SMs (:func:`_spread`:
+    fewest waves, then fewest samples on the busiest SM), the larger block
+    on a tie (fewer partial rows to finish). The fleet size does not enter
+    the choice, so robot b of a fleet launch is bit-equal to a launch of
+    robot b alone. ``form`` and ``threads`` override the choice (tests and
+    measurements); a shape that does not fit raises. A pure function of its
+    arguments, cached: every update asks it again at the same shapes.
+    """
+    if form is None:
+        form = "regen"
+        if accumulate and not costs_in and smem_bytes(
+                model, "store", second_moment, True, 32, horizon,
+                num_ref) <= MAX_DYNAMIC_SMEM:
+            form = "store"
+    if form not in ("store", "regen") or (form == "store" and not accumulate):
+        raise ValueError(f"no {form!r} form for this pass")
+    best = None
+    for t in ([threads] if threads is not None else range(MAX_THREADS, 31, -32)):
+        if t % 32 or not 32 <= t <= MAX_THREADS:
+            raise ValueError(f"threads must be a multiple of 32 in [32, {MAX_THREADS}]")
+        smem = smem_bytes(model, form, second_moment, accumulate, t, horizon, num_ref)
+        bps = 0
+        if smem <= MAX_DYNAMIC_SMEM:
+            bps = blocks_per_sm(REGISTERS[model, form], t, smem)
+        if bps < 1:
+            continue
+        shape = LaunchShape(form, t, -(-num_samples // t), smem, bps)
+        if best is None or _spread(shape) < _spread(best):
+            best = shape
+    if best is None:
+        raise ValueError(f"no launch of the {form} form fits: {model} T={horizon} "
+                         f"R={num_ref} second_moment={second_moment}")
+    return best
+
+
+# --- work and bound -----------------------------------------------------------
+
+# float32 operations of one model step inside the rollout, counted from the
+# kernel source (csrc/rollout_cost.cu tracking_cost / full_body_cost; an
+# FMA counts 2, sin, cos, exp, log and sqrt 1 each, a min, max or compare
+# 1): the cost terms, the ZMP chain and the Euler step.
+STEP_FLOPS = {"unicycle": 16, "steering_unicycle": 17, "rate_limited_steering": 23,
+              "full_body": 54}
+
+
+def _per_sample_work(model, horizon, num_ref, second_moment, rng, accumulate,
+                     costs_in):
+    """Operations of one sample, itemized (see :func:`rollout_cost_work`)."""
+    m = get_model(model)
+    u_dim, tm1 = m.num_controls, horizon - 1
+    nu = tm1 * u_dim
+    pairs = (u_dim + 1) // 2
+    work = {"scan": 0, "step": 0, "sample": u_dim * (7 * tm1 - 3), "box_muller": 0,
+            "update": 0, "philox": 0}
+    if rng:
+        work["box_muller"] = 10 * pairs * tm1
+        work["philox"] = 62 * pairs * tm1
+    if not costs_in:
+        if model == "full_body":
+            steps = horizon - 2
+            work["scan"] = steps * (5 * num_ref + 6)
+            work["step"] = steps * STEP_FLOPS[model] + 6
+        else:
+            work["scan"] = horizon * (5 * num_ref + 6)
+            work["step"] = tm1 * STEP_FLOPS[model] + 2
+    if accumulate:
+        work["update"] = 6 + (4 if second_moment else 2) * nu
+    return work
+
+
+def rollout_cost_work(model: str, num_samples: int, horizon: int, num_ref: int,
+                      second_moment: bool = False, rng: bool = True,
+                      num_robots: int = 1, accumulate: bool = True,
+                      costs_in: bool = False) -> dict:
+    """The work one launch must do, from the shapes alone: float32
+    operations, Philox integer operations, and bytes (each input read once,
+    each output written once; the partial rows are scratch).
+
+    Per sample (K*B samples), counted from the kernel source; an FMA counts
+    2 operations, each sin, cos, exp, log and sqrt 1, each min, max and
+    compare 1:
+
+    - scan: each distance scan 5 per reference point (two FMAs and a min)
+      plus 6 (|p|^2, the add back, the clamp); T scans for the tracking
+      models (T-1 steps and the final state), T-2 for full_body;
+    - step: STEP_FLOPS per step (the cost terms, the ZMP chain, the Euler
+      step), T-1 steps (tracking, plus 2 for the final path term) or T-2
+      (full_body, plus 6 for the yaw term and the hoisted reciprocals);
+    - sample: per control 7 (colouring 3, the affine map 2, the clamp 2), the
+      first row 4 (no colouring);
+    - box_muller (RNG mode): per pair of normals 10 (two int-to-float
+      scalings, log1p, the scale by -2, sqrt, the scale by 2*pi, cos, sin,
+      and two products), ceil(U/2) pairs a row;
+    - update (with accumulate): 6 per sample (the block minimum, the
+      threshold compare, the baseline shift and scale, exp, the sum of
+      weights) and per control 2 (w*u and its sum), 4 with the second
+      moment;
+    - philox (integer, RNG mode): 62 per Philox4x32-10 call (10 rounds of
+      two high and two low 32-bit products and two three-input XORs, and two
+      shifts), one call per pair.
+
+    ``costs_in``: the costs-free elite pass (no scan, no step; the costs
+    read instead of written). ``accumulate=False``: the costs-only pass.
+    """
+    m = get_model(model)
+    u_dim, s_dim, tm1 = m.num_controls, m.num_states, horizon - 1
+    nu = tm1 * u_dim
+    work = _per_sample_work(model, horizon, num_ref, second_moment, rng, accumulate,
+                            costs_in)
+    samples = num_samples * num_robots
+    floats = num_robots * (nu + num_ref * 2 + s_dim + NSCAL) + 3 * u_dim
+    if not rng:
+        floats += samples * nu
+    floats += samples  # the costs, read (costs_in) or written
+    if accumulate:
+        floats += num_robots * ((2 if second_moment else 1) * nu + 1)
+    return {"flops": samples * (sum(work.values()) - work["philox"]),
+            "int_ops": samples * work["philox"], "bytes": 4 * floats}
+
+
+def rollout_cost_bound_ms(model: str, num_samples: int, horizon: int, num_ref: int,
+                          second_moment: bool = False, rng: bool = True,
+                          num_robots: int = 1, accumulate: bool = True,
+                          costs_in: bool = False):
+    """(ms, which): the least time an H100 SXM at 700 W could take for the
+    work of :func:`rollout_cost_work`, the larger of flops / FP32_PEAK, int
+    ops / INT32_PEAK and bytes / HBM_BYTES_PER_S; ``which`` is "fp32",
+    "int32" or "bytes", the one that bounds."""
+    w = rollout_cost_work(model, num_samples, horizon, num_ref, second_moment, rng,
+                          num_robots, accumulate, costs_in)
+    times = {"fp32": w["flops"] / FP32_PEAK, "int32": w["int_ops"] / INT32_PEAK,
+             "bytes": w["bytes"] / HBM_BYTES_PER_S}
+    which = max(times, key=times.get)
+    return times[which] * 1e3, which
+
+
+# --- the launch -----------------------------------------------------------------
+
+def pad_ref_rows(ref_xy):
+    """(c, refc): the window's first point c, (2,) or (B, 2), and its
+    centered rows [2(rx-cx), 2(ry-cy), |r-c|^2, 0] as (..., R_pad, 4) with R
+    padded to a multiple of 4 by rows [0, 0, +inf, 0], which can never be
+    the minimum (+inf - x*0 - y*0 = +inf)."""
+    c, rc2, rn = center_ref(ref_xy)
+    r = ref_xy.shape[-2]
+    pad = pad_ref_count(r) - r
+    refc = F.pad(torch.cat([rc2, rn[..., None]], dim=-1), (0, 1, 0, pad))
+    if pad:
+        refc[..., r:, 2] = float("inf")
+    return c, refc
+
+
+def instantiations(summary: dict) -> dict:
+    """{(model, second_moment, form): ptxas properties} of the kernel's
+    instantiations, from :func:`kernels.build.ptxas_summary`."""
+    out = {}
+    for name, props in summary.items():
+        m = re.search(r"rollout_cost_kernelILi(\d)ELb([01])ELb([01])E", name)
+        if m:
+            key = (KERNEL_MODELS[int(m.group(1))], m.group(2) == "1",
+                   "store" if m.group(3) == "1" else "regen")
+            out[key] = props
+    return out
+
+
 def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
                   num_samples, model, noise, accumulate, costs_in):
     if model not in KERNEL_MODELS:
@@ -208,105 +520,151 @@ def _bind(lib):
         return lib
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.rollout_cost
-    fn.argtypes = [i] + [p] * 11 + [i, i, i, u, u, u, i, i, f, f, i, i, p]
+    fn.argtypes = [i, i] + [p] * 15 + [i, i, i, u, u, u, i, i, f, f, i, i, i, p]
     fn.restype = i
-    for name in ("rollout_cost_block_threads", "rollout_cost_num_scalars"):
+    for name in ("rollout_cost_max_threads", "rollout_cost_num_scalars"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    lib.rollout_cost_model_dims.argtypes = [i]
-    lib.rollout_cost_model_dims.restype = i
+    for name, n in (("rollout_cost_model_dims", 1), ("rollout_cost_smem_bytes", 7),
+                    ("rollout_cost_row_floats", 3), ("rollout_cost_blocks_per_sm", 5)):
+        getattr(lib, name).argtypes = [i] * n
+        getattr(lib, name).restype = i
     lib.rollout_cost_error_string.argtypes = [i]
     lib.rollout_cost_error_string.restype = ctypes.c_char_p
     if lib.rollout_cost_num_scalars() != NSCAL:
         raise RuntimeError("csrc/rollout_cost.cu scalar layout differs from NSCAL")
+    if lib.rollout_cost_max_threads() != MAX_THREADS:
+        raise RuntimeError("csrc/rollout_cost.cu kMaxThreads differs from MAX_THREADS")
     for mid, name in enumerate(KERNEL_MODELS):
         m = get_model(name)
         if lib.rollout_cost_model_dims(mid) != m.num_controls * 16 + m.num_states:
             raise RuntimeError(f"csrc/rollout_cost.cu model {mid} is not {name}")
+        # the shared-memory and row layouts the chooser assumes are the kernel's
+        for horizon, num_ref, threads in ((2, 1, 32), (30, 30, 128), (400, 400, 256)):
+            for form, m2, acc in (("store", True, True), ("store", False, True),
+                                  ("regen", True, True), ("regen", False, False)):
+                c_smem = lib.rollout_cost_smem_bytes(mid, form == "store", m2, acc,
+                                                     threads, horizon,
+                                                     pad_ref_count(num_ref))
+                if c_smem != smem_bytes(name, form, m2, acc, threads, horizon, num_ref):
+                    raise RuntimeError(f"csrc/rollout_cost.cu shared memory of {name} "
+                                       f"differs from smem_bytes")
+            nu = (horizon - 1) * m.num_controls
+            if lib.rollout_cost_row_floats(mid, 1, horizon) != row_floats(nu, True):
+                raise RuntimeError("csrc/rollout_cost.cu row layout differs")
     lib._rollout_cost_bound = True
     return lib
 
 
+# (device index, stream, length) -> int32 zeros: the tickets of the
+# in-kernel finish, one per group and one per robot. The kernel leaves them
+# at zero, so each buffer is made once and reused by every launch of that
+# length on that stream.
+_COUNTERS = {}
+
+
+def _counters(device, stream: int, length: int):
+    key = (device.index, stream, length)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = torch.zeros(length, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 class KernelLaunch:
     """One kernel launch with its operands prepared on the device: the
-    centered reference constants [2(r-c), |r-c|^2], the start state
+    padded centered reference rows (:func:`pad_ref_rows`), the start state
     translated by -c (per robot in a fleet, in one batched pass), the noise
-    transposed to a contiguous (..., T-1, U, K), and the outputs. :meth:`run`
-    launches on the current stream and raises on a launch error;
-    :meth:`finish` reduces the per-block partials."""
+    transposed to a contiguous (..., T-1, U, K), the launch shape
+    (:func:`launch_shape`; ``form`` and ``threads`` override it), and the
+    outputs. :meth:`run` launches on the current stream and raises on a
+    launch error; :meth:`finish` returns the update the kernel finished."""
 
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
                  step, num_samples, model, steer_off=False, noise=None,
-                 accumulate=True, costs_in=None, second_moment=False, robot=0):
+                 accumulate=True, costs_in=None, second_moment=False, robot=0,
+                 form=None, threads=None):
         from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
         self.lib = _bind(load_library("rollout_cost"))
         dev = u_prev.device
         self.lead = tuple(u_prev.shape[:-2])
+        self.num_robots = self.lead[0] if self.lead else 1
         self.tm1, self.u_dim = u_prev.shape[-2:]
         self.lam = scal[..., 16]
         self.second_moment = second_moment
+        self.accumulate = accumulate
         m2 = second_moment and accumulate
-        c, rc2, rn = center_ref(ref_xy)
-        refc = torch.cat([rc2, rn[..., None]], dim=-1).contiguous()
+        num_ref = ref_xy.shape[-2]
+        self.shape = launch_shape(model, num_samples, self.tm1 + 1, num_ref, m2,
+                                  accumulate, costs_in is not None, form=form,
+                                  threads=threads)
+        c, refc = pad_ref_rows(ref_xy)
         s0 = torch.cat([state0[..., :2] - c, state0[..., 2:]], dim=-1).contiguous()
         noise_t = None if noise is None else noise.transpose(-1, -2).contiguous()
-        blocks = -(-num_samples // self.lib.rollout_cost_block_threads())
-        self.costs = costs_in
-        if costs_in is None:
-            self.costs = torch.empty(self.lead + (num_samples,), dtype=torch.float32,
-                                     device=dev)
-        self.partials = None
+        out_shape = self.lead + (self.tm1, self.u_dim)
+
+        def empty(shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        self.costs = costs_in if costs_in is not None else empty(self.lead + (num_samples,))
+        self.partials = self.u_num = self.norm = self.u2_num = None
+        groups = finish_groups(self.shape.blocks)
+        self.num_counters = self.num_robots * (groups + 1)
+        rows = None
         if accumulate:
-            row = 2 + (2 if m2 else 1) * self.tm1 * self.u_dim
-            self.partials = torch.empty(self.lead + (blocks, row), dtype=torch.float32,
-                                        device=dev)
+            # the block rows, then the group rows of the two-level finish
+            rows = empty(self.lead + (self.shape.blocks + groups,
+                                      row_floats(self.tm1 * self.u_dim, m2)))
+            self.partials = rows[..., :self.shape.blocks, :]
+            self.u_num, self.norm = empty(out_shape), empty(self.lead)
+            if m2:
+                self.u2_num = empty(out_shape)
         steer_max, rate_max = 0.0, 0.0
         if model == "rate_limited_steering":
             steer_max, rate_max = steer_limits(model)
         # operands stay referenced by self until the launch is dropped
-        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t)
+        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t, rows)
         self.device = dev
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        self.args = (
-            KERNEL_MODELS.index(model), u_prev.data_ptr(), sigma.data_ptr(),
-            u_min.data_ptr(), u_max.data_ptr(), refc.data_ptr(), s0.data_ptr(),
-            scal.data_ptr(), ptr(noise_t), ptr(costs_in),
-            None if costs_in is not None else self.costs.data_ptr(),
-            ptr(self.partials), num_samples, self.tm1 + 1, refc.shape[-2],
-            seed & 0xFFFFFFFF, step & 0xFFFFFFFF, robot & 0xFFFFFFFF, int(steer_off),
-            int(accumulate), steer_max, rate_max,
-            self.lead[0] if self.lead else 1, int(m2),
+        self._head = (
+            KERNEL_MODELS.index(model), int(self.shape.form == "store"),
+            u_prev.data_ptr(), sigma.data_ptr(), u_min.data_ptr(), u_max.data_ptr(),
+            refc.data_ptr(), s0.data_ptr(), scal.data_ptr(), ptr(noise_t),
+            ptr(costs_in), None if costs_in is not None else self.costs.data_ptr(),
+            ptr(rows),
+        )
+        self._tail = (
+            ptr(self.u_num), ptr(self.norm), ptr(self.u2_num), num_samples,
+            self.tm1 + 1, refc.shape[-2], seed & 0xFFFFFFFF, step & 0xFFFFFFFF,
+            robot & 0xFFFFFFFF, int(steer_off), int(accumulate), steer_max, rate_max,
+            self.num_robots, int(m2), self.shape.threads,
         )
 
     def run(self):
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = self.lib.rollout_cost(*self.args, stream)
+            counters = None
+            if self.accumulate:
+                counters = _counters(self.device, stream, self.num_counters).data_ptr()
+            err = self.lib.rollout_cost(*self._head, counters, *self._tail, stream)
         if err != 0:
             msg = self.lib.rollout_cost_error_string(err).decode()
             raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
 
     def finish(self):
-        """(u_num, norm[, u2_num]) per robot: each block's sums rescaled from
-        its own baseline m_b to the robot's minimum m by exp(-(m_b -
-        m)/lambda), then summed over the robot's blocks; Nones after a
-        costs-only pass."""
-        if self.partials is None:
+        """(u_num, norm[, u2_num]) per robot, as the kernel's last block of
+        each robot finished them (:func:`finish_reference` is the plain
+        version); Nones after a costs-only pass. Launches nothing."""
+        if not self.accumulate:
             return (None,) * (3 if self.second_moment else 2)
-        p = self.partials
-        m_blk = p[..., 0]
-        neg_rlam = (-1.0 / self.lam)[..., None]
-        scale = torch.exp((m_blk - torch.amin(m_blk, dim=-1, keepdim=True)) * neg_rlam)
-        nu = self.tm1 * self.u_dim
-        shape = self.lead + (self.tm1, self.u_dim)
-        out = (torch.sum(scale[..., None] * p[..., 2:2 + nu], dim=-2).reshape(shape),
-               torch.sum(scale * p[..., 1], dim=-1))
+        out = (self.u_num, self.norm)
         if self.second_moment:
-            out += (torch.sum(scale[..., None] * p[..., 2 + nu:], dim=-2).reshape(shape),)
+            out += (self.u2_num,)
         return out
 
 
@@ -337,7 +695,7 @@ def fused_sample_rollout_cost(
     accumulate=False: the costs-only pass (the first pass of two-pass elite):
     returns (costs, None, None). costs_in: the costs-free pass, (K,) costs
     of an earlier pass with the same seed, step and noise: the kernel
-    regenerates the same controls, skips the rollout, and returns
+    draws the same controls, skips the rollout, and returns
     (costs_in, u_num, norm). second_moment=True: a fourth output, u2_num
     (T-1, U), the weighted sums of u^2 (None without the update).
 

@@ -11,7 +11,10 @@ ControlLoop, the fleet (B=256 robots in one launch), and the closed loops
 that repeat them. Phases, each printed on one line, the first failure ending the
 run with a non-zero exit:
 
-  1. build the kernel from csrc/ with nvcc; print the card and its power limit;
+  1. build the kernel from csrc/ with nvcc; print the card and its power limit,
+     each instantiation's ptxas registers (held equal to the launch-shape
+     model's table), spills and stack, and the launch shape's occupancy
+     model, held equal to the CUDA occupancy calculator's;
   2. kernel vs its plain PyTorch version, injected noise, every model at
      K=102400 T=30 and at K=10000 (masked tail): full_body at T=15 with
      roll_off=False weights, the others at T=30; steer_off for full_body and
@@ -56,12 +59,26 @@ run with a non-zero exit:
      every robot within 0.3 m of the course, exactly 200 launches;
  14. the `fleet` command, 64 robots, 200 ticks, kernel and eager arm;
  15. CUDA-event timings of the new modes: the second-moment kernel vs the
-     vanilla one, the fleet kernel, the fleet tick on both arms.
+     vanilla one, the fleet kernel, the fleet tick on both arms;
+ 16. the kernel's two forms and its finish: the regenerate form (where the
+     launch shape picks it, full_body at T=400, and forced at each model's
+     flagship) and the store form's costs-in pass (forced) vs the plain
+     version; the kernel's own finish vs the plain finish
+     (kernels/rollout_cost.py finish_reference) on the partial rows of the
+     same launch, every model, with the second moment, and the fleet;
+ 17. torch.profiler over 20 kernel-lean updates (full_body and unicycle,
+     vanilla and elite): device launches per update and the device's busy
+     share.
 
-The last three lines are the kernels JSON line, the card's name and power
-limit as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without
-a CUDA device, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+After every phase that launches the kernel, the finish's ticket counters are
+back at 0.
+
+The last three lines are the kernels JSON line (each entry with its bound:
+kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
+the main-path run's count over its cycles), the card's name and power limit
+as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 import contextlib
@@ -110,7 +127,104 @@ def u_bound(u_ref):
     return 5e-4 * float(u_ref.abs().max()) + 5e-5
 
 
+def event_ms(fn, inner):
+    """Milliseconds per call of fn: CUDA events around `inner` calls."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
+def time_interleaved(arms, reps, warm=2):
+    """{name: [ms per call] * reps} of arms {name: (fn, inner)}: `warm` calls
+    of each, then `reps` rounds of event_ms over every arm, the order
+    alternating between rounds."""
+    import torch
+
+    for fn, _ in arms.values():
+        for _ in range(warm):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in arms}
+    for r in range(reps):
+        for name in (list(arms) if r % 2 == 0 else list(reversed(arms))):
+            fn, inner = arms[name]
+            times[name].append(event_ms(fn, inner))
+    return times
+
+
+def kernel_case(preset, k, t, robots=None, roll_off=False, seed=0, device="cuda:0"):
+    """The fused kernel's operands for one preset at K=k, T=t, made from
+    `seed`: one robot just off the course start, or `robots` robots
+    scattered along its first 8 m. A dict of the preset's cfg, sp, cp,
+    course and path, the model name, state, u_prev, noise (standard
+    normals, (..., T-1, K, U)), dt, mp, scal (thresh -> the scalar vector
+    with that elite threshold) and kargs (the kernel's seven leading
+    arguments). scripts/torch_kernel_ab.py uses it too."""
+    import numpy as np
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import pack_scalars
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.paths import (
+        PathBuffer,
+        resample_reference,
+        resample_references,
+    )
+
+    dev = torch.device(device)
+    model, rest = PRESET_MODELS[preset]
+    kw = {"roll_off": roll_off} if model == "full_body" else {}
+    cfg, sp, cp, course = PRESETS[preset](num_samples=k, horizon=t, device=dev, **kw)
+    m = get_model(model)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    rng = np.random.RandomState(seed)
+    dt = torch.full((), 0.1, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if robots is None:
+        state = torch.tensor([0.05, course[0, 1] + 0.1, *rest], dtype=torch.float32,
+                             device=dev)
+        u_prev = torch.tensor(rng.randn(t - 1, m.num_controls) * 0.2,
+                              dtype=torch.float32, device=dev)
+        noise = torch.randn((t - 1, k, m.num_controls), generator=gen, device=dev)
+        ref = resample_reference(path, state[:2], cp.v_ref, dt, t)
+        yaw0 = ref.yaw[0]
+    else:
+        st = np.zeros((robots, m.num_states))
+        st[:, 0] = rng.uniform(0.0, 8.0, robots)
+        st[:, 1] = np.interp(st[:, 0], course[:, 0], course[:, 1]) + 0.3 * rng.randn(robots)
+        st[:, 2:] = np.asarray(rest) + 0.05 * rng.randn(robots, len(rest))
+        state = torch.tensor(st, dtype=torch.float32, device=dev)
+        u_prev = torch.tensor(rng.randn(robots, t - 1, m.num_controls) * 0.2,
+                              dtype=torch.float32, device=dev)
+        noise = torch.randn((robots, t - 1, k, m.num_controls), generator=gen,
+                            device=dev)
+        ref = resample_references(path, state[:, :2], cp.v_ref, dt, t)
+        yaw0 = ref.yaw[:, 0]
+    mp = m.default_params(device=dev) if m.default_params else None
+
+    def scal(thresh=None):
+        return pack_scalars(dt, cp, yaw0, mp, sp.noise_beta, sp.lam, cost_thresh=thresh)
+
+    kargs = (u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state, scal())
+    return dict(cfg=cfg, sp=sp, cp=cp, course=course, path=path, model=model,
+                state=state, u_prev=u_prev, noise=noise, dt=dt, mp=mp, scal=scal,
+                kargs=kargs)
+
+
 SIGMA_RTOL, SIGMA_ATOL = 2e-4, 1e-6  # tests/test_solver_options.py:137-139
+# the kernel's finish vs the plain finish on the same partial rows: float32
+# sums of up to a few thousand rows in another order, and the two-level
+# rescaling exp(a)*exp(b) for exp(a+b)
+FINISH_RTOL = 1e-5
 
 
 def main():
@@ -137,21 +251,23 @@ def main():
     from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
     from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels import rollout_cost as kernel_mod
     from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        KERNEL_MODELS,
+        REGISTERS,
         SOURCE,
         KernelLaunch,
+        finish_reference,
         fused_sample_rollout_cost,
         fused_sample_rollout_cost_reference,
-        pack_scalars,
+        instantiations,
+        launch_shape,
+        rollout_cost_bound_ms,
     )
     from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import elite_threshold
-    from ccv_mppi_path_tracker_tpu_torch.paths import (
-        PathBuffer,
-        resample_reference,
-        resample_references,
-    )
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
     from ccv_mppi_path_tracker_tpu_torch.runtime import ControlLoop, run_tracking_experiment
     from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
     from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _sigma_suggest
@@ -165,41 +281,49 @@ def main():
 
     # --- 1. build -------------------------------------------------------
     lib_path, build_s, log = build.build("rollout_cost")
-    ptxas = [ln.strip() for ln in (log or "").splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"[1 build] {lib_path.name} in {build_s:.2f} s; torch "
           f"{torch.__version__} cuda {torch.version.cuda}; "
-          f"{torch.cuda.get_device_name(0)}; ptxas: {' | '.join(ptxas) or 'cached'}",
-          flush=True)
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     print(f"[1 card] {card}", flush=True)
+    ptxas = instantiations(build.ptxas_summary(log or ""))
+    for (model, m2, form), p in sorted(ptxas.items()):
+        print(f"  ptxas {model} second_moment={int(m2)} {form}: {p['registers']} "
+              f"registers, {p['spill_stores']} B spill stores, {p['spill_loads']} B "
+              f"spill loads, {p['stack']} B stack, {p['smem']} B static smem", flush=True)
+    require(not log or len(ptxas) == 4 * 2 * 2, "not every instantiation was built")
+    # the chooser's register table is what ptxas gave (a fresh build only:
+    # a reused library leaves no report)
+    for (model, m2, form), p in ptxas.items():
+        require(p["registers"] == REGISTERS[model, form],
+                f"ptxas gave {model} second_moment={int(m2)} {form} {p['registers']} "
+                f"registers, the launch-shape model assumes {REGISTERS[model, form]}")
+    lib = build.load_library("rollout_cost")
+    kernel_mod._bind(lib)
+    for model in KERNEL_MODELS:
+        for k, t, m2, opts in ((K_MAIN, T_MAIN, False, {}), (K_MAIN, T_MAIN, True, {}),
+                               (K_MAIN, T_MAIN, False, {"accumulate": False}),
+                               (K_MAIN, T_MAIN, False, {"costs_in": True}),
+                               (K_FLEET, T_FLEET, False, {}), (K_REF, 400, False, {})):
+            if model != "full_body" and t == 400:
+                continue
+            sh = launch_shape(model, k, t, t, m2, **opts)
+            cuda_bps = lib.rollout_cost_blocks_per_sm(KERNEL_MODELS.index(model),
+                                                      sh.form == "store", m2,
+                                                      sh.threads, sh.smem)
+            print(f"  launch shape {model} K={k} T={t} second_moment={int(m2)} "
+                  f"{opts or ''}: {sh.form}, {sh.threads} threads, {sh.blocks} blocks, "
+                  f"{sh.smem} B shared; blocks per SM {sh.blocks_per_sm} by the model "
+                  f"at {REGISTERS[model, sh.form]} registers, {cuda_bps} by the CUDA "
+                  f"occupancy calculator", flush=True)
+            require(cuda_bps == sh.blocks_per_sm,
+                    f"{model} K={k} T={t} {opts}: the occupancy model says "
+                    f"{sh.blocks_per_sm} blocks per SM, the CUDA calculator {cuda_bps}")
 
-    def setup(preset, k, t, roll_off=False, seed=0):
-        model, rest = PRESET_MODELS[preset]
-        kw = {"roll_off": roll_off} if model == "full_body" else {}
-        cfg, sp, cp, course = PRESETS[preset](num_samples=k, horizon=t,
-                                              device=dev, **kw)
-        m = get_model(model)
-        path = PathBuffer.from_points(course, 0.1, device=dev)
-        rng = np.random.RandomState(seed)
-        state = torch.tensor([0.05, course[0, 1] + 0.1, *rest],
-                             dtype=torch.float32, device=dev)
-        u_prev = torch.tensor(rng.randn(t - 1, m.num_controls) * 0.2,
-                              dtype=torch.float32, device=dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        noise = torch.randn((t - 1, k, m.num_controls), generator=gen, device=dev)
-        dt = torch.full((), 0.1, device=dev)
-        mp = m.default_params(device=dev) if m.default_params else None
-        ref = resample_reference(path, state[:2], cp.v_ref, dt, t)
-
-        def scal(thresh=None):
-            return pack_scalars(dt, cp, ref.yaw[0], mp, sp.noise_beta, sp.lam,
-                                cost_thresh=thresh)
-
-        kargs = (u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
-        return dict(cfg=cfg, sp=sp, cp=cp, course=course, path=path, model=model,
-                    state=state, u_prev=u_prev, noise=noise, dt=dt, mp=mp,
-                    scal=scal, kargs=kargs + (scal(),))
+    def counters_zero(tag):
+        """Every ticket counter of the in-kernel finish is back at 0."""
+        torch.cuda.synchronize()
+        bad = [key for key, buf in kernel_mod._COUNTERS.items() if bool((buf != 0).any())]
+        require(not bad, f"{tag}: finish counters not reset: {bad}")
 
     def u_err(tag, uo_k, uo_r):
         err = float((uo_k - uo_r).abs().max())
@@ -217,6 +341,7 @@ def main():
         print(f"  {tag}: costs max rel err {cost_rel:.3e} (rtol {COST_RTOL}); "
               f"u_opt max abs err {err:.3e} (bound {bound:.3e})", flush=True)
         require(cost_rel <= COST_RTOL, f"{tag}: costs differ by {cost_rel}")
+        counters_zero(tag)
         return err
 
     max_abs_err = {}
@@ -229,7 +354,7 @@ def main():
     # steer_off zeroes channel 2 of any model with U > 2: the steer rate here
     cases.append(("rate_limited_steering", K_REF, T_MAIN, True))
     for preset, k, t, steer_off in cases:
-        s = setup(preset, k, t)
+        s = kernel_case(preset, k, t)
         kw = dict(seed=0, step=0, num_samples=k, model=s["model"], noise=s["noise"],
                   steer_off=steer_off)
         err = compare(f"{s['model']} K={k} T={t}{' steer_off' if steer_off else ''}",
@@ -240,7 +365,7 @@ def main():
     # --- 3. RNG mode ---------------------------------------------------
     print("[3 RNG mode]", flush=True)
     for preset in NEW_PRESETS + ("full_body",):
-        s = setup(preset, K_MAIN, T_MAIN)
+        s = kernel_case(preset, K_MAIN, T_MAIN)
         kw = dict(seed=123, step=7, num_samples=K_MAIN, model=s["model"])
         a = kernel_fn(*s["kargs"], **kw)
         compare(f"{s['model']} K={K_MAIN} T={T_MAIN} seed=123 step=7", a,
@@ -274,7 +399,7 @@ def main():
     # --- 4. elite passes ---------------------------------------------------
     print(f"[4 elite] elite_frac={ELITE}, K={K_MAIN} T={T_MAIN}, RNG mode", flush=True)
     for preset in ("full_body", "diff_drive"):
-        s = setup(preset, K_MAIN, T_MAIN, seed=4)
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=4)
         model = s["model"]
         kw = dict(seed=5, step=6, num_samples=K_MAIN, model=model)
         costs, u_none, _ = kernel_fn(*s["kargs"], accumulate=False, **kw)
@@ -314,12 +439,13 @@ def main():
               f"(rel {th_rel:.2e}); stale +inf == unmasked {inf_same}; stale below "
               f"min holds u_mean {held}, elite_stale_empty {flagged}", flush=True)
         require(inf_same and held and flagged, f"{model} stale elite")
+        counters_zero(f"{model} elite")
 
     # --- 5. mppi_step kernel-lean vs eager-lean, and no host sync ----------
     print(f"[5 mppi_step] kernel-lean vs eager-lean K={K_MAIN} T={T_MAIN}", flush=True)
     step_cases = {}
     for preset in PRESET_MODELS:
-        s = setup(preset, K_MAIN, T_MAIN, seed=3)
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=3)
         ctrl = ControllerState(u_prev=s["u_prev"], seed=0, step=0)
         step_args = (s["cfg"], ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
         step_cases[preset] = step_args
@@ -394,6 +520,7 @@ def main():
         require(m["rmse"] < 0.15, f"{name} closed-loop RMSE {m['rmse']} >= 0.15")
         require(n == per_cycle * STEPS,
                 f"{name}: kernel launched {n} times, not {per_cycle * STEPS}")
+        counters_zero(name)
 
     # --- 7. the command line -------------------------------------------
     runs = [[p] + extra for p in ("diff_drive", "steering_diff_drive", "full_body")
@@ -413,18 +540,9 @@ def main():
         print(f"[7 cli] {' '.join(argv)}: rc {rc}, {lines[0]}, {lines[-1]}, "
               f"kernel launches {n}", flush=True)
         require(rc == 0 and rmse < 0.15 and n == expect, f"cli {' '.join(argv)}")
+        counters_zero(f"cli {' '.join(argv)}")
 
     # --- 8. timing --------------------------------------------------------
-    def event_ms(fn, inner):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / inner
-
     def updater(s, kind, **opts):
         carry = [ControllerState(s["u_prev"], 0, 0)]
 
@@ -437,7 +555,7 @@ def main():
     arms = {}
     kw = dict(seed=1, step=2, num_samples=K_MAIN)
     for preset in ("full_body",) + NEW_PRESETS:
-        s = setup(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
         model, mkw = s["model"], dict(kw, model=s["model"])
         # kernel_alone: launches of prepared operands only (the host enqueues
         # faster than the card runs them, so the events time the device)
@@ -474,17 +592,8 @@ def main():
             arms[f"{model}/stale_plain"] = (
                 lambda s=s, mkw=mkw, th=thresh: plain_fn(*s["kargs"][:6], s["scal"](th),
                                                          **mkw), 3)
-    for fn, inner in arms.values():  # warm-up
-        for _ in range(2):
-            fn()
-    torch.cuda.synchronize()
-    times = {name: [] for name in arms}
     reps = 7
-    for r in range(reps):  # interleaved, order alternating between reps
-        order = list(arms) if r % 2 == 0 else list(reversed(arms))
-        for name in order:
-            fn, inner = arms[name]
-            times[name].append(event_ms(fn, inner))
+    times = time_interleaved(arms, reps)
     med = {name: statistics.median(v) for name, v in times.items()}
     props = K_MAIN * (T_MAIN - 1)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
@@ -495,6 +604,7 @@ def main():
                 if "/update" in name else "")
         spread = f"[{min(times[name]):.4f}, {max(times[name]):.4f}]"
         print(f"  {name}: {ms:.4f} ms {spread}{rate}", flush=True)
+    counters_zero("timing")
 
     # --- 9. second moment (adaptive sigma) ------------------------------
     def m2_check(tag, kern, plain):
@@ -513,12 +623,13 @@ def main():
               f"u2_num/norm {err_2:.3e} (bound {bound_2:.3e}); sigma_suggest max rel "
               f"err {rel:.3e} (rtol {SIGMA_RTOL}, atol {SIGMA_ATOL})", flush=True)
         require(excess <= 0.0, f"{tag}: sigma_suggest differs beyond rtol/atol")
+        counters_zero(tag)
         return max(err_u, err_2)
 
     print(f"[9 second moment] kernel vs plain version, T={T_MAIN}", flush=True)
     for preset in PRESET_MODELS:
         for k in (K_MAIN, K_REF):
-            s = setup(preset, k, T_MAIN, seed=6)
+            s = kernel_case(preset, k, T_MAIN, seed=6)
             model = s["model"]
             kw = dict(num_samples=k, model=model, second_moment=True)
             nkw = dict(kw, seed=0, step=0, noise=s["noise"])
@@ -548,7 +659,7 @@ def main():
     # --- 10. mppi_step(adapt_sigma=True), kernel-lean vs eager-lean ---------
     print(f"[10 adapt_sigma] kernel-lean vs eager-lean K={K_MAIN} T={T_MAIN}", flush=True)
     for preset in PRESET_MODELS:
-        s = setup(preset, K_MAIN, T_MAIN, seed=3)
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=3)
         ctrl = ControllerState(u_prev=s["u_prev"], seed=0, step=0)
         step_args = (s["cfg"], ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
         for opts in ({}, {"elite_frac": ELITE}):
@@ -614,35 +725,9 @@ def main():
         require(inside and moved, f"{name}: sigma not adapted inside its bounds")
         require(n == per_cycle * STEPS, f"{name}: {n} launches, not {per_cycle * STEPS}")
         require(reset is not False, f"{name}: set_path kept the stale threshold")
+        counters_zero(name)
 
     # --- 12. fleet kernel vs plain version ----------------------------------
-    def fleet_setup(preset, seed):
-        """B_FLEET robots scattered along the first 8 m of the course."""
-        model, rest = PRESET_MODELS[preset]
-        kw = {"roll_off": False} if model == "full_body" else {}
-        cfg, sp, cp, course = PRESETS[preset](num_samples=K_FLEET, horizon=T_FLEET,
-                                              device=dev, **kw)
-        m = get_model(model)
-        rng = np.random.RandomState(seed)
-        st = np.zeros((B_FLEET, m.num_states))
-        st[:, 0] = rng.uniform(0.0, 8.0, B_FLEET)
-        st[:, 1] = np.interp(st[:, 0], course[:, 0], course[:, 1]) + 0.3 * rng.randn(B_FLEET)
-        st[:, 2:] = np.asarray(rest) + 0.05 * rng.randn(B_FLEET, len(rest))
-        states = torch.tensor(st, dtype=torch.float32, device=dev)
-        u_prev = torch.tensor(rng.randn(B_FLEET, T_FLEET - 1, m.num_controls) * 0.2,
-                              dtype=torch.float32, device=dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        noise = torch.randn((B_FLEET, T_FLEET - 1, K_FLEET, m.num_controls),
-                            generator=gen, device=dev)
-        dt = torch.full((), 0.1, device=dev)
-        mp = m.default_params(device=dev) if m.default_params else None
-        ref = resample_references(PathBuffer.from_points(course, 0.1, device=dev),
-                                  states[:, :2], cp.v_ref, dt, T_FLEET)
-        scal = pack_scalars(dt, cp, ref.yaw[:, 0], mp, sp.noise_beta, sp.lam)
-        return model, (u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, states,
-                       scal), noise
-
     def fleet_compare(tag, kern, plain):
         (ck, uk, nk), (cr, ur, nr) = kern, plain
         torch.cuda.synchronize()
@@ -652,12 +737,14 @@ def main():
         print(f"  {tag}: costs max rel err {cost_rel:.3e} (rtol {COST_RTOL}); u_opt "
               f"max abs err over robots {err:.3e} (bound {bound:.3e})", flush=True)
         require(cost_rel <= COST_RTOL, f"{tag}: costs differ by {cost_rel}")
+        counters_zero(tag)
         return err
 
     print(f"[12 fleet kernel] B={B_FLEET} K={K_FLEET} T={T_FLEET}, one launch", flush=True)
     fleet_cases = {}
     for preset in PRESET_MODELS:
-        model, fargs, fnoise = fleet_setup(preset, seed=8)
+        c = kernel_case(preset, K_FLEET, T_FLEET, robots=B_FLEET, seed=8)
+        model, fargs, fnoise = c["model"], c["kargs"], c["noise"]
         fleet_cases[model] = fargs
         kw = dict(num_samples=K_FLEET, model=model)
         nkw, rkw = dict(kw, seed=0, step=0, noise=fnoise), dict(kw, seed=11, step=12)
@@ -712,6 +799,7 @@ def main():
         require(bool(np.isfinite(final).all()) and bool((d < 0.3).all()) and progress,
                 f"{preset} fleet: a robot ended {d.max()} m from the course")
         require(n == STEPS, f"{preset} fleet: {n} launches, not {STEPS}")
+        counters_zero(f"{preset} fleet")
 
     # --- 14. the fleet command --------------------------------------------
     for extra in ([], ["--no-kernel"]):
@@ -728,11 +816,12 @@ def main():
               f"launches {n}", flush=True)
         require(rc == 0 and worst < 0.15 and n == (0 if extra else STEPS),
                 f"cli {' '.join(argv)}")
+        counters_zero(f"cli {' '.join(argv)}")
 
     # --- 15. timing of the new modes ----------------------------------------
     arms = {}
     for preset in PRESET_MODELS:
-        s = setup(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
         model = s["model"]
         mkw = dict(seed=1, step=2, num_samples=K_MAIN, model=model)
         arms[f"{model}/vanilla_alone"] = (KernelLaunch(*s["kargs"], **mkw).run, 50)
@@ -778,16 +867,7 @@ def main():
             def tick(carry=carry, step_fn=step_fn, args=args):
                 carry[0], _ = step_fn(carry[0], *args)
             arms[f"fleet/{cfg.model}/tick_{arm}"] = (tick, inner)
-    for fn, inner in arms.values():  # warm-up
-        for _ in range(2):
-            fn()
-    torch.cuda.synchronize()
-    times = {name: [] for name in arms}
-    for r in range(reps):
-        order = list(arms) if r % 2 == 0 else list(reversed(arms))
-        for name in order:
-            fn, inner = arms[name]
-            times[name].append(event_ms(fn, inner))
+    times = time_interleaved(arms, reps)
     med.update({name: statistics.median(v) for name, v in times.items()})
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     print(f"[15 timing] second moment at K={K_MAIN} T={T_MAIN}; fleet at B={B_FLEET} "
@@ -799,41 +879,160 @@ def main():
             rate = f"; {B_FLEET / (med[name] * 1e-3):.4e} robot-updates/s"
         spread = f"[{min(times[name]):.4f}, {max(times[name]):.4f}]"
         print(f"  {name}: {med[name]:.4f} ms {spread}{rate}", flush=True)
+    counters_zero("timing of the new modes")
 
-    def entry(name, path_key, err_key, ms, plain_ms):
+    # --- 16. the two forms and the finish ---------------------------------
+    print("[16 forms and finish]", flush=True)
+    s = kernel_case("full_body", K_REF, 400, seed=9)
+    shape = launch_shape("full_body", K_REF, 400, 400, False)
+    require(shape.form == "regen", f"full_body T=400: the {shape.form} form was chosen")
+    kw = dict(seed=14, step=15, num_samples=K_REF, model="full_body")
+    compare(f"full_body K={K_REF} T=400 RNG, chosen {shape.form}/{shape.threads}",
+            kernel_fn(*s["kargs"], **kw), plain_fn(*s["kargs"], **kw))
+    # the second moment with the noise injected: in RNG mode at T=400 the
+    # weights sit on a few samples, and the 1-ulp differences of the two
+    # Box-Mullers move sigma_suggest's weighted variance past its rtol
+    kw = dict(seed=0, step=0, num_samples=K_REF, model="full_body", noise=s["noise"],
+              second_moment=True)
+    m2_check(f"full_body K={K_REF} T=400 noise second moment, chosen "
+             f"{launch_shape('full_body', K_REF, 400, 400, True).form}",
+             kernel_fn(*s["kargs"], **kw), plain_fn(*s["kargs"], **kw))
+
+    def finish_check(tag, launch):
+        """The kernel's finish vs finish_reference on the launch's own
+        partial rows: norm within FINISH_RTOL, u_num/norm (and u2_num/norm)
+        within FINISH_RTOL of its largest entry."""
+        out = launch.finish()
+        ref = finish_reference(launch.partials, launch.lam, launch.tm1, launch.u_dim,
+                               launch.second_moment)
+        torch.cuda.synchronize()
+        norm_rel = float(((out[1] - ref[1]).abs() / ref[1].abs()).max())
+        nk, nr = out[1][..., None, None], ref[1][..., None, None]
+        errs = []
+        for i in range(0, len(out), 2):
+            a, b = out[i] / nk, ref[i] / nr
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+        print(f"  {tag}: kernel finish vs plain finish over {launch.shape.blocks} rows "
+              f"({launch.shape.form}/{launch.shape.threads}): norm rel err {norm_rel:.2e}, "
+              f"u_num/norm{' and u2_num/norm' if len(out) > 2 else ''} err / max "
+              f"{max(errs):.2e} (rtol {FINISH_RTOL})", flush=True)
+        require(norm_rel <= FINISH_RTOL and max(errs) <= FINISH_RTOL,
+                f"{tag}: the kernel's finish differs from the plain finish")
+
+    for preset in PRESET_MODELS:
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=10)
+        model = s["model"]
+        kw = dict(seed=12, step=13, num_samples=K_MAIN, model=model)
+        plain = plain_fn(*s["kargs"], **kw)
+        for form in ("store", "regen"):
+            launch = KernelLaunch(*s["kargs"], form=form, **kw)
+            launch.run()
+            chosen = " (chosen)" if launch_shape(model, K_MAIN, T_MAIN, T_MAIN).form == form \
+                else " (forced)"
+            compare(f"{model} K={K_MAIN} T={T_MAIN} RNG {form}/{launch.shape.threads}{chosen}",
+                    (launch.costs,) + launch.finish(), plain)
+            finish_check(f"{model} {form}", launch)
+        # the costs-in pass in the store form, which the chooser never picks
+        # (its tile is filled from the RNG with no rollout)
+        launch = KernelLaunch(*s["kargs"], costs_in=plain[0], form="store", **kw)
+        launch.run()
+        compare(f"{model} K={K_MAIN} T={T_MAIN} RNG costs-in pass, store/"
+                f"{launch.shape.threads} (forced)", (launch.costs,) + launch.finish(), plain)
+        launch = KernelLaunch(*s["kargs"], second_moment=True, **kw)
+        launch.run()
+        finish_check(f"{model} second moment", launch)
+        launch = KernelLaunch(*fleet_cases[model], seed=12, step=13, num_samples=K_FLEET,
+                              model=model)
+        launch.run()
+        finish_check(f"{model} fleet B={B_FLEET} K={K_FLEET} T={T_FLEET}", launch)
+    counters_zero("forms and finish")
+
+    # --- 17. launches per update and busy share, torch.profiler -------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_cases = [("full_body", {}), ("full_body", {"elite_frac": ELITE}),
+                  ("full_body", {"adapt_sigma": True}), ("diff_drive", {})]
+    for preset, opts in prof_cases:
+        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        fn = updater(s, "kernel", **opts)
+        n = 20
+        for _ in range(3):
+            fn()
+        step_ms = statistics.median(event_ms(fn, n) for _ in range(5))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        name = f"{s['model']}{''.join('_' + k for k in opts)}"
+        if not dev_events:
+            print(f"[17 profile] {name}: the profiler recorded no device activity: "
+                  f"launches and busy share not measured", flush=True)
+            continue
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / n
+        kern = [e for e in dev_events if "rollout_cost_kernel" in e.name]
+        print(f"[17 profile] {name} kernel-lean update K={K_MAIN} T={T_MAIN}: "
+              f"{len(dev_events) / n:.1f} device launches per update "
+              f"({len(kern) / n:.1f} of the fused kernel), device time {dev_ms:.4f} ms "
+              f"per update over an event-timed update of {step_ms:.4f} ms: busy "
+              f"{100 * dev_ms / step_ms:.1f} % on {card}", flush=True)
+    counters_zero("profile")
+
+    def entry(name, path_key, err_key, ms, plain_ms, bound):
+        """One kernels entry; launches and launches_per_update are those of
+        path_key's STEPS-cycle (or -tick) main-path run."""
         n = launches[path_key]
-        require(n > 0, f"{name}: no launch in its main path's run")
+        require(n > 0 and n % STEPS == 0,
+                f"{name}: {n} launches in its main path's {STEPS}-cycle run")
+        bound_ms, which = bound
         return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-                "launches": n, "max_abs_err": max_abs_err[err_key], "ms": ms,
-                "plain_ms": plain_ms}
+                "launches": n, "launches_per_update": n // STEPS,
+                "max_abs_err": max_abs_err[err_key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes" if which == "bytes"
+                else "operations", "library_ms": None}
+
+    def bound(model, m2=False, k=K_MAIN, t=T_MAIN, b=1, two_pass=False):
+        """rollout_cost_bound_ms at this run's shapes (R = T reference
+        points, RNG mode); two-pass elite: the costs-only pass plus the
+        costs-in pass."""
+        if not two_pass:
+            return rollout_cost_bound_ms(model, k, t, t, m2, num_robots=b)
+        p1 = rollout_cost_bound_ms(model, k, t, t, False, accumulate=False)
+        p2 = rollout_cost_bound_ms(model, k, t, t, m2, costs_in=True)
+        return p1[0] + p2[0], max(p1, p2)[1]
 
     kernels = [
         entry(f"rollout_cost_{m}", m, m, med[f"{m}/kernel_alone"],
-              med[f"{m}/plain_alone"])
+              med[f"{m}/plain_alone"], bound(m))
         for m in ("full_body", "unicycle", "steering_unicycle", "rate_limited_steering")
     ]
     kernels.append(entry(
         "rollout_cost_full_body_elite_two_pass", "full_body_elite", "full_body_elite",
         med["full_body/elite_pass1_alone"] + med["full_body/elite_pass2_alone"],
-        med["full_body/elite_plain"]))
+        med["full_body/elite_plain"], bound("full_body", two_pass=True)))
     kernels.append(entry(
         "rollout_cost_full_body_cost_threshold", "full_body_elite_stale",
         "full_body_stale",
-        med["full_body/stale_kernel_alone"], med["full_body/stale_plain"]))
+        med["full_body/stale_kernel_alone"], med["full_body/stale_plain"],
+        bound("full_body")))
     for m, key in (("full_body", "full_body_sigma"), ("unicycle", "unicycle_sigma")):
         kernels.append(entry(f"rollout_cost_{m}_second_moment", key, f"{m}_m2",
-                             med[f"{m}/m2_alone"], med[f"{m}/m2_plain"]))
+                             med[f"{m}/m2_alone"], med[f"{m}/m2_plain"],
+                             bound(m, m2=True)))
     kernels.append(entry(
         "rollout_cost_full_body_second_moment_elite_two_pass", "full_body_sigma_elite",
         "full_body_m2_elite",
         med["full_body/elite_pass1_alone"] + med["full_body/m2_elite_pass2_alone"],
-        med["full_body/m2_elite_plain"]))
+        med["full_body/m2_elite_plain"], bound("full_body", m2=True, two_pass=True)))
     kernels.append(entry(
         "rollout_cost_unicycle_second_moment_cost_threshold", "unicycle_sigma_elite_stale",
-        "unicycle_m2_stale", med["unicycle/m2_stale_alone"], med["unicycle/m2_stale_plain"]))
+        "unicycle_m2_stale", med["unicycle/m2_stale_alone"], med["unicycle/m2_stale_plain"],
+        bound("unicycle", m2=True)))
     for m in ("unicycle", "full_body"):
         kernels.append(entry(f"rollout_cost_{m}_fleet", f"{m}_fleet", f"{m}_fleet",
-                             med[f"fleet/{m}/kernel_alone"], med[f"fleet/{m}/plain_alone"]))
+                             med[f"fleet/{m}/kernel_alone"], med[f"fleet/{m}/plain_alone"],
+                             bound(m, k=K_FLEET, t=T_FLEET, b=B_FLEET)))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
