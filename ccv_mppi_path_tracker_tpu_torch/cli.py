@@ -1,27 +1,43 @@
-"""Command-line interface of the port (the ``run`` and ``fleet``
-subcommands).
+"""Command-line interface of the port.
 
     python -m ccv_mppi_path_tracker_tpu_torch run --preset full_body --steps 200 \\
         --num-samples 102400 --horizon 30
-
-runs a closed-loop tracking experiment on a launch-file preset (diff_drive,
-steering_diff_drive or full_body; diff_drive by default) through the
-fused CUDA kernel (``--no-kernel``: the eager path) and prints the
-calc_e_rmse.py metrics, as the JAX package's ``run`` does.
-
+    python -m ccv_mppi_path_tracker_tpu_torch run --preset diff_drive --record log/ \\
+        --course dkan --save-ckpt ck.npz
+    python -m ccv_mppi_path_tracker_tpu_torch run --resume-ckpt ck.npz
+    python -m ccv_mppi_path_tracker_tpu_torch realtime --preset full_body --hz 10
+    python -m ccv_mppi_path_tracker_tpu_torch realtime --pipelined --micro-batch 4
+    python -m ccv_mppi_path_tracker_tpu_torch compare --preset diff_drive
+    python -m ccv_mppi_path_tracker_tpu_torch course --kind dkan --out course.csv
     python -m ccv_mppi_path_tracker_tpu_torch fleet --robots 64 --steps 200
 
-runs a fleet of robots (64 by default) on the preset's course, all of them
-in one fused-kernel launch per tick (``--no-kernel``: the eager arm), and
-prints the RMSE over robots and the robot-updates per second.
+``run`` is a closed-loop tracking experiment on a launch-file preset
+(diff_drive, steering_diff_drive or full_body; diff_drive by default)
+through the fused CUDA kernel (``--no-kernel``: the eager path); it prints
+the calc_e_rmse.py metrics, as the JAX package's ``run`` does, and can
+record the reference-layout CSV, swap the course, and save or resume the
+controller state. ``realtime`` paces the loop at ``--hz`` on the native
+scheduler (``--pipelined``: dispatch the next update before fetching this
+one's command); ``compare`` pits MPPI against pure pursuit; ``course``
+writes a course CSV; ``fleet`` runs many robots in one kernel launch a tick.
+Every subcommand but ``course`` runs on ``--device`` (``cuda`` by default;
+a CUDA device that is not there is an error, never a fallback).
+
+Not in the port yet: the plots and animation (``--plot``, ``--plot-yaw``,
+``--animate``) and the ``profile``, ``export`` and ``sysid`` subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
+import numpy as np
 import torch
+
+NOT_YET = ("not in the port yet: --plot, --plot-yaw, --animate, and the profile, export "
+           "and sysid subcommands")
 
 
 def _add_run_args(p):
@@ -37,6 +53,13 @@ def _add_run_args(p):
                         "error, never a fallback to the CPU")
     p.add_argument("--no-kernel", action="store_true",
                    help="run the eager tensor path instead of the fused kernel")
+    p.add_argument("--course", default="preset",
+                   choices=["preset", "sin", "dkan", "square", "circle"],
+                   help="replace the preset's course (e.g. --course dkan "
+                        "mirrors launch/dkan_diff_drive_mppi.launch)")
+
+
+def _add_solver_args(p):
     p.add_argument("--shift-warm-start", action="store_true",
                    help="center sampling on the one-step-shifted previous "
                         "optimum (the reference does not shift)")
@@ -48,9 +71,32 @@ def _add_run_args(p):
                         "of the samples (on the kernel and eager paths)")
 
 
+def _course(kind):
+    """The --course override as a float32 (N, 2) array."""
+    from ccv_mppi_path_tracker_tpu_torch.paths import (
+        circle_course,
+        dkan_course,
+        filtered_square_course,
+        spline_resample_course,
+        sum_of_cosines_course,
+    )
+
+    return {
+        "sin": lambda: sum_of_cosines_course(
+            amplitudes=(1.0, 0, 0), frequencies=(0.25, 0, 0), deltas=(0, 0, 0),
+            resolution=0.1, course_length=10.0),
+        # the raw dkan corners are unreachable kinks: the spline-smoothed
+        # corridor, as the JAX package's tests/test_paths.py drives it
+        "dkan": lambda: spline_resample_course(dkan_course(resolution=0.5), resolution=0.1),
+        "square": filtered_square_course,
+        "circle": lambda: circle_course(radius=10.0, resolution=0.1),
+    }[kind]().astype(np.float32)
+
+
 def _resolve(args):
-    """(device, cfg, sp, cp, course) of the preset on the requested device;
-    device None when a CUDA device was asked for and there is none."""
+    """(device, cfg, sp, cp, course) of the preset on the requested device,
+    with the --course override; device None when a CUDA device was asked for
+    and there is none."""
     from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
 
     device = torch.device(args.device)
@@ -61,15 +107,38 @@ def _resolve(args):
     kwargs = {"horizon": args.horizon, "device": device}
     if args.num_samples:
         kwargs["num_samples"] = args.num_samples
-    return (device,) + PRESETS[args.preset](**kwargs)
+    cfg, sp, cp, course = PRESETS[args.preset](**kwargs)
+    if args.course != "preset":
+        course = _course(args.course)
+    return device, cfg, sp, cp, course
+
+
+def _print_metrics(m):
+    print(f"Time: {round(m['time'], 1)}")
+    print(f"Max Error: {round(m['max_error'], 3)}")
+    print(f"RMSE Error: {round(m['rmse'], 3)}")
 
 
 def cmd_run(args):
-    from ccv_mppi_path_tracker_tpu_torch.runtime import run_tracking_experiment
+    from ccv_mppi_path_tracker_tpu_torch.runtime import (
+        load_checkpoint,
+        run_tracking_experiment,
+        save_checkpoint,
+    )
 
     device, cfg, sp, cp, course = _resolve(args)
     if device is None:
         return 2
+    extra = {}
+    if args.resume_ckpt:
+        ck_cfg, ctrl, params = load_checkpoint(args.resume_ckpt, device=device)
+        if (ck_cfg.model, ck_cfg.horizon) != (cfg.model, cfg.horizon):
+            print(f"error: checkpoint is for {ck_cfg.model} T={ck_cfg.horizon}, "
+                  f"requested {cfg.model} T={cfg.horizon}", file=sys.stderr)
+            return 2
+        sp, cp = params["sp"], params["cp"]
+        extra["ctrl"] = ctrl
+        print(f"resumed from {args.resume_ckpt} (cycle {ctrl.step})")
     opts = {}
     if args.shift_warm_start:
         opts["shift_warm_start"] = True
@@ -81,20 +150,119 @@ def cmd_run(args):
     print(f"solver path: {'fused kernel' if use_kernel else 'eager'} on {device}")
     out = run_tracking_experiment(
         cfg, sp, cp, course, num_steps=args.steps, dt=args.dt, seed=args.seed,
-        use_kernel=use_kernel, solver_options=opts or None,
+        use_kernel=use_kernel, solver_options=opts or None, **extra,
     )
-    m = out["metrics"]
-    print(f"Time: {round(m['time'], 1)}")
-    print(f"Max Error: {round(m['max_error'], 3)}")
-    print(f"RMSE Error: {round(m['rmse'], 3)}")
+    if args.save_ckpt:
+        save_checkpoint(args.save_ckpt, cfg, out["ctrl"], sp=sp, cp=cp)
+        print(f"checkpoint: {args.save_ckpt}")
+    _print_metrics(out["metrics"])
+    if args.record:
+        _record(args, out, cfg)
+    return 0
+
+
+def _record(args, out, cfg):
+    """The run's cycles in the reference recorder's CSV layout."""
+    from ccv_mppi_path_tracker_tpu_torch.metrics import Recorder
+    from ccv_mppi_path_tracker_tpu_torch.solver.command import command_from_solution
+
+    rec = Recorder(args.record, method=args.preset)
+    logs = out["logs"]
+    for i, (state, u0) in enumerate(zip(logs["state"], torch.as_tensor(logs["u0"]))):
+        rec.write_cycle(i * args.dt, state, command_from_solution(cfg.model, u0, args.dt))
+    rec.close(out["course"])
+    print(f"recorded: {rec.path}")
+
+
+def cmd_compare(args):
+    """MPPI vs the pure-pursuit baseline on the same course."""
+    from ccv_mppi_path_tracker_tpu_torch.runtime import run_tracking_experiment
+    from ccv_mppi_path_tracker_tpu_torch.runtime.pure_pursuit import (
+        PurePursuitConfig,
+        run_pure_pursuit_experiment,
+    )
+
+    device, cfg, sp, cp, course = _resolve(args)
+    if device is None:
+        return 2
+    mppi = run_tracking_experiment(cfg, sp, cp, course, num_steps=args.steps, dt=args.dt,
+                                   seed=args.seed, use_kernel=not args.no_kernel)
+    pp = run_pure_pursuit_experiment(course, num_steps=args.steps, dt=args.dt,
+                                     cfg=PurePursuitConfig(v_ref=float(cp.v_ref)),
+                                     device=device)
+    for name, r in (("mppi", mppi), ("pure_pursuit", pp)):
+        m = r["metrics"]
+        print(f"{name}: RMSE={m['rmse']:.3f} max={m['max_error']:.3f}")
+    return 0
+
+
+def cmd_realtime(args):
+    """Wall-clock fixed-rate run with the native scheduler and recorder."""
+    from ccv_mppi_path_tracker_tpu_torch.runtime.realtime import (
+        run_pipelined_experiment,
+        run_realtime_experiment,
+    )
+
+    device, cfg, sp, cp, course = _resolve(args)
+    if device is None:
+        return 2
+    rec = None
+    if args.record:
+        os.makedirs(args.record, exist_ok=True)
+        rec = os.path.join(args.record, f"{args.preset}_realtime.csv")
+    use_kernel = not args.no_kernel
+    print(f"solver path: {'fused kernel' if use_kernel else 'eager'} on {device}")
+    if args.pipelined or args.micro_batch > 1:
+        if rec is not None:
+            print("note: --record is not supported by the pipelined loop "
+                  "(no per-cycle command CSV); running without recording")
+            rec = None
+        out = run_pipelined_experiment(cfg, sp, cp, course, hz=args.hz,
+                                       num_cycles=args.steps, use_kernel=use_kernel,
+                                       micro_batch=args.micro_batch)
+        fm = out["fetch_ms"]
+        print(f"pipelined: micro_batch={args.micro_batch} "
+              f"fetch p95 {fm['p95']:.2f} ms (max {fm['max']:.2f})")
+    else:
+        out = run_realtime_experiment(cfg, sp, cp, course, hz=args.hz,
+                                      num_cycles=args.steps, record_path=rec,
+                                      use_kernel=use_kernel)
+    rs = out["rate_stats"]
+    _print_metrics(out["metrics"])
+    print(f"rate: {rs['cycles']} cycles, {rs['deadline_misses']} misses, "
+          f"mean dt {rs['mean_dt'] * 1e3:.2f} ms, max jitter "
+          f"{rs['max_abs_jitter'] * 1e3:.2f} ms")
+    if rec:
+        print(f"recorded: {rec}")
+    return 0
+
+
+def cmd_course(args):
+    from ccv_mppi_path_tracker_tpu_torch.paths import (
+        circle_course,
+        dkan_course,
+        filtered_square_course,
+        sum_of_cosines_course,
+    )
+
+    kinds = {
+        "sin": lambda: sum_of_cosines_course(
+            amplitudes=(args.amplitude, 0, 0), frequencies=(args.frequency, 0, 0),
+            deltas=(0, 0, 0), resolution=args.resolution, course_length=args.length),
+        "circle": lambda: circle_course(radius=args.radius, resolution=args.resolution),
+        "dkan": lambda: dkan_course(resolution=args.resolution),
+        "square": lambda: filtered_square_course(length=args.length,
+                                                 amplitude=args.amplitude),
+    }
+    course = kinds[args.kind]()
+    np.savetxt(args.out, course, delimiter=",", header="x,y", comments="")
+    print(f"{args.kind} course: {len(course)} points -> {args.out}")
     return 0
 
 
 def cmd_fleet(args):
     """Fleet serving demo: B robots per tick, one kernel launch per tick."""
     import time
-
-    import numpy as np
 
     from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
@@ -132,15 +300,53 @@ def cmd_fleet(args):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(prog="ccv_mppi_path_tracker_tpu_torch")
+    p = argparse.ArgumentParser(prog="ccv_mppi_path_tracker_tpu_torch", epilog=NOT_YET)
     sub = p.add_subparsers(dest="cmd", required=True)
+
     pr = sub.add_parser("run", help="closed-loop tracking experiment")
     _add_run_args(pr)
+    _add_solver_args(pr)
+    pr.add_argument("--record", default=None, help="log dir for CSV output")
+    pr.add_argument("--save-ckpt", default=None,
+                    help="save the final controller state and params (.npz)")
+    pr.add_argument("--resume-ckpt", default=None,
+                    help="resume the warm start, seed and cycle from a checkpoint "
+                         "of this port")
     pr.set_defaults(fn=cmd_run)
+
+    pc = sub.add_parser("compare", help="MPPI vs the pure-pursuit baseline")
+    _add_run_args(pc)
+    pc.set_defaults(fn=cmd_compare)
+
+    po = sub.add_parser("course", help="generate a course CSV")
+    po.add_argument("--kind", default="sin", choices=["sin", "circle", "dkan", "square"])
+    po.add_argument("--out", default="course.csv")
+    po.add_argument("--length", type=float, default=10.0)
+    po.add_argument("--amplitude", type=float, default=1.0)
+    po.add_argument("--frequency", type=float, default=0.25)
+    po.add_argument("--radius", type=float, default=10.0)
+    po.add_argument("--resolution", type=float, default=0.1)
+    po.set_defaults(fn=cmd_course)
+
+    prt = sub.add_parser("realtime", help="fixed-rate native-runtime tracking experiment")
+    _add_run_args(prt)
+    prt.add_argument("--record", default=None, help="log dir for CSV output")
+    prt.add_argument("--hz", type=float, default=10.0)
+    prt.add_argument("--pipelined", action="store_true",
+                     help="asynchronous depth-1 pipelined loop: dispatch cycle "
+                          "n+1 before fetching cycle n's command, actuation lag "
+                          "compensated in the solver (delay=1/hz)")
+    prt.add_argument("--micro-batch", type=int, default=1,
+                     help="this many cycles per dispatch and per fetch "
+                          "(implies --pipelined)")
+    prt.set_defaults(fn=cmd_realtime)
+
     pf = sub.add_parser("fleet", help="batched multi-robot serving demo")
     _add_run_args(pf)
+    _add_solver_args(pf)
     pf.add_argument("--robots", type=int, default=64)
     pf.set_defaults(fn=cmd_fleet)
+
     args = p.parse_args(argv)
     return args.fn(args)
 

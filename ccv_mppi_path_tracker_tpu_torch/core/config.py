@@ -4,7 +4,8 @@
   horizon T, feature flags.
 - :class:`SolverParams` / :class:`CostParams` — numeric parameters as
   dataclasses of tensors that live on the solver's device, so the control
-  update never copies a parameter from the host.
+  update never copies a parameter from the host. The builders below make
+  them on ``device``, the card when it is None (core/device.py).
 
 Defaults reproduce the reference node ctors (file:line on each constructor
 below), as in the JAX package.
@@ -18,6 +19,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +87,9 @@ class CostParams:
 
 
 def _t(x, dtype, device):
-    return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype, device=device)
+    """A parameter tensor on ``device`` (None: the card, core/device.py)."""
+    return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                           device=resolve_device(device))
 
 
 def make_solver_params(

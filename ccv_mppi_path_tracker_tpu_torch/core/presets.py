@@ -1,6 +1,7 @@
 """Named experiment presets: the reference's launch-file operating points
 (port of ``core/presets.py``). Each returns (cfg, sp, cp, course), the course
-a NumPy (N, 2) array.
+a NumPy (N, 2) array and the parameters on ``device`` (None: the card,
+core/device.py).
 
 - :func:`diff_drive_launch`: launch/diff_drive_mppi.launch:6-17 (path_weight
   10, v_ref 1.2, v_max 2.0; sine course A=1.0, f=0.25, delta=0).

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
+
 
 @dataclasses.dataclass
 class RefWindow:
@@ -41,9 +43,10 @@ class ControllerState:
     @staticmethod
     def initial(seed: int, horizon: int, num_controls: int,
                 dtype=torch.float32, device=None) -> "ControllerState":
+        """A zero warm start on ``device`` (None: the card)."""
         return ControllerState(
             u_prev=torch.zeros((horizon - 1, num_controls), dtype=dtype,
-                               device=device),
+                               device=resolve_device(device)),
             seed=int(seed),
             step=0,
         )

@@ -13,14 +13,30 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.models.base import Model
 from ccv_mppi_path_tracker_tpu_torch.models.registry import register_model
 
 UPPER_BODY_HEIGHT = 0.8075
 UPPER_BODY_DEPTH = 0.208
 UPPER_BODY_WIDTH = 0.208
+# Geometry of the command mapping and the force-sensor ZMP, not of the
+# dynamics (src/full_body_mppi.cpp:6, :57-63).
+TREAD = 0.501
+WHEEL_RADIUS = 0.1435
+CONTACT_POSITIONS = np.array(
+    [
+        [0.0, 0.225, 0.075],  # left wheel
+        [0.0, -0.225, 0.075],  # right wheel
+        [0.245, 0.167, -0.003],  # front-left caster
+        [0.245, -0.167, -0.004],  # front-right caster
+        [-0.245, -0.167, -0.004],  # back-left caster
+        [-0.245, 0.167, -0.003],  # back-right caster
+    ]
+)
 
 
 @dataclasses.dataclass
@@ -34,11 +50,12 @@ class FullBodyParams:
 
 
 def default_params(device=None, dtype=torch.float32) -> FullBodyParams:
-    """Reference ctor values. Built with ``torch.full`` (a fill on the
-    device, no copy from the host)."""
+    """Reference ctor values on ``device`` (None: the card). Built with
+    ``torch.full`` (a fill on the device, no copy from the host)."""
     m = 60.0
     h, d, w = UPPER_BODY_HEIGHT, UPPER_BODY_DEPTH, UPPER_BODY_WIDTH
     c = h / 2.0  # src/full_body_mppi.cpp:86
+    device = resolve_device(device)
 
     def full(v):
         return torch.full((), v, dtype=dtype, device=device)

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
 from ccv_mppi_path_tracker_tpu_torch.ops.mindist import DIST_CAP
 
@@ -39,7 +40,10 @@ class PathBuffer:
     @staticmethod
     def from_points(points, resolution, capacity=None, dtype=torch.float32,
                     device=None):
+        """The (N, 2) ``points`` padded to ``capacity``, on ``device``
+        (None: the card, core/device.py)."""
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        device = resolve_device(device)
         points = np.asarray(points, dtype=np_dtype)
         n = points.shape[0]
         if capacity is None:

@@ -189,27 +189,41 @@ def run_tracking_experiment(
     plant: Optional[Plant] = None,
     model_params=None,
     seed: int = 0,
+    start_on_course: bool = True,
     use_kernel: bool = False,
-    resolution: float = 0.1,
+    resolution: Optional[float] = 0.1,
+    ctrl: Optional[ControllerState] = None,
+    state0=None,
     solver_options: Optional[dict] = None,
 ):
     """Run a tracking experiment on the device of ``sp``; return logs and
     the calc_e_rmse metrics.
 
     The start pose is the first course point, aligned with the initial
-    course heading (the reference spawns the robot on the course).
-    ``resolution`` is the course generator's sample spacing (the reference's
-    ``resolution`` param): it sets the reference-window stride.
+    course heading (the reference spawns the robot on the course), or the
+    origin with ``start_on_course=False``. ``resolution`` is the course
+    generator's sample spacing (the reference's ``resolution`` param): it
+    sets the reference-window stride, not the arc length; None infers the
+    median segment length of the course's first points. ``ctrl`` and
+    ``state0`` replace the fresh warm start and the start pose: pass a
+    restored ControllerState (runtime/checkpoint.py) to resume a run.
     ``solver_options`` go to :func:`simulate`.
     """
     device, dtype = sp.lam.device, sp.lam.dtype
     model = get_model(cfg.model)
+    if resolution is None:
+        resolution = _infer_resolution(course)
     path = PathBuffer.from_points(course, resolution, dtype=dtype, device=device)
-    state0 = np.zeros(model.num_states, np.float64)
-    state0[0], state0[1] = course[0]
-    state0[2] = np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0])
-    ctrl = ControllerState.initial(seed, cfg.horizon, model.num_controls,
-                                   dtype=dtype, device=device)
+    if state0 is None:
+        state0 = np.zeros(model.num_states, np.float64)
+        if start_on_course:
+            state0[0], state0[1] = course[0]
+            state0[2] = np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0])
+    state0 = np.asarray(state0.cpu() if isinstance(state0, torch.Tensor) else state0,
+                        np.float64)
+    if ctrl is None:
+        ctrl = ControllerState.initial(seed, cfg.horizon, model.num_controls,
+                                       dtype=dtype, device=device)
     ctrl, logs = simulate(
         cfg, ctrl, torch.as_tensor(state0, dtype=dtype, device=device), path,
         torch.full((), dt, dtype=dtype, device=device), sp, cp,
@@ -221,3 +235,9 @@ def run_tracking_experiment(
     metrics = tracking_metrics(xy, course, dt=dt)
     return {"logs": logs, "metrics": metrics, "course": course,
             "state0": state0, "ctrl": ctrl}
+
+
+def _infer_resolution(course: np.ndarray) -> float:
+    """Median segment length of the course's first 50 points."""
+    seg = np.hypot(*np.diff(course[: min(len(course), 50)], axis=0).T)
+    return float(np.median(seg))

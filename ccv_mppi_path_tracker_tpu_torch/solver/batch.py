@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import SolverConfig
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, RefWindow, StepResult
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
@@ -44,12 +45,13 @@ from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _opt_rollout, mppi_step
 
 def init_fleet(cfg: SolverConfig, num_robots: int, seed: int = 0,
                dtype=torch.float32, device=None) -> ControllerState:
-    """Batched ControllerState: zero warm starts (B, T-1, U); each robot's
-    random stream derives from ``seed`` and its index."""
+    """Batched ControllerState: zero warm starts (B, T-1, U) on ``device``
+    (None: the card); each robot's random stream derives from ``seed`` and
+    its index."""
     model = get_model(cfg.model)
     return ControllerState(
         u_prev=torch.zeros((num_robots, cfg.horizon - 1, model.num_controls),
-                           dtype=dtype, device=device),
+                           dtype=dtype, device=resolve_device(device)),
         seed=int(seed),
         step=0,
     )

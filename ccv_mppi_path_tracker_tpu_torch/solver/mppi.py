@@ -209,6 +209,7 @@ class MPPISolver:
         self.model = get_model(cfg.model)
 
     def init(self, seed: int = 0, dtype=torch.float32, device=None) -> ControllerState:
+        """A zero warm start on ``device`` (None: the card)."""
         return ControllerState.initial(
             seed, self.cfg.horizon, self.model.num_controls, dtype=dtype, device=device
         )

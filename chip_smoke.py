@@ -7,8 +7,9 @@ Drives ccv_mppi_path_tracker_tpu_torch only (no JAX) through its main paths:
 the MPPI control update of each of the four models through the fused CUDA
 kernel at the benchmark's size (K=102400 samples, T=30 horizon, float32),
 elite sampling (two-pass and stale-threshold), adaptive sigma through
-ControlLoop, the fleet (B=256 robots in one launch), and the closed loops
-that repeat them. Phases, each printed on one line, the first failure ending the
+ControlLoop, the fleet (B=256 robots in one launch), the closed loops that
+repeat them, and the live-robot serving path (the paced and pipelined loops,
+the sensing and estimation stack, checkpoint/resume). Phases, each printed on one line, the first failure ending the
 run with a non-zero exit:
 
   1. build the kernel from csrc/ with nvcc; print the card and its power limit,
@@ -68,12 +69,35 @@ run with a non-zero exit:
      same launch, every model, with the second moment, and the fleet;
  17. torch.profiler over 20 kernel-lean updates (full_body and unicycle,
      vanilla and elite): device launches per update and the device's busy
-     share.
+     share;
+ 18. the entry points called with no device (presets, config builders,
+     PathBuffer.from_points, ControllerState.initial, MPPISolver.init,
+     init_fleet, default_params, load_checkpoint) give cuda tensors;
+     command_from_solution on the card bit-equal to its CPU run (NaN where
+     NaN) for every model, w=0, v=w=0, the roll clamp, roll_off, steer_off;
+     no host sync in it nor in steering_mode;
+ 19. the paced loop, run_realtime_experiment through the kernel at K=102400
+     T=30: full_body at 10 Hz for 50 cycles (RMSE < 0.15 m), diff_drive at
+     50 Hz for 100 cycles with the native recorder (101 CSV lines); rate
+     stats, stale cycles, launches (the cycles + the warm-up) and host syncs
+     (one a cycle) exact; then full_body unpaced at 1000 Hz: the cycle's own
+     time, and its device launches by torch.profiler;
+ 20. the pipelined loop, diff_drive at K=102400 T=30, 50 Hz, 96 cycles:
+     micro_batch 1, and 8 with and without delay compensation (compensated
+     RMSE below uncompensated); fetch ms, miss rate, launches (the cycles +
+     the warm-up window) exact;
+ 21. run_full_stack_experiment at K=102400 T=30, 80 cycles, roll_off True and
+     False (the ZMP cost lowers the peak lateral ZMP; RMSE < 0.15 m); resume
+     on the kernel path in RNG mode (200 cycles against 100 + checkpoint +
+     100, u0 bit-equal); the serving commands: realtime, realtime
+     --pipelined --micro-batch 4, compare, course --kind dkan, run --record
+     --course dkan --save-ckpt, run --resume-ckpt.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
 
-The last three lines are the kernels JSON line (each entry with its bound:
+Phases 19-21 end with a JSON line of the serving runs' numbers
+({"serving": ...}). The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
 the main-path run's count over its cycles), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
@@ -84,10 +108,13 @@ prints no result.
 import contextlib
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -978,6 +1005,280 @@ def main():
               f"per update over an event-timed update of {step_ms:.4f} ms: busy "
               f"{100 * dev_ms / step_ms:.1f} % on {card}", flush=True)
     counters_zero("profile")
+
+    # --- 18. entry points on the card --------------------------------------
+    from ccv_mppi_path_tracker_tpu_torch.core import config as port_config
+    from ccv_mppi_path_tracker_tpu_torch.models.full_body import default_params
+    from ccv_mppi_path_tracker_tpu_torch.runtime import load_checkpoint, save_checkpoint
+    from ccv_mppi_path_tracker_tpu_torch.runtime.realtime import (
+        run_pipelined_experiment,
+        run_realtime_experiment,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.runtime.sim_sensors import run_full_stack_experiment
+    from ccv_mppi_path_tracker_tpu_torch.solver import MPPISolver
+    from ccv_mppi_path_tracker_tpu_torch.solver.command import (
+        command_from_solution,
+        steering_mode,
+    )
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    small = dict(num_samples=8, horizon=4)
+    cfg_s, sp_s, cp_s = port_config.diff_drive_config(**small)
+    save_checkpoint(str(tmp / "defaults.npz"), cfg_s, ControllerState.initial(0, 4, 2),
+                    sp=sp_s, cp=cp_s)
+    made = {f"{name} preset": fn(**small)[1].lam for name, fn in PRESETS.items()}
+    made.update({name: getattr(port_config, name)(**small)[2].v_ref
+                 for name in ("diff_drive_config", "steering_diff_drive_config",
+                              "rate_limited_steering_config", "full_body_config")})
+    made["PathBuffer.from_points"] = PathBuffer.from_points(PRESETS["diff_drive"]()[3],
+                                                            0.1).xy
+    made["ControllerState.initial"] = ControllerState.initial(0, 4, 2).u_prev
+    made["MPPISolver.init"] = MPPISolver(cfg_s).init(0).u_prev
+    made["init_fleet"] = init_fleet(cfg_s, 3).u_prev
+    made["default_params"] = default_params().inertia
+    made["load_checkpoint"] = load_checkpoint(str(tmp / "defaults.npz"))[2]["cp"].v_ref
+    not_cuda = sorted(k for k, v in made.items() if v.device.type != "cuda")
+    print(f"[18 default device] {len(made)} entry points called with no device: "
+          f"{len(made) - len(not_cuda)} gave cuda tensors; not cuda: {not_cuda}", flush=True)
+    require(not not_cuda, f"entry points that did not default to the card: {not_cuda}")
+    # command_from_solution on the card against its CPU run: bit-equal where
+    # finite, NaN where NaN, on random commands and the quirk rows
+    cmd_cases = [(m, {}) for m in KERNEL_MODELS] + [
+        ("unicycle", {"pitch_offset": 0.05}), ("full_body", {"current_roll": 0.45}),
+        ("full_body", {"current_roll": 0.1, "roll_off": True}),
+        ("full_body", {"steer_off": True}), ("steering_unicycle", {"steer_off": True}),
+        ("rate_limited_steering", {"current_steer": 0.3})]
+    rng = np.random.RandomState(18)
+    fields = ("v", "w", "steer_l", "steer_r", "roll", "fore", "rear")
+    compared = nan = 0
+    for model, kw in cmd_cases:
+        u_dim = get_model(model).num_controls
+        rows = rng.uniform(-1.0, 1.0, (16, u_dim))
+        rows[:, 0] *= 2.0
+        quirks = np.zeros((4, u_dim))
+        quirks[:3, 0] = 1.0  # w = 0: pi/4 where the direction is not 0
+        if u_dim > 2:
+            quirks[:3, 2] = (0.2, -0.2, 0.0)
+        for u0 in torch.tensor(np.concatenate([rows, quirks]), dtype=torch.float32):
+            on_cpu = command_from_solution(model, u0, 0.1, **kw)
+            on_card = command_from_solution(model, u0.to(dev), 0.1, **kw)
+            for f in fields:
+                a, b = getattr(on_cpu, f), getattr(on_card, f).cpu()
+                same = bool(torch.isnan(a) == torch.isnan(b)) and (
+                    bool(torch.isnan(a)) or bool(a == b))
+                require(same, f"command {model} {kw} {f}: card {float(b)!r} vs cpu "
+                              f"{float(a)!r} for u0 {u0.tolist()}")
+                compared += 1
+                nan += bool(torch.isnan(a))
+    u0_card = torch.tensor([1.0, 0.3, 0.1, 0.2, 0.0], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cmd = command_from_solution("full_body", u0_card, 0.1, pitch_offset=0.05,
+                                    current_roll=0.2)
+        steering_mode(cmd.steer_r, cmd.steer_l)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  command_from_solution: {len(cmd_cases)} model/option cases x 20 commands, "
+          f"{compared} values bit-equal on the card and the CPU ({nan} NaN in both); "
+          f"no host sync in command_from_solution and steering_mode", flush=True)
+
+    # --- 19. the paced loop, full width -----------------------------------
+    serving = {}
+    # run_realtime_experiment's copies to the card before its first cycle,
+    # each a synchronizing copy from pageable host memory: the path's points
+    # and resolution (PathBuffer.from_points) and the start pose
+    SETUP_COPIES = 3
+
+    def count_syncs(fn):
+        """fn() with every host sync counted (torch's sync debug mode warns
+        once per synchronizing call)."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in caught)
+
+    def rate_line(rs):
+        return (f"{rs['cycles']} cycles, mean dt {rs['mean_dt'] * 1e3:.4f} ms, "
+                f"{rs['deadline_misses']} deadline misses, max jitter "
+                f"{rs['max_abs_jitter'] * 1e3:.4f} ms")
+
+    for preset, hz, cycles, record in (("full_body", 10.0, 50, False),
+                                       ("diff_drive", 50.0, 100, True)):
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN)
+        rec_path = tmp / f"{preset}_realtime.csv" if record else None
+        fused_sample_rollout_cost.launches = 0
+        out, syncs = count_syncs(lambda: run_realtime_experiment(
+            cfg, sp, cp, course, hz=hz, num_cycles=cycles,
+            record_path=None if rec_path is None else str(rec_path), use_kernel=True))
+        n = fused_sample_rollout_cost.launches
+        rs, m = out["rate_stats"], out["metrics"]
+        lines = len(rec_path.read_text().strip().split("\n")) if record else None
+        serving[f"realtime_{cfg.model}"] = dict(
+            rs, hz=hz, launches=n, rmse=m["rmse"], host_syncs=syncs,
+            stale_cycles=out["stale_cycles"])
+        print(f"[19 realtime] {preset} K={K_MAIN} T={T_MAIN} at {hz:g} Hz: RMSE "
+              f"{m['rmse']:.4f} m; rate {rate_line(rs)}; stale cycles "
+              f"{out['stale_cycles']}; kernel launches {n} ({cycles} cycles + warm-up); "
+              f"host syncs {syncs} (one read a cycle, the warm-up's, and {SETUP_COPIES} "
+              f"copies of the course and the start pose to the card)"
+              f"{'' if lines is None else f'; CSV lines {lines}'} on {card}", flush=True)
+        require(bool(np.isfinite(out["logs"]["state"]).all()), f"{preset} realtime: not finite")
+        require(n == cycles + 1, f"{preset} realtime: {n} launches, not {cycles + 1}")
+        require(syncs == cycles + 1 + SETUP_COPIES,
+                f"{preset} realtime: {syncs} host syncs, not one a cycle")
+        require(rs["cycles"] == cycles, f"{preset} realtime: {rs['cycles']} paced cycles")
+        require(m["rmse"] < (0.15 if preset == "full_body" else 0.5),
+                f"{preset} realtime: RMSE {m['rmse']}")
+        require(lines in (None, cycles + 1), f"{preset} realtime: {lines} CSV lines")
+        counters_zero(f"{preset} realtime")
+
+    # the cycle's own time: at 1000 Hz every deadline is missed, so the mean
+    # dt is the time one cycle takes; then its device launches, profiled
+    cfg, sp, cp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN)
+    fused_sample_rollout_cost.launches = 0
+    out = run_realtime_experiment(cfg, sp, cp, course, hz=1000.0, num_cycles=100,
+                                  use_kernel=True)
+    n, rs = fused_sample_rollout_cost.launches, out["rate_stats"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_realtime_experiment(cfg, sp, cp, course, hz=1000.0, num_cycles=20,
+                                use_kernel=True)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / 21
+    serving["realtime_full_body_unpaced"] = dict(
+        cycles=rs["cycles"], cycle_ms=rs["mean_dt"] * 1e3, launches=n,
+        device_launches_per_cycle=len(dev_events) / 21, device_ms_per_cycle=dev_ms)
+    print(f"[19 unpaced] full_body K={K_MAIN} T={T_MAIN} at 1000 Hz, {rs['cycles']} cycles, "
+          f"{rs['deadline_misses']} deadline missed: one cycle takes {rs['mean_dt'] * 1e3:.4f} "
+          f"ms (mean dt; max jitter {rs['max_abs_jitter'] * 1e3:.4f} ms), "
+          f"{100 * rs['mean_dt'] / 0.1:.2f} % of the 10 Hz period and "
+          f"{100 * rs['mean_dt'] / 0.02:.2f} % of the 50 Hz one; kernel launches {n}; "
+          f"profiled over 20 cycles + warm-up: {len(dev_events) / 21:.1f} device launches "
+          f"and {dev_ms:.4f} ms device time a cycle (the setup's copies included) on {card}",
+          flush=True)
+    require(n == 101, f"unpaced realtime: {n} launches, not 101")
+    counters_zero("unpaced realtime")
+
+    # --- 20. the pipelined loop -------------------------------------------
+    cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=K_MAIN, horizon=T_MAIN)
+    piped = {}
+    for micro_batch, comp in ((1, True), (8, True), (8, False)):
+        fused_sample_rollout_cost.launches = 0
+        out = run_pipelined_experiment(cfg, sp, cp, course, hz=50.0, num_cycles=96,
+                                       use_kernel=True, micro_batch=micro_batch,
+                                       delay_compensation=comp)
+        n = fused_sample_rollout_cost.launches
+        rs, fm, dm, m = out["rate_stats"], out["fetch_ms"], out["dispatch_ms"], out["metrics"]
+        piped[micro_batch, comp] = m["rmse"]
+        serving[f"pipelined_m{micro_batch}_{'comp' if comp else 'nocomp'}"] = dict(
+            rs, hz=50.0, launches=n, rmse=m["rmse"], miss_rate=out["miss_rate"], fetch_ms=fm,
+            dispatch_ms=dm)
+        print(f"[20 pipelined] diff_drive K={K_MAIN} T={T_MAIN} at 50 Hz, micro_batch "
+              f"{micro_batch}, delay compensation {comp}: RMSE {m['rmse']:.4f} m; rate "
+              f"{rate_line(rs)}, miss rate {out['miss_rate']:.4f}; fetch ms mean "
+              f"{fm['mean']:.4f} p95 {fm['p95']:.4f} max {fm['max']:.4f}; a window's dispatch "
+              f"ms mean {dm['mean']:.4f} p95 {dm['p95']:.4f} max {dm['max']:.4f}; kernel launches {n} "
+              f"({rs['cycles']} cycles + {micro_batch} warm-up) on {card}", flush=True)
+        require(rs["cycles"] == 96 and n == 96 + micro_batch,
+                f"pipelined M={micro_batch}: {rs['cycles']} cycles, {n} launches")
+        require(m["rmse"] < 0.5, f"pipelined M={micro_batch} comp={comp}: RMSE {m['rmse']}")
+        counters_zero(f"pipelined M={micro_batch}")
+    require(piped[8, True] < piped[8, False],
+            f"pipelined M=8: compensated RMSE {piped[8, True]} not below uncompensated "
+            f"{piped[8, False]}")
+
+    # --- 21. full stack, resume, and the serving commands ----------------
+    stack = {}
+    for roll_off in (True, False):
+        fused_sample_rollout_cost.launches = 0
+        out = run_full_stack_experiment(roll_off=roll_off, cycles=80, num_samples=K_MAIN,
+                                        horizon=T_MAIN, use_kernel=True)
+        n = fused_sample_rollout_cost.launches
+        stack[roll_off] = out
+        peak = float(np.max(np.abs(out["true_zmp"][5:])))
+        print(f"[21 full stack] full_body roll_off={roll_off} K={K_MAIN} T={T_MAIN}, 80 "
+              f"cycles on the estimated state: RMSE {out['metrics']['rmse']:.4f} m, peak "
+              f"lateral |true ZMP| {peak:.4f} m, estimate vs force-sensor ZMP after cycle "
+              f"20 within {np.max(np.abs(out['zmp'][20:] - out['true_zmp'][20:])):.4f} m; "
+              f"kernel launches {n}", flush=True)
+        require(n == 80, f"full stack roll_off={roll_off}: {n} launches, not 80")
+        require(out["metrics"]["rmse"] < 0.15,
+                f"full stack roll_off={roll_off}: RMSE {out['metrics']['rmse']}")
+        counters_zero("full stack")
+    peak_u = np.max(np.abs(stack[True]["true_zmp"][5:]))
+    peak_c = np.max(np.abs(stack[False]["true_zmp"][5:]))
+    require(peak_c < peak_u, f"the ZMP cost did not lower the lateral ZMP: {peak_c} vs {peak_u}")
+
+    cfg, sp, cp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN)
+    path = PathBuffer.from_points(course, 0.1)
+    m = get_model(cfg.model)
+    start = torch.tensor([course[0, 0], course[0, 1], 0.3, 0.0, 0.0], device=dev)
+
+    def drive(ctrl, state, n, sp, cp):
+        u0s = []
+        for _ in range(n):
+            ctrl, res = mppi_step(cfg, ctrl, state, path, 0.1, sp, cp, use_kernel=True,
+                                  lean=True)
+            state = m.step(state, res.u0, 0.1)
+            u0s.append(res.u0)
+        return ctrl, state, torch.stack(u0s)
+
+    fused_sample_rollout_cost.launches = 0
+    _, _, whole = drive(ControllerState.initial(21, T_MAIN, 5), start, 2 * 100, sp, cp)
+    ctrl_a, state_a, first = drive(ControllerState.initial(21, T_MAIN, 5), start, 100, sp, cp)
+    save_checkpoint(str(tmp / "resume.npz"), cfg, ctrl_a, sp=sp, cp=cp)
+    cfg_b, ctrl_b, params = load_checkpoint(str(tmp / "resume.npz"))
+    _, _, rest = drive(ctrl_b, state_a, 100, params["sp"], params["cp"])
+    n = fused_sample_rollout_cost.launches
+    same = bool(torch.equal(torch.cat([first, rest]), whole))
+    print(f"[21 resume] full_body K={K_MAIN} T={T_MAIN}, kernel RNG mode: 200 cycles vs 100 "
+          f"+ save_checkpoint + load_checkpoint (on {ctrl_b.u_prev.device}, cycle "
+          f"{ctrl_b.step}) + 100: u0 logs bit-equal {same}; kernel launches {n}", flush=True)
+    require(same and n == 400 and cfg_b == cfg, "resume on the kernel path")
+    counters_zero("resume")
+
+    def cli_run(argv, expect_launches):
+        fused_sample_rollout_cost.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        lines = buf.getvalue().splitlines()
+        n = fused_sample_rollout_cost.launches
+        print(f"[21 cli] {' '.join(argv)}: rc {rc}, {' | '.join(lines)}; kernel launches "
+              f"{n}", flush=True)
+        require(rc == 0 and n == expect_launches,
+                f"cli {' '.join(argv)}: rc {rc}, {n} launches, not {expect_launches}")
+        counters_zero(f"cli {' '.join(argv)}")
+        return lines
+
+    lines = cli_run(["realtime", "--preset", "full_body", "--hz", "10", "--steps", "30",
+                     "--num-samples", str(K_MAIN), "--horizon", str(T_MAIN)], 31)
+    require(float(lines[3].split(": ")[1]) < 0.15 and lines[4].startswith("rate: 30 cycles"),
+            "cli realtime full_body")
+    lines = cli_run(["realtime", "--pipelined", "--micro-batch", "4", "--hz", "50", "--steps",
+                     "48"], 52)
+    require(lines[1].startswith("pipelined: micro_batch=4") and
+            lines[-1].startswith("rate: 48 cycles"), "cli realtime --pipelined")
+    lines = cli_run(["compare", "--steps", str(STEPS)], STEPS)
+    rmse_mppi, rmse_pp = (float(line.split("RMSE=")[1].split()[0]) for line in lines)
+    require(rmse_mppi < rmse_pp, f"cli compare: MPPI {rmse_mppi} vs pure pursuit {rmse_pp}")
+    lines = cli_run(["course", "--kind", "dkan", "--out", str(tmp / "dkan.csv")], 0)
+    require(lines[0].startswith("dkan course: "), "cli course")
+    ck = tmp / "cli.npz"
+    lines = cli_run(["run", "--record", str(tmp / "log"), "--course", "dkan", "--save-ckpt",
+                     str(ck), "--steps", str(STEPS)], STEPS)
+    require(lines[-1].startswith("recorded: ") and float(lines[-2].split(": ")[1]) < 0.15,
+            "cli run --record --course dkan --save-ckpt")
+    lines = cli_run(["run", "--resume-ckpt", str(ck), "--steps", str(STEPS)], STEPS)
+    require(lines[0] == f"resumed from {ck} (cycle {STEPS})", "cli run --resume-ckpt")
+    shutil.rmtree(tmp)
+    print(json.dumps({"serving": serving}))
 
     def entry(name, path_key, err_key, ms, plain_ms, bound):
         """One kernels entry; launches and launches_per_update are those of

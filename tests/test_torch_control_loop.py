@@ -64,8 +64,8 @@ def test_control_loop_matches_jax_control_loop(model, opts):
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["eager", "kernel"])
 def test_control_loop_sigma_adaptation_stays_bounded_and_tracks(use_kernel):
-    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=10)
-    path = PathBuffer.from_points(course, 0.1)
+    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=10, device="cpu")
+    path = PathBuffer.from_points(course, 0.1, device="cpu")
     loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=path, sigma_adapt=0.2,
                        solver_options={"use_kernel": use_kernel})
     sigma0 = sp.control_noise.numpy().copy()
@@ -91,8 +91,8 @@ def test_control_loop_sigma_adaptation_stays_bounded_and_tracks(use_kernel):
 
 
 def _stale_loop():
-    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=8)
-    path = PathBuffer.from_points(course, 0.1)
+    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=8, device="cpu")
+    path = PathBuffer.from_points(course, 0.1, device="cpu")
     loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=path,
                        solver_options={"elite_frac": 0.25, "elite_stale": True})
     state = torch.tensor([0.0, float(course[0, 1]), 0.0])
@@ -105,7 +105,7 @@ def test_control_loop_elite_stale_threads_threshold():
     loop, state, (cfg, path, dt, sp, cp), _ = _stale_loop()
     r0 = loop.step(state, dt=0.1)
     r1 = loop.step(state, dt=0.1)
-    ctrl0 = ControllerState.initial(0, 8, 2)
+    ctrl0 = ControllerState.initial(0, 8, 2, device="cpu")
     ctrl, m0 = mppi_step(cfg, ctrl0, state, path, dt, sp, cp, elite_frac=0.25,
                          elite_stale_thresh=torch.tensor(float("inf")))
     _, m1 = mppi_step(cfg, ctrl, state, path, dt, sp, cp, elite_frac=0.25,
@@ -123,7 +123,7 @@ def test_control_loop_set_path_resets_the_stale_threshold():
     course_b = sum_of_cosines_course(amplitudes=(0.5, 0, 0), frequencies=(0.2, 0, 0),
                                      deltas=(0, 0, 0), resolution=0.1,
                                      course_length=len(course) * 0.1)[: len(course)]
-    path_b = PathBuffer.from_points(course_b, 0.1)
+    path_b = PathBuffer.from_points(course_b, 0.1, device="cpu")
     ctrl = loop.ctrl
     loop.set_path(path_b)
     assert loop.path is path_b
@@ -138,8 +138,8 @@ def test_control_loop_set_path_resets_the_stale_threshold():
 
 
 def test_control_loop_measures_wall_clock_dt(monkeypatch):
-    cfg, sp, cp, course = diff_drive_launch(num_samples=64, horizon=8)
-    loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=PathBuffer.from_points(course, 0.1),
+    cfg, sp, cp, course = diff_drive_launch(num_samples=64, horizon=8, device="cpu")
+    loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=PathBuffer.from_points(course, 0.1, device="cpu"),
                        nominal_dt=0.05)
     clock = iter([10.0, 10.25, 10.4])
     monkeypatch.setattr(loop_module.time, "monotonic", lambda: next(clock))

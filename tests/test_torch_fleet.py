@@ -246,7 +246,7 @@ def test_eager_fleet_step_on_per_robot_paths_matches_jax_f64():
 def test_eager_fleet_draws_each_robots_own_generator():
     case = Case(64, horizon=10, model="unicycle", f64=False)
     num_robots = 3
-    ctrls = init_fleet(case.cfg, num_robots, seed=4)
+    ctrls = init_fleet(case.cfg, num_robots, seed=4, device="cpu")
     ctrls = ControllerState(ctrls.u_prev, ctrls.seed, 2)
     states = torch.as_tensor(np.tile(case.state, (num_robots, 1)))
     step = build_fleet_step(case.cfg)
@@ -305,11 +305,11 @@ def _fan(course, num_robots, s_dim, spread=0.4):
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["eager", "kernel"])
 def test_fleet_step_independent_robots(use_kernel):
-    cfg, sp, cp, course = diff_drive_launch(num_samples=64, horizon=10)
-    path = PathBuffer.from_points(course, 0.1)
+    cfg, sp, cp, course = diff_drive_launch(num_samples=64, horizon=10, device="cpu")
+    path = PathBuffer.from_points(course, 0.1, device="cpu")
     num_robots = 5
     ctrls2, res = build_fleet_step(cfg, use_kernel=use_kernel)(
-        init_fleet(cfg, num_robots, seed=0), _fan(course, num_robots, 3, 0.5), path,
+        init_fleet(cfg, num_robots, seed=0, device="cpu"), _fan(course, num_robots, 3, 0.5), path,
         torch.tensor(DT), sp, cp)
     assert res.u0.shape == (num_robots, 2) and torch.isfinite(res.u_opt).all()
     assert ctrls2.step == 1 and ctrls2.u_prev.shape == (num_robots, 9, 2)
@@ -318,10 +318,10 @@ def test_fleet_step_independent_robots(use_kernel):
 
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["eager", "kernel"])
 def test_fleet_closed_loop_converges_to_course(use_kernel):
-    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=15)
-    path = PathBuffer.from_points(course, 0.1)
+    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=15, device="cpu")
+    path = PathBuffer.from_points(course, 0.1, device="cpu")
     num_robots = 4
-    ctrls = init_fleet(cfg, num_robots, seed=1)
+    ctrls = init_fleet(cfg, num_robots, seed=1, device="cpu")
     states = _fan(course, num_robots, 3)
     step = build_fleet_step(cfg, use_kernel=use_kernel)
     plant = get_model(cfg.model)
@@ -338,12 +338,12 @@ def test_fleet_closed_loop_converges_to_course(use_kernel):
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["eager", "kernel"])
 def test_fleet_per_robot_paths(use_kernel):
     num_robots = 4
-    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=10)
+    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=10, device="cpu")
     courses = np.stack([course + [0.0, 2.0 * b] for b in range(num_robots)])
-    paths = PathBuffer.stack([PathBuffer.from_points(c, 0.1) for c in courses])
+    paths = PathBuffer.stack([PathBuffer.from_points(c, 0.1, device="cpu") for c in courses])
     states = torch.tensor([[c[0, 0], c[0, 1], 0.0] for c in courses], dtype=torch.float32)
     step = build_fleet_step(cfg, shared_path=False, use_kernel=use_kernel)
-    ctrls = init_fleet(cfg, num_robots)
+    ctrls = init_fleet(cfg, num_robots, device="cpu")
     model = get_model(cfg.model)
     for _ in range(30):
         ctrls, res = step(ctrls, states, paths, DT, sp, cp)
@@ -358,7 +358,7 @@ def test_fleet_per_robot_paths(use_kernel):
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_robot"])
 def test_resample_references_equals_a_per_robot_loop_and_jax(shared):
     rng = np.random.RandomState(4)
-    course = PRESETS["diff_drive"]()[3].astype(np.float64)
+    course = PRESETS["diff_drive"](device="cpu")[3].astype(np.float64)
     lengths = (len(course), len(course) - 30, len(course) - 60)
     jpaths = [JaxPathBuffer.from_points(course[:n] + [0.0, 0.3 * b], 0.1,
                                         capacity=len(course), dtype=np.float64)

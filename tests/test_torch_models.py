@@ -164,7 +164,7 @@ _CONFIGS = ["diff_drive_config", "steering_diff_drive_config",
 @pytest.mark.parametrize("name", _CONFIGS)
 def test_configs_match_jax(name):
     jcfg, jsp, jcp = getattr(jax_config, name)(dtype=np.float64)
-    cfg, sp, cp = getattr(config, name)(dtype=torch.float64)
+    cfg, sp, cp = getattr(config, name)(dtype=torch.float64, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     for port, ref in ((sp, jsp), (cp, jcp)):
         for f in dataclasses.fields(port):
@@ -180,7 +180,7 @@ def test_presets_convert_and_step_like_jax(preset):
     jcfg, jsp, jcp, jcourse = JAX_PRESETS[preset](num_samples=k, horizon=T,
                                                   dtype=np.float64)
     cfg, sp0, cp0, course = PRESETS[preset](num_samples=k, horizon=T,
-                                            dtype=torch.float64)
+                                            dtype=torch.float64, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     np.testing.assert_array_equal(course, jcourse)
     jm = jax_get_model(jcfg.model)
@@ -232,11 +232,11 @@ def test_eager_step_of_a_model_without_a_closed_form():
     register_model(Model(name=name, state_names=("x", "y", "yaw"),
                          control_names=("v", "w"), step=get_model("unicycle").step))
     cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=K, horizon=T,
-                                                dtype=torch.float64)
-    path = PathBuffer.from_points(course, 0.1, dtype=torch.float64)
+                                                dtype=torch.float64, device="cpu")
+    path = PathBuffer.from_points(course, 0.1, dtype=torch.float64, device="cpu")
     noise = torch.as_tensor(np.random.RandomState(9).randn(T - 1, K, 2))
     state = torch.tensor([0.0, float(course[0, 1]), 0.1], dtype=torch.float64)
-    ctrl = ControllerState.initial(0, T, 2, dtype=torch.float64)
+    ctrl = ControllerState.initial(0, T, 2, dtype=torch.float64, device="cpu")
     ref = mppi_step(cfg, ctrl, state, path, DT, sp, cp, noise=noise)[1]
     custom = dataclasses.replace(cfg, model=name)
     got = mppi_step(custom, ctrl, state, path, DT, sp, cp, noise=noise)[1]

@@ -109,7 +109,8 @@ def test_min_sq_distance_chunked_equals_unchunked(monkeypatch):
 def test_resample_reference(pos):
     course = _course()
     jpath = JaxPathBuffer.from_points(course, 0.1, capacity=150, dtype=np.float64)
-    tpath = PathBuffer.from_points(course, 0.1, capacity=150, dtype=torch.float64)
+    tpath = PathBuffer.from_points(course, 0.1, capacity=150, dtype=torch.float64,
+                                  device="cpu")
     jpos, tpos = jnp.asarray(pos), torch.tensor(pos, dtype=torch.float64)
     assert int(nearest_index(tpath, tpos)) == int(jax_nearest_index(jpath, jpos))
     v_ref = np.float64(2.0)
@@ -235,7 +236,7 @@ def test_pack_scalars_matches_jax_layout():
 
 def test_default_params_match():
     jp, tp = _params()
-    fresh = tfb.default_params(dtype=torch.float64)
+    fresh = tfb.default_params(device="cpu", dtype=torch.float64)
     for name in ("mass", "base2com", "inertia", "gravity_z"):
         close(getattr(fresh, name), getattr(jp, name))
         assert torch.equal(getattr(fresh, name), getattr(tp, name))

@@ -33,11 +33,11 @@ import torch
 from ccv_mppi_path_tracker_tpu_torch.core.presets import full_body_launch
 from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.solver import MPPISolver
-cfg, sp, cp, course = full_body_launch(num_samples=256, horizon=10)
-path = PathBuffer.from_points(course, 0.1)
+cfg, sp, cp, course = full_body_launch(num_samples=256, horizon=10, device="cpu")
+path = PathBuffer.from_points(course, 0.1, device="cpu")
 for use_kernel in (False, True):
     solver = MPPISolver(cfg, use_kernel=use_kernel)
-    _, res = solver.step(solver.init(0), torch.zeros(5), path, 0.1, sp, cp)
+    _, res = solver.step(solver.init(0, device="cpu"), torch.zeros(5), path, 0.1, sp, cp)
     assert torch.isfinite(res.u_opt).all()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ccv_mppi_path_tracker_tpu"))

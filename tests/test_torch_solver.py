@@ -233,7 +233,7 @@ def test_rng_mode_is_a_function_of_seed_and_step(use_kernel):
 def test_solver_wrapper_equals_mppi_step():
     case = Case(128, f64=False)
     solver = MPPISolver(case.cfg, use_kernel=True)
-    ctrl = solver.init(seed=5)
+    ctrl = solver.init(seed=5, device="cpu")
     assert ctrl.u_prev.shape == (T - 1, 5) and ctrl.seed == 5 and ctrl.step == 0
     state = torch.as_tensor(case.state)
     _, a = solver.step(ctrl, state, case.path, DT, case.sp, case.cp)
@@ -248,7 +248,7 @@ def test_solver_wrapper_equals_mppi_step():
      for p in PRESETS for uk in (False, True)],
 )
 def test_tracking_experiment_on_cpu(use_kernel, preset):
-    cfg, sp, cp, course = PRESETS[preset](num_samples=512, horizon=15)
+    cfg, sp, cp, course = PRESETS[preset](num_samples=512, horizon=15, device="cpu")
     before = fused_sample_rollout_cost.launches
     out = run_tracking_experiment(cfg, sp, cp, course, num_steps=30,
                                   use_kernel=use_kernel)
@@ -262,18 +262,18 @@ def test_tracking_experiment_on_cpu(use_kernel, preset):
 
 
 def test_simulate_process_noise_is_reproducible():
-    cfg, sp, cp, course = full_body_launch(num_samples=128, horizon=10)
+    cfg, sp, cp, course = full_body_launch(num_samples=128, horizon=10, device="cpu")
     case = Case(128, f64=False, horizon=10)
     plant = Plant(model_name="full_body", process_noise=0.01)
 
     def run():
-        ctrl = ControllerState.initial(1, 10, 5)
+        ctrl = ControllerState.initial(1, 10, 5, device="cpu")
         return simulate(cfg, ctrl, torch.as_tensor(case.state), case.path,
                         torch.tensor(DT), sp, cp, plant=plant, num_steps=4)[1]
 
     a, b = run(), run()
     assert torch.equal(a["state"], b["state"])
-    quiet = simulate(cfg, ControllerState.initial(1, 10, 5),
+    quiet = simulate(cfg, ControllerState.initial(1, 10, 5, device="cpu"),
                      torch.as_tensor(case.state), case.path, torch.tensor(DT),
                      sp, cp, num_steps=4)[1]
     assert not torch.equal(a["state"], quiet["state"])
