@@ -10,6 +10,7 @@
     python -m ccv_mppi_path_tracker_tpu_torch compare --preset diff_drive
     python -m ccv_mppi_path_tracker_tpu_torch course --kind dkan --out course.csv
     python -m ccv_mppi_path_tracker_tpu_torch fleet --robots 64 --steps 200
+    python -m ccv_mppi_path_tracker_tpu_torch sysid --seed 0
 
 ``run`` is a closed-loop tracking experiment on a launch-file preset
 (diff_drive, steering_diff_drive or full_body; diff_drive by default)
@@ -19,25 +20,27 @@ record the reference-layout CSV, swap the course, and save or resume the
 controller state. ``realtime`` paces the loop at ``--hz`` on the native
 scheduler (``--pipelined``: dispatch the next update before fetching this
 one's command); ``compare`` pits MPPI against pure pursuit; ``course``
-writes a course CSV; ``fleet`` runs many robots in one kernel launch a tick.
-Every subcommand but ``course`` runs on ``--device`` (``cuda`` by default;
-a CUDA device that is not there is an error, never a fallback).
+writes a course CSV; ``fleet`` runs many robots in one kernel launch a tick;
+``sysid`` recovers a droopy plant's actuator gains by Adam through the model
+step. Every subcommand but ``course`` runs on ``--device`` (``cuda`` by
+default; a CUDA device that is not there is an error, never a fallback).
 
 Not in the port yet: the plots and animation (``--plot``, ``--plot-yaw``,
-``--animate``) and the ``profile``, ``export`` and ``sysid`` subcommands.
+``--animate``) and the ``profile`` and ``export`` subcommands.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
 import numpy as np
 import torch
 
-NOT_YET = ("not in the port yet: --plot, --plot-yaw, --animate, and the profile, export "
-           "and sysid subcommands")
+NOT_YET = ("not in the port yet: --plot, --plot-yaw, --animate, and the profile and "
+           "export subcommands")
 
 
 def _add_run_args(p):
@@ -93,16 +96,25 @@ def _course(kind):
     }[kind]().astype(np.float32)
 
 
+def _device(args):
+    """The requested device, or None (with the error printed) when it is a
+    CUDA device and there is none."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"error: device {args.device} requested but CUDA is not available",
+              file=sys.stderr)
+        return None
+    return device
+
+
 def _resolve(args):
     """(device, cfg, sp, cp, course) of the preset on the requested device,
     with the --course override; device None when a CUDA device was asked for
     and there is none."""
     from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"error: device {args.device} requested but CUDA is not available",
-              file=sys.stderr)
+    device = _device(args)
+    if device is None:
         return (None,) * 5
     kwargs = {"horizon": args.horizon, "device": device}
     if args.num_samples:
@@ -260,6 +272,33 @@ def cmd_course(args):
     return 0
 
 
+def cmd_sysid(args):
+    """System-identification demo: recover actuator gains from a droopy
+    plant (2048 random unicycle transitions, true gains [0.85, 1.1], 400 Adam
+    steps), as the JAX package's ``sysid`` does on the same data."""
+    from ccv_mppi_path_tracker_tpu_torch.diff import fit_control_gains
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+
+    device = _device(args)
+    if device is None:
+        return 2
+    rng = np.random.RandomState(args.seed)
+    true_gains = np.array([0.85, 1.1])
+    m = get_model("unicycle")
+    states = torch.as_tensor(rng.randn(2048, 3), dtype=torch.float32, device=device)
+    controls = torch.as_tensor(rng.randn(2048, 2), dtype=torch.float32, device=device)
+    gains = torch.as_tensor(true_gains, dtype=torch.float32, device=device)
+    next_states = m.step(states, controls * gains, 0.1)
+    fitted, losses = fit_control_gains("unicycle", states, controls, next_states, 0.1,
+                                       num_steps=400)
+    print(json.dumps({
+        "true_gains": true_gains.tolist(),
+        "fitted_gains": fitted.gains.cpu().numpy().round(4).tolist(),
+        "final_loss": float(losses[-1]),
+    }))
+    return 0
+
+
 def cmd_fleet(args):
     """Fleet serving demo: B robots per tick, one kernel launch per tick."""
     import time
@@ -327,6 +366,12 @@ def main(argv=None):
     po.add_argument("--radius", type=float, default=10.0)
     po.add_argument("--resolution", type=float, default=0.1)
     po.set_defaults(fn=cmd_course)
+
+    ps = sub.add_parser("sysid", help="system-identification demo")
+    ps.add_argument("--seed", type=int, default=0)
+    ps.add_argument("--device", default="cuda",
+                    help="torch device; a CUDA device that is not there is an error")
+    ps.set_defaults(fn=cmd_sysid)
 
     prt = sub.add_parser("realtime", help="fixed-rate native-runtime tracking experiment")
     _add_run_args(prt)

@@ -6,12 +6,15 @@ themselves after ``np.asarray`` of each field, or dicts of field name to
 array) and returns this port's dataclasses on one device and dtype, so both
 packages compute on identical parameters. A fleet's warm start (B, T-1, U)
 and a stacked per-robot PathBuffer (xy (B, N, 2), num_valid (B,)) carry over
-with their robot axis. Nothing here imports jax.
+with their robot axis. :func:`learned_from_numpy` carries the learned and
+identified parameters (ControlGains, SamplerNet, UpdateRule, FullBodyParams)
+the same way. Nothing here imports jax.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import torch
@@ -22,7 +25,10 @@ from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
 
 
 def _fields(obj, cls):
-    names = [f.name for f in dataclasses.fields(cls)]
+    if dataclasses.is_dataclass(cls):
+        names = [f.name for f in dataclasses.fields(cls)]
+    else:  # an nn.Module built from its parameters, e.g. SamplerNet(w1, b1, w2, b2)
+        names = list(inspect.signature(cls).parameters)
     if isinstance(obj, dict):
         return {n: obj[n] for n in names}
     return {n: getattr(obj, n) for n in names}
@@ -33,6 +39,13 @@ def _tensors(obj, cls, dtype, device):
         n: torch.as_tensor(np.asarray(v), device=device).to(dtype)
         for n, v in _fields(obj, cls).items()
     })
+
+
+def learned_from_numpy(cls, obj, device=None, dtype=torch.float32):
+    """``cls`` (ControlGains, SamplerNet, UpdateRule or FullBodyParams of
+    this port) built from ``obj``: the JAX package's object of that name, or a
+    dict of field name to array."""
+    return _tensors(obj, cls, dtype, device)
 
 
 def from_numpy(sp, cp, model_params, u_prev, path, device=None, dtype=torch.float32):

@@ -28,13 +28,23 @@ STEER_MAX = 30.0 * math.pi / 180.0
 RATE_MAX = 2.6
 
 
+def symmetric_clip(x, bound):
+    """clip(x, -bound, bound) as ``jnp.clip`` computes it, a maximum then a
+    minimum: ``torch.clamp``'s values, with derivative 1/2 (clamp's is 1)
+    where x sits on a bound. Refinement's box projection puts the rate
+    exactly on rate_max, so the gradients there match the JAX package's; the
+    closed-form rollout's steer sequence clips the same way."""
+    b = x.new_full((), bound)
+    return torch.minimum(torch.maximum(x, -b), b)
+
+
 def make_step(steer_max: float = STEER_MAX, rate_max: float = RATE_MAX):
     def step(state, u, dt):
         x, y, yaw, steer = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
         v, w, rate = u[..., 0], u[..., 1], u[..., 2]
         heading = yaw + steer
-        rate = torch.clamp(rate, -rate_max, rate_max)
-        new_steer = torch.clamp(steer + rate * dt, -steer_max, steer_max)
+        rate = symmetric_clip(rate, rate_max)
+        new_steer = symmetric_clip(steer + rate * dt, steer_max)
         return torch.stack(
             [x + v * torch.cos(heading) * dt, y + v * torch.sin(heading) * dt,
              yaw + w * dt, new_steer],

@@ -40,14 +40,16 @@ def steer_limits(model_name: str):
 def _steer_sequence(model_name, steer0, rates, dt):
     """(T-1, ...) commanded rates -> the (T-1, ...) steering angles that the
     position integral uses at steps 0..T-2 (the angle before each step's
-    slew), and the final angle."""
+    slew), and the final angle. The clips are the model step's
+    (``symmetric_clip``), so derivatives through them agree too."""
+    from ccv_mppi_path_tracker_tpu_torch.models.rate_limited_steering import symmetric_clip
+
     steer_max, rate_max = steer_limits(model_name)
     used = []
     s = steer0
     for rate in rates:
         used.append(s)
-        s = torch.clamp(s + torch.clamp(rate, -rate_max, rate_max) * dt,
-                        -steer_max, steer_max)
+        s = symmetric_clip(s + symmetric_clip(rate, rate_max) * dt, steer_max)
     return torch.stack(used), s
 
 

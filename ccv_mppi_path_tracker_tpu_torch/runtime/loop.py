@@ -43,18 +43,23 @@ def simulate(
     num_steps: int = 100,
     use_kernel: bool = False,
     solver_options: Optional[dict] = None,
+    with_stats: bool = True,
 ):
     """Run ``num_steps`` control cycles against the plant.
 
-    Each cycle runs ``mppi_step(..., lean=True)`` and applies u0 to the
-    plant; the plant's process noise (if any) is drawn from the cycle's
-    generator stream 1 (core/random.py). Returns (final ctrl, logs) with
-    logs "state" (N, S) and "u0" (N, U) tensors on the device.
+    Each cycle runs ``mppi_step`` and applies u0 to the plant; the plant's
+    process noise (if any) is drawn from the cycle's generator stream 1
+    (core/random.py). Returns (final ctrl, logs) with logs "state" (N, S),
+    "u0" (N, U) and, with ``with_stats``, every solver stat (N,): min_cost,
+    mean_cost, ess, and elite_thresh or sigma_suggest where the options
+    compute them; tensors on the device. ``with_stats=False`` runs the lean
+    step (``mppi_step(..., lean=True)``) and logs the state and u0 only;
+    u0 is the same either way.
 
     solver_options: extra keyword options of every cycle's ``mppi_step``
-    (shift_warm_start, delay, elite_frac). ``"elite_stale": True`` (with
-    elite_frac) runs single-pass elite: each cycle masks at the previous
-    cycle's threshold, +inf on the first cycle.
+    (shift_warm_start, delay, elite_frac, refine_steps, ...).
+    ``"elite_stale": True`` (with elite_frac) runs single-pass elite: each
+    cycle masks at the previous cycle's threshold, +inf on the first cycle.
     """
     if plant is None:
         plant = Plant(model_name=cfg.model)
@@ -69,21 +74,20 @@ def simulate(
         opts["elite_stale_thresh"] = torch.full((), torch.inf, dtype=state0.dtype,
                                                 device=state0.device)
     state = state0
-    states, u0s = [], []
+    logs = []
     for _ in range(num_steps):
         generator = None
         if plant.process_noise:
             generator = cycle_generator(ctrl.seed, ctrl.step, state.device, stream=1)
         ctrl, res = mppi_step(
             cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-            use_kernel=use_kernel, lean=True, **opts,
+            use_kernel=use_kernel, lean=not with_stats, **opts,
         )
         if elite_stale:
             opts["elite_stale_thresh"] = res.stats["elite_thresh"]
         state = plant.step(state, res.u0, dt, generator=generator)
-        states.append(state)
-        u0s.append(res.u0)
-    return ctrl, {"state": torch.stack(states), "u0": torch.stack(u0s)}
+        logs.append({"state": state, "u0": res.u0, **(res.stats if with_stats else {})})
+    return ctrl, {k: torch.stack([log[k] for log in logs]) for k in logs[0]}
 
 
 @dataclasses.dataclass
@@ -196,8 +200,9 @@ def run_tracking_experiment(
     state0=None,
     solver_options: Optional[dict] = None,
 ):
-    """Run a tracking experiment on the device of ``sp``; return logs and
-    the calc_e_rmse metrics.
+    """Run a tracking experiment on the device of ``sp``; return logs (the
+    state, u0 and solver stats of every cycle, as NumPy arrays) and the
+    calc_e_rmse metrics.
 
     The start pose is the first course point, aligned with the initial
     course heading (the reference spawns the robot on the course), or the

@@ -10,7 +10,8 @@ calc_Weights -> determine_OptimalSolution (src/diff_drive_mppi.cpp:332-369):
     min-baseline softmax weights and weighted update    (ops/softmax_update.py)
 
 or, with ``use_kernel=True``, all of it in the fused kernel
-(kernels/rollout_cost.py). Everything stays on the device of ``state``; the
+(kernels/rollout_cost.py); ``refine_steps`` then polishes the update through
+the rollout (diff/gradients.py). Everything stays on the device of ``state``; the
 step reads nothing back to the host (the cycle's seed and counter are host
 integers in ControllerState).
 """
@@ -24,6 +25,7 @@ import torch
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
+from ccv_mppi_path_tracker_tpu_torch.diff.gradients import gauss_newton_refine, gradient_refine
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     fused_sample_rollout_cost,
     pack_scalars,
@@ -35,7 +37,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
     rollout,
     rollout_closed_form,
 )
-from ccv_mppi_path_tracker_tpu_torch.ops.sampling import sample_controls
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import STEER_DIM, sample_controls
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import (
     elite_threshold,
     softmax_weights,
@@ -60,6 +62,9 @@ def mppi_step(
     elite_frac: Optional[float] = None,
     elite_stale_thresh=None,
     adapt_sigma: bool = False,
+    refine_steps: int = 0,
+    refine_step_size: float = 0.02,
+    refine_method: str = "gradient",
     lean: bool = False,
 ):
     """Run one MPPI control cycle. Returns (next ControllerState, StepResult).
@@ -92,6 +97,12 @@ def mppi_step(
         into SolverParams.control_noise by runtime/loop.py ControlLoop). The
         kernel path takes the weighted sums of u^2 from the kernel's second
         moment. An empty stale-elite cycle suggests sp.control_noise.
+    refine_steps: gradient-smoothed MPPI: polish the sampled update (from
+        either path) with this many steps through the rollout
+        (diff/gradients.py) before actuation; 0 is classic MPPI.
+        refine_method "gradient" takes projected gradient steps of
+        ``refine_step_size``; "gauss_newton" takes Levenberg-Marquardt
+        guarded Gauss-Newton steps on the least-squares cost.
     lean: return only u_opt/u0 (ref/opt_states None; stats empty except
         elite_thresh and sigma_suggest, which a caller feeds back).
     """
@@ -170,6 +181,9 @@ def mppi_step(
         # configured sigma, not a value that would poison the feedback
         stats["sigma_suggest"] = torch.where(stats["elite_stale_empty"],
                                              sp.control_noise, stats["sigma_suggest"])
+    if refine_steps:
+        u_opt = _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, refine_steps,
+                        refine_step_size, refine_method)
 
     next_ctrl = ControllerState(u_prev=u_opt, seed=ctrl.seed, step=ctrl.step + 1)
     if lean:
@@ -188,6 +202,24 @@ def _sigma_suggest(m2, u_opt):
     sqrt(mean_t max(E_w[u^2] - u_opt^2, 0))."""
     var = torch.clamp(m2 - u_opt * u_opt, min=0.0)
     return torch.sqrt(torch.mean(var, dim=0))
+
+
+def _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
+    """The refine stage of ``mppi_step`` (diff/gradients.py)."""
+    if method == "gauss_newton":
+        u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
+                                    model_params=model_params, num_steps=steps)
+    elif method == "gradient":
+        u_opt = gradient_refine(cfg, u_opt, state, ref, dt, sp, cp, model_params=model_params,
+                                step_size=step_size, num_steps=steps)
+    else:
+        raise ValueError(f"refine_method must be 'gradient' or 'gauss_newton', "
+                         f"got {method!r}")
+    if cfg.steer_off and u_opt.shape[1] > STEER_DIM:
+        # the gradient has no reason to keep the disabled channel at zero
+        u_opt = u_opt.clone()
+        u_opt[:, STEER_DIM] = 0.0
+    return u_opt
 
 
 def _opt_rollout(model_name, model, state, u_opt, dt):

@@ -8,9 +8,11 @@ the MPPI control update of each of the four models through the fused CUDA
 kernel at the benchmark's size (K=102400 samples, T=30 horizon, float32),
 elite sampling (two-pass and stale-threshold), adaptive sigma through
 ControlLoop, the fleet (B=256 robots in one launch), the closed loops that
-repeat them, and the live-robot serving path (the paced and pipelined loops,
-the sensing and estimation stack, checkpoint/resume). Phases, each printed on one line, the first failure ending the
-run with a non-zero exit:
+repeat them, the live-robot serving path (the paced and pipelined loops,
+the sensing and estimation stack, checkpoint/resume), and the differentiable
+side (refinement after the kernel, system identification, the learned
+sampler and update rule). Phases, each printed on one line, the first
+failure ending the run with a non-zero exit:
 
   1. build the kernel from csrc/ with nvcc; print the card and its power limit,
      each instantiation's ptxas registers (held equal to the launch-shape
@@ -31,8 +33,9 @@ run with a non-zero exit:
   5. mppi_step(use_kernel=True, lean=True) vs the eager path, same noise,
      every model and elite; then no host sync inside mppi_step for every
      model, kernel and eager, lean and full, vanilla and both elite modes;
-  6. 200-cycle closed loops through run_tracking_experiment on the kernel
-     path, the launch count set to 0 just before each and read just after:
+  6. 200-cycle lean closed loops (run_tracking_experiment's loop through
+     simulate(with_stats=False)) on the kernel path, the launch count set to
+     0 just before each and read just after:
      full_body, diff_drive, steering_diff_drive, rate_limited_steering,
      full_body with elite 0.1 (two launches a cycle) and full_body with
      stale elite 0.1; finite states, RMSE < 0.15 m, exact launch counts;
@@ -91,13 +94,30 @@ run with a non-zero exit:
      on the kernel path in RNG mode (200 cycles against 100 + checkpoint +
      100, u0 bit-equal); the serving commands: realtime, realtime
      --pipelined --micro-batch 4, compare, course --kind dkan, run --record
-     --course dkan --save-ckpt, run --resume-ckpt.
+     --course dkan --save-ckpt, run --resume-ckpt;
+ 22. refinement after the kernel, full_body and diff_drive at K=102400 T=30:
+     the refine stage of mppi_step (both methods) on the card against the CPU
+     on the kernel's update (float64 rtol 1e-8; float32 printed only: a
+     Levenberg-Marquardt accept can flip on round-off), the Gauss-Newton
+     refined trajectory cost at most the unrefined one, no host sync in
+     mppi_step(refine_steps=3) (both methods, kernel and eager, lean and
+     full); a 200-cycle Gauss-Newton-refined full_body run_tracking_experiment
+     (RMSE < 0.15 m, exactly 200 launches, finite ess logged); CUDA-event
+     times and profiled device launches of the kernel-lean update with and
+     without each refinement, the Gauss-Newton one under the 100 ms period;
+ 23. the training side on the card at the JAX package's script sizes: the
+     sysid command (gains within rtol 1e-3), fit_full_body_params (base2com
+     within 2 %), the chunked rollout gradient (num_chunks 1, 4, 8 equal at
+     float64), collect_imitation_data + fit_sampler (the loss halves, the
+     proposal wins 5 of 6 cold starts), meta_train (the loss falls, the rule
+     beats vanilla on held-out poses); the wall time of each.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
 
 Phases 19-21 end with a JSON line of the serving runs' numbers
-({"serving": ...}). The last three lines are the kernels JSON line (each entry with its bound:
+({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
+"training": ...}). The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
 the main-path run's count over its cycles), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
@@ -106,6 +126,7 @@ prints no result.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import shutil
@@ -295,9 +316,13 @@ def main():
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import elite_threshold
     from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
-    from ccv_mppi_path_tracker_tpu_torch.runtime import ControlLoop, run_tracking_experiment
+    from ccv_mppi_path_tracker_tpu_torch.runtime import (
+        ControlLoop,
+        run_tracking_experiment,
+        simulate,
+    )
     from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
-    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _sigma_suggest
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _refine, _sigma_suggest
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -518,7 +543,24 @@ def main():
           "adapt_sigma; RNG mode) nor in the fleet step's kernel arm "
           f"(B={B_FLEET} K={K_FLEET} T={T_FLEET})", flush=True)
 
-    # --- 6. closed loops through the user entry point ----------------------
+    # --- 6. the lean closed loops -----------------------------------------
+    def lean_loop(cfg, sp, cp, course, opts):
+        """run_tracking_experiment's loop on the lean step (simulate with
+        with_stats=False), from the course start; (logs, metrics)."""
+        m = get_model(cfg.model)
+        start = np.zeros(m.num_states)
+        start[:2] = course[0]
+        start[2] = np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0])
+        _, logs = simulate(
+            cfg, ControllerState.initial(0, cfg.horizon, m.num_controls, device=dev),
+            torch.tensor(start, dtype=torch.float32, device=dev),
+            PathBuffer.from_points(course, 0.1, device=dev), torch.full((), 0.1, device=dev),
+            sp, cp, num_steps=STEPS, use_kernel=True, solver_options=opts or None,
+            with_stats=False)
+        states = logs["state"].cpu().numpy()
+        xy = np.concatenate([start[None, :2], states[:, :2]])
+        return {"state": states}, tracking_metrics(xy, course, dt=0.1)
+
     loops = [("full_body", {}, 1), ("diff_drive", {}, 1),
              ("steering_diff_drive", {}, 1), ("rate_limited_steering", {}, 1),
              ("full_body", {"elite_frac": ELITE}, 2),
@@ -529,16 +571,14 @@ def main():
                                               device=dev)
         fused_sample_rollout_cost.launches = 0
         t0 = time.perf_counter()
-        out = run_tracking_experiment(cfg, sp, cp, course, num_steps=STEPS, dt=0.1,
-                                      use_kernel=True, solver_options=opts or None)
+        logs, m = lean_loop(cfg, sp, cp, course, opts)
         wall = time.perf_counter() - t0
         n = fused_sample_rollout_cost.launches
         name = cfg.model + ("_elite_stale" if opts.get("elite_stale")
                             else "_elite" if opts else "")
         launches[name] = n
         loop_rate[name] = STEPS / wall
-        m = out["metrics"]
-        finite = bool(np.isfinite(out["logs"]["state"]).all())
+        finite = bool(np.isfinite(logs["state"]).all())
         print(f"[6 closed loop] {preset} {opts or ''} {STEPS} cycles K={K_MAIN} "
               f"T={T_MAIN}: RMSE {m['rmse']:.4f} m, max error {m['max_error']:.4f} m, "
               f"finite {finite}, kernel launches {n}; wall {wall:.3f} s = "
@@ -978,12 +1018,11 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    prof_cases = [("full_body", {}), ("full_body", {"elite_frac": ELITE}),
-                  ("full_body", {"adapt_sigma": True}), ("diff_drive", {})]
-    for preset, opts in prof_cases:
-        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
-        fn = updater(s, "kernel", **opts)
-        n = 20
+    def profile_update(fn, n):
+        """fn's event-timed ms a call (median of 5 runs of n, after 3 warm
+        calls) and, by torch.profiler over n calls, its device launches, its
+        fused-kernel launches and its device ms a call; the last three None
+        where the profiler recorded no device activity."""
         for _ in range(3):
             fn()
         step_ms = statistics.median(event_ms(fn, n) for _ in range(5))
@@ -992,16 +1031,25 @@ def main():
                 fn()
             torch.cuda.synchronize()
         dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        name = f"{s['model']}{''.join('_' + k for k in opts)}"
         if not dev_events:
+            return step_ms, None, None, None
+        kern = [e for e in dev_events if "rollout_cost_kernel" in e.name]
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / n
+        return step_ms, len(dev_events) / n, len(kern) / n, dev_ms
+
+    prof_cases = [("full_body", {}), ("full_body", {"elite_frac": ELITE}),
+                  ("full_body", {"adapt_sigma": True}), ("diff_drive", {})]
+    for preset, opts in prof_cases:
+        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        step_ms, n_dev, n_kern, dev_ms = profile_update(updater(s, "kernel", **opts), 20)
+        name = f"{s['model']}{''.join('_' + k for k in opts)}"
+        if n_dev is None:
             print(f"[17 profile] {name}: the profiler recorded no device activity: "
                   f"launches and busy share not measured", flush=True)
             continue
-        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / n
-        kern = [e for e in dev_events if "rollout_cost_kernel" in e.name]
         print(f"[17 profile] {name} kernel-lean update K={K_MAIN} T={T_MAIN}: "
-              f"{len(dev_events) / n:.1f} device launches per update "
-              f"({len(kern) / n:.1f} of the fused kernel), device time {dev_ms:.4f} ms "
+              f"{n_dev:.1f} device launches per update "
+              f"({n_kern:.1f} of the fused kernel), device time {dev_ms:.4f} ms "
               f"per update over an event-timed update of {step_ms:.4f} ms: busy "
               f"{100 * dev_ms / step_ms:.1f} % on {card}", flush=True)
     counters_zero("profile")
@@ -1280,6 +1328,251 @@ def main():
     shutil.rmtree(tmp)
     print(json.dumps({"serving": serving}))
 
+    # --- 22. refinement after the kernel, full width ------------------------
+    from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
+    from ccv_mppi_path_tracker_tpu_torch.diff import make_trajectory_cost
+
+    methods = ("gradient", "gauss_newton")
+    refine_opts = {m: dict(refine_steps=3, refine_method=m) for m in methods}
+    cpu = torch.device("cpu")
+
+    def cast(obj, dtype, device):
+        """A parameter dataclass (or None) with its tensors on device, dtype."""
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device, dtype)
+                                           for f in dataclasses.fields(obj)})
+
+    refined = {}
+    for preset in ("full_body", "diff_drive"):
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=22)
+        cfg, model = s["cfg"], s["model"]
+        ctrl = ControllerState(s["u_prev"], 0, 0)
+        step_args = (cfg, ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+        _, res = mppi_step(*step_args, model_params=s["mp"], use_kernel=True)
+
+        def stage_inputs(dtype, device):
+            return (res.u_opt.to(device, dtype), s["state"].to(device, dtype),
+                    RefWindow(res.ref.xy.to(device, dtype), res.ref.yaw.to(device, dtype)),
+                    s["dt"].to(device, dtype), cast(s["sp"], dtype, device),
+                    cast(s["cp"], dtype, device), cast(s["mp"], dtype, device))
+
+        # (a) the refine stage of mppi_step on the card against the CPU
+        errs = {}
+        for m in methods:
+            out = {(dtype, device.type): _refine(cfg, *stage_inputs(dtype, device), 3, 0.02, m)
+                   for dtype in (torch.float64, torch.float32) for device in (dev, cpu)}
+            a, b = out[torch.float64, "cuda"].cpu(), out[torch.float64, "cpu"]
+            excess = float(((a - b).abs() - (1e-8 * b.abs() + 1e-12)).max())
+            errs[m] = (float((a - b).abs().max()),
+                       float((out[torch.float32, "cuda"].cpu() - out[torch.float32, "cpu"])
+                             .abs().max()),
+                       float((a - res.u_opt.double().cpu()).abs().max()))
+            require(excess <= 0.0, f"{model} {m} refine stage: card and CPU differ beyond "
+                                   f"rtol 1e-8 at float64 (max |d| {errs[m][0]})")
+        # (b) the trajectory cost of the update, unrefined and refined, on the card
+        args32 = stage_inputs(torch.float32, dev)
+        cost_fn = make_trajectory_cost(cfg)
+        costs = {"unrefined": float(cost_fn(args32[0], *args32[1:4], args32[5], args32[6]))}
+        for m in methods:
+            u = _refine(cfg, *args32, 3, 0.02, m)
+            costs[m] = float(cost_fn(u, *args32[1:4], args32[5], args32[6]))
+        print(f"[22 refine stage] {model} K={K_MAIN} T={T_MAIN}, the kernel's update: "
+              + "; ".join(f"{m} card vs CPU max |d| {e64:.3e} at float64 (rtol 1e-8), "
+                          f"{e32:.3e} at float32 (printed only), moved the update by "
+                          f"{moved:.3e}" for m, (e64, e32, moved) in errs.items())
+              + f"; trajectory cost unrefined {costs['unrefined']:.6f}, gradient "
+                f"{costs['gradient']:.6f}, gauss_newton {costs['gauss_newton']:.6f}",
+              flush=True)
+        require(costs["gauss_newton"] <= costs["unrefined"],
+                f"{model}: the Gauss-Newton refinement raised the cost")
+        refined[f"{model}_cost"] = costs
+        # (c) no host sync in the refined step: kernel and eager, lean and full
+        combos = [dict(refine_opts[m], use_kernel=uk, lean=lean)
+                  for m in methods for uk in (True, False) for lean in (True, False)]
+        for kw in combos:  # warm-up outside the check
+            mppi_step(*step_args, model_params=s["mp"], **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for kw in combos:
+                mppi_step(*step_args, model_params=s["mp"], **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print(f"  {model}: no host sync inside mppi_step(refine_steps=3), both methods, "
+              f"kernel and eager, lean and full", flush=True)
+    counters_zero("refine stage")
+
+    # (d) the refined closed loop through the user entry point
+    cfg, sp, cp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+    fused_sample_rollout_cost.launches = 0
+    t0 = time.perf_counter()
+    out = run_tracking_experiment(cfg, sp, cp, course, num_steps=STEPS, dt=0.1,
+                                  use_kernel=True, solver_options=refine_opts["gauss_newton"])
+    wall = time.perf_counter() - t0
+    n = fused_sample_rollout_cost.launches
+    launches["full_body_refined"] = n
+    logs, m = out["logs"], out["metrics"]
+    finite = bool(np.isfinite(logs["state"]).all() and np.isfinite(logs["ess"]).all())
+    refined["loop"] = dict(rmse=m["rmse"], launches=n, cycles_per_s=STEPS / wall,
+                           ess_mean=float(np.mean(logs["ess"])))
+    print(f"[22 refined loop] full_body refine_steps=3 gauss_newton, {STEPS} cycles K={K_MAIN} "
+          f"T={T_MAIN}: RMSE {m['rmse']:.4f} m, max error {m['max_error']:.4f} m, logged "
+          f"{sorted(logs)}, ess finite {finite} (mean {np.mean(logs['ess']):.1f}), kernel "
+          f"launches {n}; {STEPS / wall:.2f} cycles/s (host clock, stats logged) on {card}",
+          flush=True)
+    require(finite and m["rmse"] < 0.15, f"refined loop: RMSE {m['rmse']}, finite {finite}")
+    require(n == STEPS, f"refined loop: {n} launches, not {STEPS}")
+    counters_zero("refined loop")
+
+    # (e) the refined update's time and launches beside the unrefined one
+    arms = {}
+    for preset in ("full_body", "diff_drive"):
+        s = kernel_case(preset, K_MAIN, T_MAIN, roll_off=True, seed=5)
+        model = s["model"]
+        arms[f"{model}/update_kernel_lean"] = (updater(s, "kernel"), 20)
+        for meth in methods:
+            arms[f"{model}/update_kernel_lean_{meth}"] = (
+                updater(s, "kernel", **refine_opts[meth]), 3)
+    times = time_interleaved(arms, 5, warm=1)
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    print(f"[22 timing] kernel-lean update K={K_MAIN} T={T_MAIN}, median of 5 CUDA-event reps "
+          f"on {card} (after: sm clock, draw, limit, temp = {clocks})", flush=True)
+    for name, v in times.items():
+        ms = statistics.median(v)
+        step_ms, n_dev, n_kern, dev_ms = profile_update(arms[name][0], 3)
+        refined[name] = dict(ms=ms, spread=[min(v), max(v)], device_launches=n_dev,
+                             device_ms=dev_ms)
+        prof = ("device launches not measured (the profiler recorded nothing)" if n_dev is None
+                else f"{n_dev:.1f} device launches ({n_kern:.1f} of the fused kernel), "
+                     f"device time {dev_ms:.4f} ms, busy {100 * dev_ms / step_ms:.1f} %")
+        print(f"  {name}: {ms:.4f} ms [{min(v):.4f}, {max(v):.4f}]; {prof}", flush=True)
+    gn_ms = refined["full_body/update_kernel_lean_gauss_newton"]["ms"]
+    require(gn_ms < 100.0, f"the Gauss-Newton-refined full_body update takes {gn_ms} ms, "
+                           f"over the 100 ms control period")
+    counters_zero("refine timing")
+
+    # --- 23. the training side on the card ----------------------------------
+    from ccv_mppi_path_tracker_tpu_torch.diff import (
+        ControlGains,
+        collect_imitation_data,
+        evaluate_rule,
+        fit_full_body_params,
+        fit_sampler,
+        meta_train,
+        proposal_mean,
+        rollout_prediction_value_and_grad,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.models.full_body import zmp_chain
+    from ccv_mppi_path_tracker_tpu_torch.paths import resample_reference
+
+    training = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        training[name] = {"wall_s": time.perf_counter() - t0}
+        return result
+
+    def generator(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return gen
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = timed("sysid", lambda: cli.main(["sysid"]))
+    sysid = json.loads(buf.getvalue().strip().splitlines()[-1])
+    gains_rel = float(np.max(np.abs(np.subtract(sysid["fitted_gains"], sysid["true_gains"]))
+                             / np.asarray(sysid["true_gains"])))
+    training["sysid"].update(sysid)
+    print(f"[23 sysid] rc {rc}: {sysid}; fitted vs true max rel err {gains_rel:.2e} (rtol "
+          f"1e-3); {training['sysid']['wall_s']:.2f} s on {card}", flush=True)
+    require(rc == 0 and gains_rel <= 1e-3, "sysid: the gains were not recovered")
+
+    # fit_full_body_params on tests/test_diff.py:71-88's data, float64
+    f64 = dict(dtype=torch.float64, device=dev)
+    rng = np.random.RandomState(2)
+    zstates = torch.tensor(rng.randn(12, 64, 5) * 0.2, **f64)
+    zcontrols = torch.tensor(rng.randn(11, 64, 5) * 0.5, **f64)
+    true = default_params(**f64)
+    observed = zmp_chain(zstates, zcontrols, 0.1, true)[..., 1]
+    init = dataclasses.replace(true, base2com=torch.full((), 0.6, **f64))
+    fit, losses = timed("fit_full_body_params", lambda: fit_full_body_params(
+        zstates, zcontrols, observed, 0.1, init, num_steps=500, learning_rate=0.02))
+    com_rel = abs(float(fit.base2com) / float(true.base2com) - 1.0)
+    training["fit_full_body_params"].update(base2com=float(fit.base2com), rel_err=com_rel)
+    print(f"[23 fit_full_body_params] 500 Adam steps: base2com {float(fit.base2com):.6f} vs "
+          f"{float(true.base2com):.6f} (rel err {com_rel:.2e}, limit 0.02); loss "
+          f"{float(losses[0]):.3e} -> {float(losses[-1]):.3e}; "
+          f"{training['fit_full_body_params']['wall_s']:.2f} s", flush=True)
+    require(com_rel <= 0.02 and float(losses[-1]) < 1e-2 * float(losses[0]),
+            "fit_full_body_params: base2com not recovered")
+
+    # the chunked rollout gradient, tests/test_diff.py:222-228's data, float64
+    rng = np.random.RandomState(3)
+    rargs = (torch.zeros((128, 3), **f64), torch.tensor(rng.randn(16, 128, 2) * 0.5, **f64),
+             torch.tensor(rng.randn(16, 128, 3) * 0.1, **f64))
+    gains = ControlGains(gains=torch.tensor([1.1, 0.9], **f64))
+    chunked = {nc: rollout_prediction_value_and_grad("unicycle", gains, *rargs, 0.1,
+                                                     num_chunks=nc) for nc in (1, 4, 8)}
+    l1, g1 = chunked[1]
+    chunk_rel = max(max(abs(float(lc) / float(l1) - 1.0),
+                        float(((gc.gains - g1.gains).abs() / g1.gains.abs()).max()))
+                    for lc, gc in chunked.values())
+    print(f"[23 rollout gradient] num_chunks 1, 4, 8 at float64: loss {float(l1):.6e}, "
+          f"gradient {g1.gains.cpu().numpy().tolist()}; max rel difference {chunk_rel:.2e} "
+          f"(rtol 1e-12)", flush=True)
+    require(chunk_rel <= 1e-12, "the chunked rollout gradient depends on num_chunks")
+
+    # the learned sampler: scripts/learning_eval.py:44-50's sizes
+    cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=256, horizon=10, device=dev)
+    feats, targets = timed("collect_imitation_data", lambda: collect_imitation_data(
+        cfg, sp, cp, course, generator(0), num_states=96, solve_cycles=6))
+    net, losses = timed("fit_sampler", lambda: fit_sampler(feats, targets, generator(1),
+                                                           hidden=32, num_steps=300))
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    dt = torch.full((), 0.1, device=dev)
+    rng = np.random.RandomState(7)
+    wins = 0
+    for i in range(6):
+        j = rng.randint(0, len(course) - 2)
+        yaw0 = np.arctan2(course[j + 1, 1] - course[j, 1], course[j + 1, 0] - course[j, 0])
+        state = torch.tensor([course[j, 0], course[j, 1] + rng.randn() * 0.3,
+                              yaw0 + rng.randn() * 0.3], dtype=torch.float32, device=dev)
+        ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
+        with torch.no_grad():
+            u_net = torch.clamp(proposal_mean(net, cfg, state, ref), sp.u_min, sp.u_max)
+        first = [float(mppi_step(cfg, ControllerState(u, 100 + i, 0), state, path, dt, sp,
+                                 cp)[1].stats["min_cost"])
+                 for u in (u_net, torch.zeros_like(u_net))]
+        wins += first[0] <= first[1]
+    training["fit_sampler"].update(loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                                   wins=wins)
+    print(f"[23 learned sampler] diff_drive K=256 T=10, 96 states x 6 solves "
+          f"({training['collect_imitation_data']['wall_s']:.2f} s), hidden 32, 300 steps "
+          f"({training['fit_sampler']['wall_s']:.2f} s): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; the proposal won {wins} of 6 cold starts", flush=True)
+    require(losses[-1] < 0.5 * losses[0] and wins >= 5, "the learned sampler")
+
+    # the learned update rule: scripts/learning_eval.py:103-106's sizes
+    cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=64, horizon=8, device=dev)
+    rule, losses = timed("meta_train", lambda: meta_train(
+        cfg, sp, cp, course, generator(0), num_steps=120, batch=32, iterations=2))
+    vanilla = evaluate_rule(cfg, None, sp, cp, course, generator(1234), iterations=2)
+    learned = evaluate_rule(cfg, rule, sp, cp, course, generator(1234), iterations=2)
+    first20, last20 = float(losses[:20].mean()), float(losses[-20:].mean())
+    training["meta_train"].update(loss_first20=first20, loss_last20=last20,
+                                  vanilla=vanilla, learned=learned)
+    print(f"[23 meta_train] diff_drive K=64 T=8, batch 32, 120 steps, 2 iterations "
+          f"({training['meta_train']['wall_s']:.2f} s): mean loss of the first 20 steps "
+          f"{first20:.4f}, of the last 20 {last20:.4f}; held-out realized cost vanilla "
+          f"{vanilla:.4f}, learned {learned:.4f} on {card}", flush=True)
+    require(last20 < first20 and learned < vanilla, "meta_train")
+    print(json.dumps({"refine": refined, "training": training}))
+
     def entry(name, path_key, err_key, ms, plain_ms, bound):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -1308,6 +1601,10 @@ def main():
               med[f"{m}/plain_alone"], bound(m))
         for m in ("full_body", "unicycle", "steering_unicycle", "rate_limited_steering")
     ]
+    # the same launch on the Gauss-Newton-refined loop's path (phase 22)
+    kernels.append(entry("rollout_cost_full_body_refined_loop", "full_body_refined",
+                         "full_body", med["full_body/kernel_alone"],
+                         med["full_body/plain_alone"], bound("full_body")))
     kernels.append(entry(
         "rollout_cost_full_body_elite_two_pass", "full_body_elite", "full_body_elite",
         med["full_body/elite_pass1_alone"] + med["full_body/elite_pass2_alone"],

@@ -156,6 +156,21 @@ def test_kernel_wrapper_on_cpu_uses_the_plain_version_and_counts_nothing():
     assert fused_sample_rollout_cost.launches == before
 
 
+def test_every_native_source_is_package_data():
+    """An installed wheel carries every file the port builds at first use
+    (csrc/rollout_cost.cu by nvcc, csrc/ccv_runtime.cpp by g++)."""
+    import fnmatch
+    import tomllib
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][PORT.name]
+    sources = sorted((PORT / "csrc").iterdir())
+    assert {p.suffix for p in sources} >= {".cu", ".cpp"}
+    for p in sources:
+        rel = str(p.relative_to(PORT))
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), f"{rel} is not package data"
+
+
 def test_build_library_name_follows_the_source():
     path = build.library_path("rollout_cost")
     assert path.parent == ROOT / "build" / "torch_kernels"
