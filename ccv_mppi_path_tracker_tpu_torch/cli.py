@@ -3,7 +3,7 @@
     python -m ccv_mppi_path_tracker_tpu_torch run --preset full_body --steps 200 \\
         --num-samples 102400 --horizon 30
     python -m ccv_mppi_path_tracker_tpu_torch run --preset diff_drive --record log/ \\
-        --course dkan --save-ckpt ck.npz
+        --course dkan --save-ckpt ck.npz --plot out.png --animate run.html
     python -m ccv_mppi_path_tracker_tpu_torch run --resume-ckpt ck.npz
     python -m ccv_mppi_path_tracker_tpu_torch realtime --preset full_body --hz 10
     python -m ccv_mppi_path_tracker_tpu_torch realtime --pipelined --micro-batch 4
@@ -11,22 +11,27 @@
     python -m ccv_mppi_path_tracker_tpu_torch course --kind dkan --out course.csv
     python -m ccv_mppi_path_tracker_tpu_torch fleet --robots 64 --steps 200
     python -m ccv_mppi_path_tracker_tpu_torch sysid --seed 0
+    python -m ccv_mppi_path_tracker_tpu_torch export --preset full_body --out step.pt2
+    python -m ccv_mppi_path_tracker_tpu_torch profile --preset full_body --steps 20
 
 ``run`` is a closed-loop tracking experiment on a launch-file preset
-(diff_drive, steering_diff_drive or full_body; diff_drive by default)
-through the fused CUDA kernel (``--no-kernel``: the eager path); it prints
-the calc_e_rmse.py metrics, as the JAX package's ``run`` does, and can
-record the reference-layout CSV, swap the course, and save or resume the
-controller state. ``realtime`` paces the loop at ``--hz`` on the native
-scheduler (``--pipelined``: dispatch the next update before fetching this
-one's command); ``compare`` pits MPPI against pure pursuit; ``course``
-writes a course CSV; ``fleet`` runs many robots in one kernel launch a tick;
-``sysid`` recovers a droopy plant's actuator gains by Adam through the model
-step. Every subcommand but ``course`` runs on ``--device`` (``cuda`` by
-default; a CUDA device that is not there is an error, never a fallback).
-
-Not in the port yet: the plots and animation (``--plot``, ``--plot-yaw``,
-``--animate``) and the ``profile`` and ``export`` subcommands.
+(diff_drive, steering_diff_drive or full_body; diff_drive by default); it
+prints the calc_e_rmse.py metrics, as the JAX package's ``run`` does, and can
+record the reference-layout CSV, swap the course, save or resume the
+controller state, and draw the tracking figures and a per-cycle animation
+(``--plot``, ``--plot-yaw``, ``--animate``; these need matplotlib).
+``realtime`` paces the loop at ``--hz`` on the native scheduler
+(``--pipelined``: dispatch the next update before fetching this one's
+command); ``compare`` pits MPPI against pure pursuit; ``course`` writes a
+course CSV; ``fleet`` runs many robots in one kernel launch a tick; ``sysid``
+recovers a droopy plant's actuator gains by Adam through the model step;
+``export`` serializes the eager control step with ``torch.export``;
+``profile`` writes a ``torch.profiler`` trace of control cycles and a phase
+summary. ``--kernel`` forces the fused CUDA kernel and ``--no-kernel`` the
+eager path; with neither, the solver path is chosen by
+``kernels/rollout_cost.py should_use_kernel`` (auto). Every subcommand but
+``course`` runs on ``--device`` (``cuda`` by default; a CUDA device that is
+not there is an error, never a fallback).
 """
 
 from __future__ import annotations
@@ -39,11 +44,8 @@ import sys
 import numpy as np
 import torch
 
-NOT_YET = ("not in the port yet: --plot, --plot-yaw, --animate, and the profile and "
-           "export subcommands")
 
-
-def _add_run_args(p):
+def _add_run_args(p, kernel_flags=True):
     p.add_argument("--preset", default="diff_drive",
                    choices=["diff_drive", "steering_diff_drive", "full_body"])
     p.add_argument("--steps", type=int, default=200)
@@ -54,12 +56,46 @@ def _add_run_args(p):
     p.add_argument("--device", default="cuda",
                    help="torch device; a CUDA device that is not there is an "
                         "error, never a fallback to the CPU")
-    p.add_argument("--no-kernel", action="store_true",
-                   help="run the eager tensor path instead of the fused kernel")
     p.add_argument("--course", default="preset",
                    choices=["preset", "sin", "dkan", "square", "circle"],
                    help="replace the preset's course (e.g. --course dkan "
                         "mirrors launch/dkan_diff_drive_mppi.launch)")
+    if not kernel_flags:
+        return  # export pins the eager path (torch.export cannot trace the kernel)
+    kg = p.add_mutually_exclusive_group()
+    kg.add_argument("--kernel", action="store_true",
+                    help="force the fused CUDA kernel (default: auto, the kernel "
+                         "for a built-in model on a CUDA device, "
+                         "kernels/rollout_cost.py should_use_kernel)")
+    kg.add_argument("--no-kernel", action="store_true",
+                    help="force the eager tensor path")
+
+
+def _add_plot_args(p):
+    p.add_argument("--plot", default=None,
+                   help="save the tracking figure (graph2.py layout) to this file")
+    p.add_argument("--plot-yaw", default=None,
+                   help="save the yaw-vs-path-yaw figure (graph3.py layout) to this file")
+    p.add_argument("--animate", default=None,
+                   help="write a per-cycle animation (.html or .gif) of the candidate, "
+                        "optimal and reference paths, the rviz view")
+    p.add_argument("--animate-candidates", type=int, default=24,
+                   help="candidate rollouts drawn a frame (eager path only)")
+
+
+def _kernel_choice(args, cfg, device):
+    """(use_kernel, auto) from --kernel / --no-kernel, or, with neither,
+    should_use_kernel for this model and device (auto)."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import should_use_kernel
+
+    if args.kernel or args.no_kernel:
+        return args.kernel, False
+    return should_use_kernel(cfg.model, device), True
+
+
+def _print_path(use_kernel, auto, device):
+    print(f"solver path: {'fused kernel' if use_kernel else 'eager'}"
+          f"{' (auto)' if auto else ''} on {device}")
 
 
 def _add_solver_args(p):
@@ -158,18 +194,41 @@ def cmd_run(args):
         opts["delay"] = args.delay
     if args.elite_frac is not None:
         opts["elite_frac"] = args.elite_frac
-    use_kernel = not args.no_kernel
-    print(f"solver path: {'fused kernel' if use_kernel else 'eager'} on {device}")
+    if args.animate and not (args.kernel or args.no_kernel):
+        # the candidate paths are an eager-path output, so auto stays eager
+        use_kernel, auto = False, True
+    else:
+        use_kernel, auto = _kernel_choice(args, cfg, device)
+    if args.animate:
+        if not use_kernel:
+            opts["debug_candidates"] = args.animate_candidates
+        extra["with_paths"] = True
+    _print_path(use_kernel, auto, device)
     out = run_tracking_experiment(
         cfg, sp, cp, course, num_steps=args.steps, dt=args.dt, seed=args.seed,
         use_kernel=use_kernel, solver_options=opts or None, **extra,
     )
+    if args.animate:
+        from ccv_mppi_path_tracker_tpu_torch.metrics.animate import animate_tracking
+
+        n = animate_tracking(out, args.animate)
+        print(f"animation: {args.animate} ({n} frames)")
     if args.save_ckpt:
         save_checkpoint(args.save_ckpt, cfg, out["ctrl"], sp=sp, cp=cp)
         print(f"checkpoint: {args.save_ckpt}")
     _print_metrics(out["metrics"])
     if args.record:
         _record(args, out, cfg)
+    if args.plot:
+        from ccv_mppi_path_tracker_tpu_torch.metrics.plots import plot_tracking
+
+        plot_tracking(out, out=args.plot)
+        print(f"figure: {args.plot}")
+    if args.plot_yaw:
+        from ccv_mppi_path_tracker_tpu_torch.metrics.plots import plot_yaw_comparison
+
+        plot_yaw_comparison(out, out=args.plot_yaw)
+        print(f"figure: {args.plot_yaw}")
     return 0
 
 
@@ -197,14 +256,20 @@ def cmd_compare(args):
     device, cfg, sp, cp, course = _resolve(args)
     if device is None:
         return 2
+    use_kernel, _ = _kernel_choice(args, cfg, device)
     mppi = run_tracking_experiment(cfg, sp, cp, course, num_steps=args.steps, dt=args.dt,
-                                   seed=args.seed, use_kernel=not args.no_kernel)
+                                   seed=args.seed, use_kernel=use_kernel)
     pp = run_pure_pursuit_experiment(course, num_steps=args.steps, dt=args.dt,
                                      cfg=PurePursuitConfig(v_ref=float(cp.v_ref)),
                                      device=device)
     for name, r in (("mppi", mppi), ("pure_pursuit", pp)):
         m = r["metrics"]
         print(f"{name}: RMSE={m['rmse']:.3f} max={m['max_error']:.3f}")
+    if args.plot:
+        from ccv_mppi_path_tracker_tpu_torch.metrics.plots import plot_tracking_comparison
+
+        plot_tracking_comparison({"MPPI": mppi, "Pure Pursuit": pp}, out=args.plot)
+        print(f"wrote comparison figure {args.plot}")
     return 0
 
 
@@ -222,8 +287,8 @@ def cmd_realtime(args):
     if args.record:
         os.makedirs(args.record, exist_ok=True)
         rec = os.path.join(args.record, f"{args.preset}_realtime.csv")
-    use_kernel = not args.no_kernel
-    print(f"solver path: {'fused kernel' if use_kernel else 'eager'} on {device}")
+    use_kernel, auto = _kernel_choice(args, cfg, device)
+    _print_path(use_kernel, auto, device)
     if args.pipelined or args.micro_batch > 1:
         if rec is not None:
             print("note: --record is not supported by the pipelined loop "
@@ -317,7 +382,7 @@ def cmd_fleet(args):
     states = torch.zeros((num_robots, model.num_states), device=device)
     states[:, 1] = float(course[0, 1])
     dt = torch.full((), args.dt, device=device)
-    use_kernel = not args.no_kernel
+    use_kernel, _ = _kernel_choice(args, cfg, device)
     step = build_fleet_step(cfg, use_kernel=use_kernel)
     ctrls = init_fleet(cfg, num_robots, seed=args.seed, device=device)
     traj = [states]
@@ -338,13 +403,67 @@ def cmd_fleet(args):
     return 0
 
 
+def cmd_export(args):
+    """Serialize the control step for deployment (torch.export)."""
+    from ccv_mppi_path_tracker_tpu_torch.runtime.export import export_control_step
+
+    device, cfg, sp, cp, course = _resolve(args)
+    if device is None:
+        return 2
+    blob = export_control_step(cfg, path_capacity=len(course), sp=sp, cp=cp, device=device)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    print(f"exported {cfg.model} K={cfg.num_samples} T={cfg.horizon} "
+          f"({len(blob)} bytes) -> {args.out}")
+    return 0
+
+
+def cmd_profile(args):
+    """A torch.profiler trace of control cycles (a Chrome trace) and a
+    host-side phase-time summary: one warm step, then --steps steps inside
+    the trace."""
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.solver import MPPISolver
+    from ccv_mppi_path_tracker_tpu_torch.utils.profiling import PhaseTimer, device_trace
+
+    device, cfg, sp, cp, course = _resolve(args)
+    if device is None:
+        return 2
+    model = get_model(cfg.model)
+    path = PathBuffer.from_points(course, 0.1, device=device)
+    state = torch.zeros(model.num_states, device=device)
+    state[1] = float(course[0, 1])
+    dt = torch.full((), args.dt, device=device)
+    use_kernel, auto = _kernel_choice(args, cfg, device)
+    _print_path(use_kernel, auto, device)
+    solver = MPPISolver(cfg, use_kernel=use_kernel)
+    ctrl = solver.init(args.seed, device=device)
+    timer = PhaseTimer()
+    with timer.phase("warm_step"):
+        ctrl, res = solver.step(ctrl, state, path, dt, sp, cp)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    with device_trace(args.out):
+        for _ in range(args.steps):
+            with timer.phase("control_cycle"):
+                ctrl, res = solver.step(ctrl, state, path, dt, sp, cp)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    print(json.dumps(timer.summary()))
+    print(f"trace: {os.path.join(args.out, 'trace.json')} (open in Perfetto or "
+          f"chrome://tracing)")
+    return 0
+
+
 def main(argv=None):
-    p = argparse.ArgumentParser(prog="ccv_mppi_path_tracker_tpu_torch", epilog=NOT_YET)
+    p = argparse.ArgumentParser(prog="ccv_mppi_path_tracker_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("run", help="closed-loop tracking experiment")
     _add_run_args(pr)
     _add_solver_args(pr)
+    _add_plot_args(pr)
     pr.add_argument("--record", default=None, help="log dir for CSV output")
     pr.add_argument("--save-ckpt", default=None,
                     help="save the final controller state and params (.npz)")
@@ -355,6 +474,8 @@ def main(argv=None):
 
     pc = sub.add_parser("compare", help="MPPI vs the pure-pursuit baseline")
     _add_run_args(pc)
+    pc.add_argument("--plot", default=None,
+                    help="save the two-run overlay figure (graph2.py layout) to this file")
     pc.set_defaults(fn=cmd_compare)
 
     po = sub.add_parser("course", help="generate a course CSV")
@@ -391,6 +512,17 @@ def main(argv=None):
     _add_solver_args(pf)
     pf.add_argument("--robots", type=int, default=64)
     pf.set_defaults(fn=cmd_fleet)
+
+    pp = sub.add_parser("profile", help="torch.profiler trace of control cycles")
+    _add_run_args(pp)
+    pp.add_argument("--out", default="ccv_trace",
+                    help="directory of the trace (trace.json)")
+    pp.set_defaults(fn=cmd_profile)
+
+    pe = sub.add_parser("export", help="serialize the control step (torch.export)")
+    _add_run_args(pe, kernel_flags=False)
+    pe.add_argument("--out", default="control_step.pt2")
+    pe.set_defaults(fn=cmd_export)
 
     args = p.parse_args(argv)
     return args.fn(args)

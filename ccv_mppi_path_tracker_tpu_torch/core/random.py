@@ -10,6 +10,8 @@ robot index ``b``.
 - The fused kernel draws its own normals with Philox4x32-10 keyed by
   ``(seed, step)`` at counter ``(k, t, pair, b)`` (b = 0 for one robot) and
   Box-Muller over the top 23 bits of words 0 and 1 (csrc/rollout_cost.cu).
+  A shard of a sample-sharded update starts its k at ``first_sample``, so
+  its samples are those samples of the unsharded stream.
   :func:`philox_normals` is the same generator in plain torch: its uint32
   arithmetic is emulated in int64 with ``& 0xFFFFFFFF``, so the kernel and
   its plain version draw the same samples. Robot 0 of a fleet draws the
@@ -33,18 +35,23 @@ PHILOX_ROUNDS = 10
 TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 
 
-def cycle_seed(seed: int, step: int, stream: int = 0, robot: int = 0) -> int:
-    """A 63-bit generator seed derived from (seed, step, stream, robot).
-    NumPy's SeedSequence pads its entropy with zeros to four words, so robot
-    0 gives the seed of (seed, step, stream) alone."""
-    state = np.random.SeedSequence([seed & _MASK, step & _MASK, stream, robot])
+def cycle_seed(seed: int, step: int, stream: int = 0, robot: int = 0,
+               shard: int = 0) -> int:
+    """A 63-bit generator seed derived from (seed, step, stream, robot) and,
+    for shard s > 0 of a sample-sharded update, s. NumPy's SeedSequence pads
+    its entropy with zeros to four words, so robot 0 gives the seed of
+    (seed, step, stream) alone; shard 0 adds no word, so it draws the
+    unsharded stream."""
+    words = [seed & _MASK, step & _MASK, stream, robot] + ([shard] if shard else [])
+    state = np.random.SeedSequence(words)
     return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
-def cycle_generator(seed: int, step: int, device, stream: int = 0, robot: int = 0):
+def cycle_generator(seed: int, step: int, device, stream: int = 0, robot: int = 0,
+                    shard: int = 0):
     """A fresh ``torch.Generator`` on ``device`` for one cycle's draws."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(cycle_seed(seed, step, stream, robot))
+    gen.manual_seed(cycle_seed(seed, step, stream, robot, shard))
     return gen
 
 
@@ -72,18 +79,23 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_normals(seed: int, step: int, num_samples: int, tm1: int,
-                   u_dim: int, robot=0, device=None, dtype=torch.float32):
+def philox_normals(seed, step, num_samples: int, tm1: int,
+                   u_dim: int, robot=0, device=None, dtype=torch.float32,
+                   first_sample: int = 0):
     """Standard normals (T-1, K, U) of the kernel's RNG mode: entry
-    (t, k, j) comes from counter (k, t, j // 2, robot) under key (seed,
-    step), the cosine half of Box-Muller for even j and the sine half for
-    odd j. ``robot`` is an int, or a 1-D tensor of robot indices: then the
-    result is (B, T-1, K, U), row b the normals of robot ``robot[b]``."""
+    (t, k, j) comes from counter (first_sample + k, t, j // 2, robot) under
+    key (seed, step), the cosine half of Box-Muller for even j and the sine
+    half for odd j, so the draw at ``first_sample`` s is samples s ... s+K-1
+    of the draw at 0. ``robot`` is an int, or a 1-D tensor of robot indices:
+    then the result is (B, T-1, K, U), row b the normals of robot
+    ``robot[b]``. ``seed`` and ``step`` may be 0-d int64 tensors (an
+    exported step draws its noise from its inputs)."""
     n_pairs = (u_dim + 1) // 2
     rob = torch.as_tensor(robot, dtype=torch.int64, device=device)
     lead = tuple(rob.shape)
     t = torch.arange(tm1, dtype=torch.int64, device=device).view(tm1, 1, 1)
-    k = torch.arange(num_samples, dtype=torch.int64, device=device).view(1, -1, 1)
+    k = (torch.arange(num_samples, dtype=torch.int64, device=device)
+         + first_sample).view(1, -1, 1) & _MASK
     p = torch.arange(n_pairs, dtype=torch.int64, device=device).view(1, 1, -1)
     shape = lead + (tm1, num_samples, n_pairs)
     x0, x1, _, _ = philox4x32(

@@ -82,14 +82,16 @@
 //   nor get weight; their controls are finite (the noise reads 0), so a zero
 //   weight times a tile entry stays 0.
 // - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, b)
-//   with b the robot (0 for one robot); Box-Muller over the top 23 bits of
-//   words 0 and 1 gives the normals of controls 2*pair (cosine) and
-//   2*pair+1 (sine). (U+1)/2 pairs per row: for U = 3 the fourth normal is
-//   drawn and dropped. Every normal is a pure function of (seed, step, b, k,
+//   with k the sample and b the robot (0 for one robot); Box-Muller over
+//   the top 23 bits of words 0 and 1 gives the normals of controls 2*pair
+//   (cosine) and 2*pair+1 (sine). (U+1)/2 pairs per row: for U = 3 the
+//   fourth normal is drawn and dropped. Every normal is a pure function of (seed, step, b, k,
 //   t, j), independent of the block size, the form and B; robot 0 of a
 //   fleet draws the single-robot stream. A launch may start at another
 //   robot index (first_robot), so robot b of a fleet is one launch of its
-//   own too.
+//   own too, and at another sample index (first_sample: counter word 0 is
+//   first_sample + k), so the shard of samples [s, s + K) of a sharded
+//   update draws exactly those samples of the unsharded stream.
 // - rate_limited_steering's steer and rate limits come in as two arguments.
 // - Precise logf/expf/sinf/cosf: no fast-math.
 //
@@ -200,6 +202,7 @@ struct RowSampler {
   int num_samples, k, s, threads;
   bool valid, steer_off;
   uint32_t seed, step, robot;
+  uint32_t ctr;         // Philox counter word 0: first_sample + k
   float eps[U];
 
   __device__ __forceinline__ void row(int t, float u[U]) {
@@ -212,7 +215,7 @@ struct RowSampler {
     } else {
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
-        uint32_t c0 = (uint32_t)k, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = robot;
+        uint32_t c0 = ctr, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = robot;
         philox4x32_10(c0, c1, c2, c3, seed, step);
         const float u1 = (float)(c0 >> 9) * kInv2p23;
         const float u2 = (float)(c1 >> 9) * kInv2p23;
@@ -489,8 +492,8 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
                     float* __restrict__ u2_num,
                     int num_samples, int horizon, int num_ref4, int smem_total,
                     uint32_t seed, uint32_t step, uint32_t first_robot,
-                    int steer_off, int accumulate, float steer_max,
-                    float rate_max) {
+                    uint32_t first_sample, int steer_off, int accumulate,
+                    float steer_max, float rate_max) {
   constexpr int U = Dims<M>::U;
   constexpr int S = Dims<M>::S;
   extern __shared__ float4 smem4[];
@@ -548,6 +551,7 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
   smp.seed = seed;
   smp.step = step;
   smp.robot = first_robot + (uint32_t)robot;
+  smp.ctr = first_sample + (uint32_t)k;
 
   // --- rollout + cost, or the costs of an earlier pass -------------------
   float cost;
@@ -702,8 +706,8 @@ int launch(const float* u_prev, const float* sigma, const float* u_min,
            float* costs, float* partials, unsigned int* counters, float* u_num,
            float* norm, float* u2_num, int num_samples, int horizon,
            int num_ref4, unsigned int seed, unsigned int step,
-           unsigned int first_robot, int steer_off, int accumulate,
-           float steer_max, float rate_max, int num_robots, int threads,
+           unsigned int first_robot, unsigned int first_sample, int steer_off,
+           int accumulate, float steer_max, float rate_max, int num_robots, int threads,
            cudaStream_t stream) {
   constexpr int U = Dims<M>::U;
   const dim3 grid((num_samples + threads - 1) / threads, num_robots);
@@ -720,8 +724,8 @@ int launch(const float* u_prev, const float* sigma, const float* u_min,
   rollout_cost_kernel<M, M2, kStore><<<grid, threads, smem, stream>>>(
       u_prev, sigma, u_min, u_max, reinterpret_cast<const float4*>(refc), state0,
       scal, noise, costs_in, costs, partials, counters, u_num, norm, u2_num,
-      num_samples, horizon, num_ref4, floats, seed, step, first_robot, steer_off,
-      accumulate, steer_max, rate_max);
+      num_samples, horizon, num_ref4, floats, seed, step, first_robot, first_sample,
+      steer_off, accumulate, steer_max, rate_max);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -808,14 +812,16 @@ int rollout_cost_blocks_per_sm(int model, int store, int second_moment, int thre
 // (left at zero again), and the kernel writes u_num (B, T-1, U), norm
 // (B,) and, with second_moment, u2_num (B, T-1, U). num_robots = B: every
 // per-robot operand has a leading (B,) axis; sigma, u_min and u_max are
-// shared. Robot b draws the RNG stream of robot index first_robot + b.
+// shared. Robot b draws the RNG stream of robot index first_robot + b, and
+// sample k the normals of sample index first_sample + k.
 int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
                  const float* u_min, const float* u_max, const float* refc,
                  const float* state0, const float* scal, const float* noise,
                  const float* costs_in, float* costs, float* partials,
                  unsigned int* counters, float* u_num, float* norm, float* u2_num,
                  int num_samples, int horizon, int num_ref4, unsigned int seed,
-                 unsigned int step, unsigned int first_robot, int steer_off,
+                 unsigned int step, unsigned int first_robot,
+                 unsigned int first_sample, int steer_off,
                  int accumulate, float steer_max, float rate_max, int num_robots,
                  int second_moment, int threads, void* stream) {
   if (num_samples < 1 || horizon < 2 || num_ref4 < 4 || num_ref4 % 4 != 0 ||
@@ -833,8 +839,8 @@ int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
 #define ROLLOUT_COST_ARGS                                                       \
   u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,      \
       partials, counters, u_num, norm, u2_num, num_samples, horizon, num_ref4,  \
-      seed, step, first_robot, steer_off, accumulate, steer_max, rate_max,      \
-      num_robots, threads, s
+      seed, step, first_robot, first_sample, steer_off, accumulate, steer_max,  \
+      rate_max, num_robots, threads, s
 #define ROLLOUT_COST_CASE(M)                                                    \
   case M:                                                                       \
     if (store) {                                                                \

@@ -47,6 +47,17 @@ SOURCE = "ccv_mppi_path_tracker_tpu_torch/csrc/rollout_cost.cu"
 # point (csrc/rollout_cost.cu ModelId).
 KERNEL_MODELS = ("unicycle", "steering_unicycle", "rate_limited_steering", "full_body")
 
+def should_use_kernel(model: str, device) -> bool:
+    """The use_kernel="auto" policy: the fused kernel iff ``device`` is a
+    CUDA device and ``model`` is one the kernel implements (a user-registered
+    model takes the eager path). No size enters: chip_smoke.py phase 26 found
+    the kernel-lean update faster than the eager-lean one at every point of
+    its grid, K 16 ... 102400 x T 5 ... 30 (K*(T-1) 64 ... 2969600), for every
+    model, on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md section
+    5), and fails should a crossover appear there."""
+    return torch.device(device).type == "cuda" and model in KERNEL_MODELS
+
+
 # Scalar slots, the JAX package's pack_scalars layout: [dt, v_ref, path_w,
 # v_w, zmp_w, roll_v_w, back_w, yaw_w, yaw_ref0, mass, base2com, Ixx, Iyy,
 # Izz, gravity_z, noise_beta, lam, cost_thresh]
@@ -122,7 +133,7 @@ def fused_sample_rollout_cost_reference(
     num_samples: int, model: str, steer_off: bool = False,
     noise: Optional[torch.Tensor] = None, accumulate: bool = True,
     costs_in: Optional[torch.Tensor] = None, second_moment: bool = False,
-    robot: int = 0,
+    robot: int = 0, first_sample: int = 0,
 ):
     """Plain PyTorch version of the kernel: same arguments and outputs.
 
@@ -140,7 +151,8 @@ def fused_sample_rollout_cost_reference(
         if noise is None:
             robots = robot + torch.arange(num_robots, device=u_prev.device)
             noise = philox_normals(seed, step, num_samples, tm1, u_dim, robot=robots,
-                                   device=u_prev.device, dtype=u_prev.dtype)
+                                   device=u_prev.device, dtype=u_prev.dtype,
+                                   first_sample=first_sample)
 
         def one(up, ref, s0, sc, nz, cin):
             out = _reference_one(up, sigma, u_min, u_max, ref, s0, sc, num_samples,
@@ -154,7 +166,8 @@ def fused_sample_rollout_cost_reference(
         tm1, u_dim = u_prev.shape
         if noise is None:
             noise = philox_normals(seed, step, num_samples, tm1, u_dim, robot=robot,
-                                   device=u_prev.device, dtype=u_prev.dtype)
+                                   device=u_prev.device, dtype=u_prev.dtype,
+                                   first_sample=first_sample)
         out = _reference_one(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
                              num_samples, model, steer_off, noise, accumulate,
                              costs_in, want_m2)
@@ -520,7 +533,7 @@ def _bind(lib):
         return lib
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     fn = lib.rollout_cost
-    fn.argtypes = [i, i] + [p] * 15 + [i, i, i, u, u, u, i, i, f, f, i, i, i, p]
+    fn.argtypes = [i, i] + [p] * 15 + [i, i, i, u, u, u, u, i, i, f, f, i, i, i, p]
     fn.restype = i
     for name in ("rollout_cost_max_threads", "rollout_cost_num_scalars"):
         getattr(lib, name).argtypes = []
@@ -584,7 +597,7 @@ class KernelLaunch:
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
                  step, num_samples, model, steer_off=False, noise=None,
                  accumulate=True, costs_in=None, second_moment=False, robot=0,
-                 form=None, threads=None):
+                 first_sample=0, form=None, threads=None):
         from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
         self.lib = _bind(load_library("rollout_cost"))
@@ -641,7 +654,8 @@ class KernelLaunch:
         self._tail = (
             ptr(self.u_num), ptr(self.norm), ptr(self.u2_num), num_samples,
             self.tm1 + 1, refc.shape[-2], seed & 0xFFFFFFFF, step & 0xFFFFFFFF,
-            robot & 0xFFFFFFFF, int(steer_off), int(accumulate), steer_max, rate_max,
+            robot & 0xFFFFFFFF, first_sample & 0xFFFFFFFF, int(steer_off),
+            int(accumulate), steer_max, rate_max,
             self.num_robots, int(m2), self.shape.threads,
         )
 
@@ -673,7 +687,7 @@ def fused_sample_rollout_cost(
     num_samples: int, model: str, steer_off: bool = False,
     noise: Optional[torch.Tensor] = None, accumulate: bool = True,
     costs_in: Optional[torch.Tensor] = None, second_moment: bool = False,
-    robot: int = 0,
+    robot: int = 0, first_sample: int = 0,
 ):
     """Sample, roll out and cost K trajectories of ``model`` and accumulate
     the softmax-weighted update, in one kernel.
@@ -682,7 +696,10 @@ def fused_sample_rollout_cost(
     reference window; state0: (S,); scal: (NSCAL,) from :func:`pack_scalars`,
     whose last slot is the elite threshold (+inf: no mask). seed/step: the
     cycle's Philox key (RNG mode, ``noise=None``); robot: the robot index of
-    the RNG counter (0 for one robot). noise: optional standard normals
+    the RNG counter (0 for one robot); first_sample: the sample index of the
+    RNG counter's first sample (a shard of a sample-sharded update draws
+    samples first_sample ... first_sample+K-1 of the unsharded stream).
+    noise: optional standard normals
     (T-1, K, U), the layout of ``sample_controls``. All float32 on one
     device; U and S are the registered model's.
 
@@ -708,7 +725,7 @@ def fused_sample_rollout_cost(
                   num_samples, model, noise, accumulate, costs_in)
     args = (u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
             num_samples, model, steer_off, noise, accumulate, costs_in,
-            second_moment, robot)
+            second_moment, robot, first_sample)
     if u_prev.device.type == "cpu":
         return fused_sample_rollout_cost_reference(*args)
     if u_prev.device.type != "cuda":

@@ -35,3 +35,16 @@ def tracking_metrics(robot_xy, path_xy, dt: float = 0.1) -> dict:
         "rmse": float(np.sqrt(np.mean(np.square(errors)))),
         "errors": errors,
     }
+
+
+def curvature(path_xy: np.ndarray) -> np.ndarray:
+    """Signed curvature along a course (offline analysis parity with
+    src/calc_curveture.py). Finite-difference form; endpoints are zero."""
+    p = np.asarray(path_xy, np.float64)
+    d1 = np.gradient(p, axis=0)
+    d2 = np.gradient(d1, axis=0)
+    num = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+    den = (d1[:, 0] ** 2 + d1[:, 1] ** 2) ** 1.5
+    with np.errstate(divide="ignore", invalid="ignore"):
+        k = np.where(den > 0, num / den, 0.0)
+    return k

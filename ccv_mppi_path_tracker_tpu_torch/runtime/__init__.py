@@ -1,7 +1,7 @@
 """Plant, closed-loop drivers and checkpoint/resume. The serving loops
 (``runtime/realtime.py``), the host runtime (``runtime/native.py``), the
-input gate, estimation, synthetic sensors and the pure-pursuit baseline are
-imported from their modules."""
+input gate, estimation, synthetic sensors, the pure-pursuit baseline and the
+export (``runtime/export.py``) are imported from their modules."""
 
 from ccv_mppi_path_tracker_tpu_torch.runtime.checkpoint import (
     load_checkpoint,

@@ -44,6 +44,7 @@ def simulate(
     use_kernel: bool = False,
     solver_options: Optional[dict] = None,
     with_stats: bool = True,
+    with_paths: bool = False,
 ):
     """Run ``num_steps`` control cycles against the plant.
 
@@ -54,7 +55,10 @@ def simulate(
     mean_cost, ess, and elite_thresh or sigma_suggest where the options
     compute them; tensors on the device. ``with_stats=False`` runs the lean
     step (``mppi_step(..., lean=True)``) and logs the state and u0 only;
-    u0 is the same either way.
+    u0 is the same either way. ``with_paths`` also logs each cycle's planned
+    path "opt_xy" (N, T, 2) and reference window "ref_xy" (N, T, 2); with
+    ``solver_options={"debug_candidates": M}`` the stats add the sampled
+    paths "candidates" (N, M, T, 2), what metrics/animate.py draws.
 
     solver_options: extra keyword options of every cycle's ``mppi_step``
     (shift_warm_start, delay, elite_frac, refine_steps, ...).
@@ -81,12 +85,15 @@ def simulate(
             generator = cycle_generator(ctrl.seed, ctrl.step, state.device, stream=1)
         ctrl, res = mppi_step(
             cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-            use_kernel=use_kernel, lean=not with_stats, **opts,
+            use_kernel=use_kernel, lean=not (with_stats or with_paths), **opts,
         )
         if elite_stale:
             opts["elite_stale_thresh"] = res.stats["elite_thresh"]
         state = plant.step(state, res.u0, dt, generator=generator)
-        logs.append({"state": state, "u0": res.u0, **(res.stats if with_stats else {})})
+        log = {"state": state, "u0": res.u0, **(res.stats if with_stats else {})}
+        if with_paths:
+            log.update(opt_xy=res.opt_states[:, :2], ref_xy=res.ref.xy)
+        logs.append(log)
     return ctrl, {k: torch.stack([log[k] for log in logs]) for k in logs[0]}
 
 
@@ -199,6 +206,7 @@ def run_tracking_experiment(
     ctrl: Optional[ControllerState] = None,
     state0=None,
     solver_options: Optional[dict] = None,
+    with_paths: bool = False,
 ):
     """Run a tracking experiment on the device of ``sp``; return logs (the
     state, u0 and solver stats of every cycle, as NumPy arrays) and the
@@ -212,7 +220,7 @@ def run_tracking_experiment(
     median segment length of the course's first points. ``ctrl`` and
     ``state0`` replace the fresh warm start and the start pose: pass a
     restored ControllerState (runtime/checkpoint.py) to resume a run.
-    ``solver_options`` go to :func:`simulate`.
+    ``solver_options`` and ``with_paths`` go to :func:`simulate`.
     """
     device, dtype = sp.lam.device, sp.lam.dtype
     model = get_model(cfg.model)
@@ -233,7 +241,7 @@ def run_tracking_experiment(
         cfg, ctrl, torch.as_tensor(state0, dtype=dtype, device=device), path,
         torch.full((), dt, dtype=dtype, device=device), sp, cp,
         model_params=model_params, plant=plant, num_steps=num_steps,
-        use_kernel=use_kernel, solver_options=solver_options,
+        use_kernel=use_kernel, solver_options=solver_options, with_paths=with_paths,
     )
     logs = {k: v.cpu().numpy() for k, v in logs.items()}
     xy = np.concatenate([state0[None, :2], logs["state"][:, :2]], axis=0)

@@ -13,22 +13,28 @@ or, with ``use_kernel=True``, all of it in the fused kernel
 (kernels/rollout_cost.py); ``refine_steps`` then polishes the update through
 the rollout (diff/gradients.py). Everything stays on the device of ``state``; the
 step reads nothing back to the host (the cycle's seed and counter are host
-integers in ControllerState).
+integers in ControllerState). With ``group`` the same function is one shard of
+a sample-sharded update (parallel/sharded.py): the reductions become
+collectives over the shards.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
+from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.diff.gradients import gauss_newton_refine, gradient_refine
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     fused_sample_rollout_cost,
     pack_scalars,
+    should_use_kernel,
 )
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
@@ -39,11 +45,13 @@ from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
 )
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import STEER_DIM, sample_controls
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import (
+    all_reduce,
     elite_threshold,
     softmax_weights,
     weighted_update,
 )
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_reference
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import capturable, graphed_call
 
 
 def mppi_step(
@@ -66,6 +74,10 @@ def mppi_step(
     refine_step_size: float = 0.02,
     refine_method: str = "gradient",
     lean: bool = False,
+    debug_candidates: int = 0,
+    group=None,
+    num_samples: Optional[int] = None,
+    first_sample: int = 0,
 ):
     """Run one MPPI control cycle. Returns (next ControllerState, StepResult).
 
@@ -105,9 +117,25 @@ def mppi_step(
         guarded Gauss-Newton steps on the least-squares cost.
     lean: return only u_opt/u0 (ref/opt_states None; stats empty except
         elite_thresh and sigma_suggest, which a caller feeds back).
+    debug_candidates: also return the xy paths of the first M sampled
+        rollouts in stats["candidates"] (M, T, 2), the reference's candidate
+        path display (src/diff_drive_mppi.cpp:265-294); the eager path only
+        (the kernel keeps no rollout), and not with ``lean``.
+    group: a ``torch.distributed`` process group over the sample shards
+        (parallel/sharded.py). This call is one shard: it runs
+        ``num_samples`` samples (the shard's K/N; default cfg.num_samples)
+        starting at sample index ``first_sample``, and every reduction is a
+        collective, so u_opt and the stats are those of all K samples and
+        equal on every rank. The kernel draws samples first_sample ...
+        first_sample + K/N - 1 of the unsharded Philox stream; the eager
+        path draws from the generator of (seed, step, shard = this rank).
+        ``noise`` is then this shard's (T-1, K/N, U).
     """
     if elite_stale_thresh is not None and elite_frac is None:
         raise ValueError("elite_stale_thresh requires elite_frac (for the next threshold)")
+    if lean and debug_candidates:
+        raise ValueError("lean drops the debug outputs: no debug_candidates with lean")
+    k = cfg.num_samples if num_samples is None else num_samples
     model = get_model(cfg.model)
     if model_params is None and model.default_params is not None:
         model_params = model.default_params(device=state.device, dtype=state.dtype)
@@ -122,9 +150,9 @@ def mppi_step(
     if use_kernel:
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
-        kw = dict(seed=ctrl.seed, step=ctrl.step, num_samples=cfg.num_samples,
-                  model=cfg.model, steer_off=cfg.steer_off, noise=noise,
-                  second_moment=adapt_sigma)
+        kw = dict(seed=ctrl.seed, step=ctrl.step, num_samples=k, model=cfg.model,
+                  steer_off=cfg.steer_off, noise=noise, second_moment=adapt_sigma,
+                  first_sample=first_sample)
         scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta, sp.lam,
                             cost_thresh=elite_stale_thresh)
         costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
@@ -132,15 +160,18 @@ def mppi_step(
         if lean:
             stats = {}
             if elite_frac is not None:
-                stats["elite_thresh"] = elite_threshold(costs, elite_frac)
+                stats["elite_thresh"] = elite_threshold(costs, elite_frac, group)
         else:
             stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
-                                    elite_thresh=elite_stale_thresh)[1]
+                                    elite_thresh=elite_stale_thresh, group=group)[1]
         if two_pass:
             scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta,
                                 sp.lam, cost_thresh=stats["elite_thresh"])
             _, u_num, norm, *u2_num = fused_sample_rollout_cost(
                 *kargs, scal, costs_in=costs, **kw)
+        if group is not None:
+            u_num, norm, u2_num = _sum_shards(costs, stats.get("min_cost"), sp.lam,
+                                              u_num, norm, u2_num, group)
         safe_norm = norm
         if elite_stale_thresh is not None:
             empty = norm <= 0.0
@@ -154,12 +185,12 @@ def mppi_step(
     else:
         generator = None
         if noise is None:
-            generator = cycle_generator(ctrl.seed, ctrl.step, state.device)
+            shard = 0 if group is None else dist.get_rank(group)
+            generator = cycle_generator(ctrl.seed, ctrl.step, state.device, shard=shard)
         u_samples = sample_controls(
-            u_mean, sp, cfg.num_samples, steer_off=cfg.steer_off, noise=noise,
-            generator=generator,
+            u_mean, sp, k, steer_off=cfg.steer_off, noise=noise, generator=generator,
         )
-        state0 = state.expand(cfg.num_samples, -1)
+        state0 = state.expand(k, -1)
         if cfg.model in CLOSED_FORM_MODELS:
             states = rollout_closed_form(cfg.model, state0, u_samples, dt)
         else:
@@ -169,13 +200,15 @@ def mppi_step(
             aux = model.aux_from_rollout(states, u_samples, dt, model_params)
         costs = trajectory_costs(cfg.model, states, u_samples, aux, ref, cp)
         weights, stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
-                                         elite_thresh=elite_stale_thresh)
-        u_opt = weighted_update(weights, u_samples)
+                                         elite_thresh=elite_stale_thresh, group=group)
+        if debug_candidates:
+            stats["candidates"] = states[:, :debug_candidates, :2].transpose(0, 1)
+        u_opt = weighted_update(weights, u_samples, group)
         if elite_stale_thresh is not None:
             u_opt = torch.where(stats["elite_stale_empty"], u_mean, u_opt)
         if adapt_sigma:
             stats["sigma_suggest"] = _sigma_suggest(
-                weighted_update(weights, u_samples * u_samples), u_opt)
+                weighted_update(weights, u_samples * u_samples, group), u_opt)
     if adapt_sigma and elite_stale_thresh is not None:
         # an empty stale cycle carries no information: suggest the
         # configured sigma, not a value that would poison the feedback
@@ -197,6 +230,24 @@ def mppi_step(
     )
 
 
+def _sum_shards(costs, global_min, lam, u_num, norm, u2_num, group):
+    """The kernel's update of one shard, finished under the shard's own
+    minimum cost, rescaled to the global minimum by exp(-(min - global
+    min)/lambda) and summed over the shards in one all-reduce (the JAX
+    package's psums, solver/mppi.py:213-218). ``global_min`` None: found
+    here by an all-reduce MIN. Returns (u_num, norm, [u2_num] or [])."""
+    local_min = torch.amin(costs)
+    if global_min is None:
+        global_min = all_reduce(local_min, dist.ReduceOp.MIN, group)
+    rescale = torch.exp(-(local_min - global_min) / lam)
+    parts = [u_num, norm.reshape(1)] + list(u2_num)
+    flat = all_reduce(torch.cat([p.reshape(-1) for p in parts]) * rescale,
+                      dist.ReduceOp.SUM, group)
+    nu = u_num.numel()
+    u2 = [flat[nu + 1:].reshape(u_num.shape)] if u2_num else []
+    return flat[:nu].reshape(u_num.shape), flat[nu], u2
+
+
 def _sigma_suggest(m2, u_opt):
     """Per-channel std of the weighted sample distribution, averaged over t:
     sqrt(mean_t max(E_w[u^2] - u_opt^2, 0))."""
@@ -205,7 +256,22 @@ def _sigma_suggest(m2, u_opt):
 
 
 def _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
-    """The refine stage of ``mppi_step`` (diff/gradients.py)."""
+    """The refine stage of ``mppi_step`` (diff/gradients.py). On the card,
+    for a built-in model, it runs as a CUDA graph captured on its first
+    call for these shapes and options (utils/cuda_graph.py): eagerly it is
+    about 1700 small launches (Gauss-Newton, full_body), which the host
+    takes far longer to issue than the card to run."""
+    args = (u_opt, state, ref, dt, sp, cp, model_params)
+    stage = functools.partial(refine_stage, cfg, steps=steps, step_size=step_size,
+                              method=method)
+    if cfg.model in CLOSED_FORM_MODELS and capturable(args):
+        return graphed_call(("refine", cfg, steps, step_size, method), stage, args)
+    return stage(*args)
+
+
+def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
+    """The refine stage, eagerly: ``steps`` refinement steps of ``method``,
+    the steer channel held at zero under ``cfg.steer_off``."""
     if method == "gauss_newton":
         u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
                                     model_params=model_params, num_steps=steps)
@@ -235,7 +301,13 @@ class MPPISolver:
     """One configuration's control step: construct with a config, call
     :meth:`step` each control cycle with the measured state."""
 
-    def __init__(self, cfg: SolverConfig, use_kernel: bool = False):
+    def __init__(self, cfg: SolverConfig, use_kernel=False, device=None):
+        """use_kernel: False (the eager path), True (the fused kernel) or
+        "auto", resolved here by :func:`kernels.rollout_cost.should_use_kernel`
+        for ``device`` (None: the card): the kernel iff the device is CUDA
+        and the model is a built-in one."""
+        if use_kernel == "auto":
+            use_kernel = should_use_kernel(cfg.model, resolve_device(device))
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.model = get_model(cfg.model)

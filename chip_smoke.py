@@ -104,20 +104,49 @@ failure ending the run with a non-zero exit:
      full); a 200-cycle Gauss-Newton-refined full_body run_tracking_experiment
      (RMSE < 0.15 m, exactly 200 launches, finite ess logged); CUDA-event
      times and profiled device launches of the kernel-lean update with and
-     without each refinement, the Gauss-Newton one under the 100 ms period;
+     without each refinement, the Gauss-Newton one under the 100 ms period.
+     On the card the refine stage is a CUDA graph's replay
+     (utils/cuda_graph.py): held against the eager stage (float64 rtol
+     1e-8), and both timed;
  23. the training side on the card at the JAX package's script sizes: the
      sysid command (gains within rtol 1e-3), fit_full_body_params (base2com
      within 2 %), the chunked rollout gradient (num_chunks 1, 4, 8 equal at
      float64), collect_imitation_data + fit_sampler (the loss halves, the
      proposal wins 5 of 6 cold starts), meta_train (the loss falls, the rule
-     beats vanilla on held-out poses); the wall time of each.
+     beats vanilla on held-out poses); the wall time of each;
+ 24. the sample offset (the Philox counter's first_sample), every model at
+     K=102400 T=30: the kernel at first_sample != 0 vs its plain version, and
+     two launches of K/2 at first_sample 0 and K/2 bit-equal to one launch of
+     K; CUDA-event times at offset 0, at the offset, and of one shard;
+ 25. the sharded step (parallel/): world size 1 over NCCL, full_body at the
+     flagship, kernel and eager, vanilla, elite 0.1 and adapt_sigma, each
+     bit-equal to mppi_step and free of host syncs; world size 2, two
+     processes of scripts/torch_multiprocess_worker.py over gloo sharing the
+     card: the shards' costs bit-equal to one launch, u_opt within the kernel
+     gate of the one-card update, min_cost equal, the elite threshold
+     bit-equal, a 200-cycle sharded loop (RMSE < 0.15 m, 200 launches a rank);
+     the sharded update's time beside the unsharded one;
+ 26. use_kernel="auto": kernel-lean vs eager-lean updates, K 16 ... 102400 x T
+     5, 15, 30, every model; at every point the arm auto picks
+     (kernels/rollout_cost.py should_use_kernel) must be the faster or within
+     10 % of it; the crossover the grid implies is printed; `run` with no flag
+     at the flagship takes the kernel; examples/custom_model_torch.py on the
+     card (auto: eager, no launch; RMSE < 0.15 m);
+ 27. export: the exported full_body flagship step against the kernel path at
+     the same seed and step (kernel gate) and the eager step on the same
+     Philox normals (rtol 1e-5); the `export` command;
+ 28. profile: the `profile` command's trace holds one rollout_cost kernel
+     event per traced step (and the launch count adds the warm step);
+     simulate(with_paths=True) logs on the card, eager with candidates and
+     kernel, finite; no figure (the card's machine has no matplotlib).
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
 
 Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
-"training": ...}). The last three lines are the kernels JSON line (each entry with its bound:
+"training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
+...}. The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
 the main-path run's count over its cycles), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
@@ -127,9 +156,12 @@ prints no result.
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -273,6 +305,59 @@ SIGMA_RTOL, SIGMA_ATOL = 2e-4, 1e-6  # tests/test_solver_options.py:137-139
 # sums of up to a few thousand rows in another order, and the two-level
 # rescaling exp(a)*exp(b) for exp(a+b)
 FINISH_RTOL = 1e-5
+OFFSET = 3 * K_MAIN + 17   # phase 24's first_sample, past every sample drawn before
+TIE = 0.10                 # phase 26: arms within 10 % of each other are a tie
+AUTO_K = (16, 64, 256, 1024, 4096, 10000, 32768, 102400)   # phase 26's grid
+AUTO_T = (5, 15, 30)
+PROFILE_STEPS = 20
+WORKER = ROOT / "scripts" / "torch_multiprocess_worker.py"
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_workers(mode, world_size, device, tmp):
+    """scripts/torch_multiprocess_worker.py in ``world_size`` processes over
+    gloo on ``device``; their npz results. Every process is waited for, and
+    killed if it outlives the wait."""
+    import numpy as np
+
+    port, outs, procs, logs = free_port(), [], [], []
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    try:
+        for r in range(world_size):
+            outs.append(tmp / f"{mode}{r}.npz")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(WORKER), "--mode", mode, "--coordinator",
+                 f"localhost:{port}", "--world-size", str(world_size), "--rank", str(r),
+                 "--out", str(outs[-1]), "--device", device, "--backend", "gloo"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0, f"worker {r} of {world_size} failed:\n{log[-3000:]}")
+    return [dict(np.load(o)) for o in outs]
+
+
+def crossover(rows):
+    """The smallest K*(T-1) of ``rows`` [(K*(T-1), K, T, kernel ms, eager
+    ms)], sorted by K*(T-1), from which on the kernel was the faster at
+    every point; None where it was the faster at every point of the grid;
+    one past the last point where it never was."""
+    cut = rows[-1][0] + 1
+    for props, _, _, kern, eager in reversed(rows):
+        if kern >= eager:
+            return cut
+        cut = props
+    return None
 
 
 def main():
@@ -322,7 +407,8 @@ def main():
         simulate,
     )
     from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
-    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _refine, _sigma_suggest
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _refine, _sigma_suggest, refine_stage
+    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -869,7 +955,7 @@ def main():
         counters_zero(f"{preset} fleet")
 
     # --- 14. the fleet command --------------------------------------------
-    for extra in ([], ["--no-kernel"]):
+    for extra in (["--kernel"], ["--no-kernel"]):
         argv = ["fleet", "--preset", "diff_drive", "--robots", "64", "--steps", str(STEPS),
                 *extra]
         fused_sample_rollout_cost.launches = 0
@@ -881,7 +967,7 @@ def main():
         worst = float(lines[1].split("worst=")[1])
         print(f"[14 cli] {' '.join(argv)}: rc {rc}, {' | '.join(lines)}, kernel "
               f"launches {n}", flush=True)
-        require(rc == 0 and worst < 0.15 and n == (0 if extra else STEPS),
+        require(rc == 0 and worst < 0.15 and n == (0 if "--no-kernel" in extra else STEPS),
                 f"cli {' '.join(argv)}")
         counters_zero(f"cli {' '.join(argv)}")
 
@@ -1306,24 +1392,24 @@ def main():
         return lines
 
     lines = cli_run(["realtime", "--preset", "full_body", "--hz", "10", "--steps", "30",
-                     "--num-samples", str(K_MAIN), "--horizon", str(T_MAIN)], 31)
+                     "--num-samples", str(K_MAIN), "--horizon", str(T_MAIN), "--kernel"], 31)
     require(float(lines[3].split(": ")[1]) < 0.15 and lines[4].startswith("rate: 30 cycles"),
             "cli realtime full_body")
     lines = cli_run(["realtime", "--pipelined", "--micro-batch", "4", "--hz", "50", "--steps",
-                     "48"], 52)
+                     "48", "--kernel"], 52)
     require(lines[1].startswith("pipelined: micro_batch=4") and
             lines[-1].startswith("rate: 48 cycles"), "cli realtime --pipelined")
-    lines = cli_run(["compare", "--steps", str(STEPS)], STEPS)
+    lines = cli_run(["compare", "--steps", str(STEPS), "--kernel"], STEPS)
     rmse_mppi, rmse_pp = (float(line.split("RMSE=")[1].split()[0]) for line in lines)
     require(rmse_mppi < rmse_pp, f"cli compare: MPPI {rmse_mppi} vs pure pursuit {rmse_pp}")
     lines = cli_run(["course", "--kind", "dkan", "--out", str(tmp / "dkan.csv")], 0)
     require(lines[0].startswith("dkan course: "), "cli course")
     ck = tmp / "cli.npz"
     lines = cli_run(["run", "--record", str(tmp / "log"), "--course", "dkan", "--save-ckpt",
-                     str(ck), "--steps", str(STEPS)], STEPS)
+                     str(ck), "--steps", str(STEPS), "--kernel"], STEPS)
     require(lines[-1].startswith("recorded: ") and float(lines[-2].split(": ")[1]) < 0.15,
             "cli run --record --course dkan --save-ckpt")
-    lines = cli_run(["run", "--resume-ckpt", str(ck), "--steps", str(STEPS)], STEPS)
+    lines = cli_run(["run", "--resume-ckpt", str(ck), "--steps", str(STEPS), "--kernel"], STEPS)
     require(lines[0] == f"resumed from {ck} (cycle {STEPS})", "cli run --resume-ckpt")
     shutil.rmtree(tmp)
     print(json.dumps({"serving": serving}))
@@ -1370,6 +1456,15 @@ def main():
                        float((a - res.u_opt.double().cpu()).abs().max()))
             require(excess <= 0.0, f"{model} {m} refine stage: card and CPU differ beyond "
                                    f"rtol 1e-8 at float64 (max |d| {errs[m][0]})")
+            # the card's _refine is a CUDA graph's replay: against the eager stage
+            require(any(key[0] == ("refine", cfg, 3, 0.02, m) for key in cuda_graph._GRAPHS),
+                    f"{model} {m}: the refine stage was not captured as a CUDA graph")
+            eager = refine_stage(cfg, *stage_inputs(torch.float64, dev), 3, 0.02, m).cpu()
+            graph_d = float((a - eager).abs().max())
+            require(bool(((a - eager).abs() <= 1e-8 * eager.abs() + 1e-12).all()),
+                    f"{model} {m}: the graphed refine stage differs from the eager one "
+                    f"beyond rtol 1e-8 at float64 (max |d| {graph_d})")
+            errs[m] += (graph_d,)
         # (b) the trajectory cost of the update, unrefined and refined, on the card
         args32 = stage_inputs(torch.float32, dev)
         cost_fn = make_trajectory_cost(cfg)
@@ -1379,8 +1474,9 @@ def main():
             costs[m] = float(cost_fn(u, *args32[1:4], args32[5], args32[6]))
         print(f"[22 refine stage] {model} K={K_MAIN} T={T_MAIN}, the kernel's update: "
               + "; ".join(f"{m} card vs CPU max |d| {e64:.3e} at float64 (rtol 1e-8), "
-                          f"{e32:.3e} at float32 (printed only), moved the update by "
-                          f"{moved:.3e}" for m, (e64, e32, moved) in errs.items())
+                          f"{e32:.3e} at float32 (printed only), graphed vs eager on the "
+                          f"card {eg:.3e} at float64 (rtol 1e-8), moved the update by "
+                          f"{moved:.3e}" for m, (e64, e32, moved, eg) in errs.items())
               + f"; trajectory cost unrefined {costs['unrefined']:.6f}, gradient "
                 f"{costs['gradient']:.6f}, gauss_newton {costs['gauss_newton']:.6f}",
               flush=True)
@@ -1434,6 +1530,18 @@ def main():
         for meth in methods:
             arms[f"{model}/update_kernel_lean_{meth}"] = (
                 updater(s, "kernel", **refine_opts[meth]), 3)
+        if preset == "full_body":
+            # the refine stage alone on the kernel's update: eager, and the
+            # CUDA graph's replay that mppi_step runs
+            _, res = mppi_step(s["cfg"], ControllerState(s["u_prev"], 0, 0), s["state"],
+                               s["path"], s["dt"], s["sp"], s["cp"], model_params=s["mp"],
+                               use_kernel=True)
+            st = (s["cfg"], res.u_opt, s["state"], res.ref, s["dt"], s["sp"], s["cp"], s["mp"])
+            for meth in methods:
+                arms[f"{model}/refine_stage_{meth}_eager"] = (
+                    lambda st=st, meth=meth: refine_stage(*st, 3, 0.02, meth), 3)
+                arms[f"{model}/refine_stage_{meth}_graphed"] = (
+                    lambda st=st, meth=meth: _refine(*st, 3, 0.02, meth), 3)
     times = time_interleaved(arms, 5, warm=1)
     clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
     print(f"[22 timing] kernel-lean update K={K_MAIN} T={T_MAIN}, median of 5 CUDA-event reps "
@@ -1573,6 +1681,295 @@ def main():
     require(last20 < first20 and learned < vanilla, "meta_train")
     print(json.dumps({"refine": refined, "training": training}))
 
+    # --- 24. the sample offset ----------------------------------------------
+    print(f"[24 sample offset] K={K_MAIN} T={T_MAIN}, RNG mode", flush=True)
+    half = K_MAIN // 2
+    offset_arms = {}
+    for preset in ("full_body",) + NEW_PRESETS:
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=24)
+        model = s["model"]
+        kw = dict(seed=31, step=4, model=model)
+        err = compare(f"{model} first_sample={OFFSET}",
+                      kernel_fn(*s["kargs"], num_samples=K_MAIN, first_sample=OFFSET, **kw),
+                      plain_fn(*s["kargs"], num_samples=K_MAIN, first_sample=OFFSET, **kw))
+        max_abs_err[f"{model}_offset"] = err
+        whole = kernel_fn(*s["kargs"], num_samples=K_MAIN, **kw)[0]
+        halves = torch.cat([kernel_fn(*s["kargs"], num_samples=half, first_sample=f, **kw)[0]
+                            for f in (0, half)])
+        same = bool(torch.equal(halves, whole))
+        print(f"  {model}: two launches of K/2 at first_sample 0 and {half} bit-equal to "
+              f"one launch of K: {same}", flush=True)
+        require(same, f"{model}: the sharded launches' costs differ from one launch")
+        mkw = dict(kw, num_samples=K_MAIN)
+        offset_arms[f"{model}/first_sample_0"] = (KernelLaunch(*s["kargs"], **mkw).run, 50)
+        offset_arms[f"{model}/first_sample_{OFFSET}"] = (
+            KernelLaunch(*s["kargs"], first_sample=OFFSET, **mkw).run, 50)
+        offset_arms[f"{model}/shard_of_2"] = (
+            KernelLaunch(*s["kargs"], first_sample=half, **dict(kw, num_samples=half)).run, 50)
+        if model == "full_body":
+            offset_arms["full_body/plain_first_sample"] = (
+                lambda s=s, mkw=mkw: plain_fn(*s["kargs"], first_sample=OFFSET, **mkw), 3)
+    counters_zero("sample offset")
+    times = time_interleaved(offset_arms, 7)
+    med.update({name: statistics.median(v) for name, v in times.items()})
+    print(f"  CUDA-event times, median of 7 reps, on {card}:", flush=True)
+    for name, v in times.items():
+        print(f"  {name}: {statistics.median(v):.4f} ms [{min(v):.4f}, {max(v):.4f}]",
+              flush=True)
+    counters_zero("sample offset timing")
+
+    # --- 25. the sharded step ------------------------------------------------
+    import torch.distributed as dist
+
+    from ccv_mppi_path_tracker_tpu_torch.parallel import (
+        build_sharded_step,
+        initialize_multihost,
+        samples_group,
+    )
+
+    sharded = {}
+    s = kernel_case("full_body", K_MAIN, T_MAIN, seed=25)
+    ctrl = ControllerState(u_prev=s["u_prev"], seed=7, step=9)
+    step_args = (ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+    require(initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                                 timeout_s=120), "the NCCL group of one process")
+    group, _ = samples_group(device=dev)
+    option_sets = {"vanilla": {}, "elite": {"elite_frac": ELITE},
+                   "adapt_sigma": {"adapt_sigma": True}}
+    ws1 = {}
+    for use_kernel in (True, False):
+        for tag, opts in option_sets.items():
+            step = build_sharded_step(s["cfg"], group, use_kernel=use_kernel,
+                                      solver_options=opts)
+            ws1[use_kernel, tag] = step
+            _, a = step(*step_args, model_params=s["mp"])
+            _, b = mppi_step(s["cfg"], *step_args, model_params=s["mp"],
+                             use_kernel=use_kernel, **opts)
+            same = bool(torch.equal(a.u_opt, b.u_opt)) and a.stats.keys() == b.stats.keys() \
+                and all(bool(torch.equal(a.stats[k], b.stats[k])) for k in a.stats)
+            print(f"[25 world size 1] NCCL on {dev}, full_body K={K_MAIN} T={T_MAIN} "
+                  f"{'kernel' if use_kernel else 'eager'} {tag}: bit-equal to mppi_step "
+                  f"{same}", flush=True)
+            require(same, f"world size 1 {tag}: the sharded step differs from mppi_step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (use_kernel, tag), step in ws1.items():
+            step(*step_args, model_params=s["mp"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  no host sync inside the sharded step at world size 1 (kernel and eager, "
+          "vanilla, elite and adapt_sigma)", flush=True)
+    carry = {"sharded": [ctrl], "unsharded": [ctrl]}
+
+    def chained(name, step):
+        def fn():
+            carry[name][0], _ = step(carry[name][0], *step_args[1:], model_params=s["mp"])
+        return fn
+
+    unsharded = functools.partial(mppi_step, s["cfg"], use_kernel=True)
+    times = time_interleaved({"sharded": (chained("sharded", ws1[True, "vanilla"]), 20),
+                              "unsharded": (chained("unsharded", unsharded), 20)}, 7)
+    sharded["world_size_1"] = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  kernel update, CUDA events, median of 7 reps: sharded at world size 1 "
+          f"{sharded['world_size_1']['sharded']:.4f} ms, mppi_step "
+          f"{sharded['world_size_1']['unsharded']:.4f} ms on {card}", flush=True)
+    dist.destroy_process_group()
+    counters_zero("world size 1")
+
+    # world size 2: two processes over gloo sharing the card
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    t0 = time.perf_counter()
+    ranks = launch_workers("card", 2, str(dev), tmp)
+    wall = time.perf_counter() - t0
+    one = kernel_fn(*s["kargs"], seed=7, step=9, num_samples=K_MAIN, model="full_body")[0]
+    costs_same = bool(np.array_equal(np.concatenate([r["costs"] for r in ranks]),
+                                     one.cpu().numpy()))
+    _, ref = mppi_step(s["cfg"], *step_args, model_params=s["mp"], use_kernel=True)
+    _, eref = mppi_step(s["cfg"], *step_args, model_params=s["mp"], use_kernel=True,
+                        elite_frac=ELITE)
+    u_ref = ref.u_opt.cpu()
+    err = float(np.abs(ranks[0]["vanilla/u_opt"] - u_ref.numpy()).max())
+    bound = u_bound(u_ref)
+    replicated = all(np.array_equal(ranks[0][k], ranks[1][k])
+                     for k in ("vanilla/u_opt", "elite/u_opt", "loop/xy"))
+    min_same = float(ranks[0]["vanilla/min_cost"]) == float(ref.stats["min_cost"])
+    thresh_same = float(ranks[0]["elite/elite_thresh"]) == float(eref.stats["elite_thresh"])
+    e_err = float(np.abs(ranks[0]["elite/u_opt"] - eref.u_opt.cpu().numpy()).max())
+    loop = tracking_metrics(ranks[0]["loop/xy"], ranks[0]["loop/course"], dt=0.1)
+    loop_launches = [int(r["loop/launches"]) for r in ranks]
+    launches["full_body_sharded"] = loop_launches[1]  # rank 1: first_sample = K/2
+    max_abs_err["full_body_sharded"] = err
+    sharded["world_size_2"] = {
+        "update_ms": float(np.median(ranks[0]["update_ms"])),
+        "update_ms_spread": [float(ranks[0]["update_ms"].min()),
+                             float(ranks[0]["update_ms"].max())],
+        "loop_wall_s": float(ranks[0]["loop/wall_s"]), "loop_rmse": loop["rmse"],
+        "workers_wall_s": wall}
+    print(f"[25 world size 2] gloo, two processes on {dev}, full_body K={K_MAIN} "
+          f"T={T_MAIN} kernel RNG mode: per-sample costs of the two shards bit-equal to "
+          f"one launch {costs_same}; u_opt max abs err {err:.3e} vs the one-card kernel "
+          f"update (bound {bound:.3e}); min_cost equal {min_same}; elite {ELITE}: "
+          f"threshold bit-equal {thresh_same}, u_opt err {e_err:.3e}; outputs replicated "
+          f"{replicated}", flush=True)
+    print(f"[25 sharded loop] world size 2, {STEPS} cycles: RMSE {loop['rmse']:.4f} m, "
+          f"max error {loop['max_error']:.4f} m, kernel launches per rank {loop_launches}; "
+          f"wall {float(ranks[0]['loop/wall_s']):.3f} s (host clock); sharded update "
+          f"{sharded['world_size_2']['update_ms']:.4f} ms (CUDA events, median of 5, "
+          f"spread {sharded['world_size_2']['update_ms_spread']}) beside the one-card "
+          f"{sharded['world_size_1']['unsharded']:.4f} ms on {card}", flush=True)
+    require(costs_same and err <= bound and min_same and thresh_same
+            and e_err <= u_bound(eref.u_opt.cpu()) and replicated,
+            "world size 2: the sharded update differs from the one-card update")
+    require(loop["rmse"] < 0.15 and loop_launches == [STEPS, STEPS],
+            f"world size 2 loop: RMSE {loop['rmse']}, launches {loop_launches}")
+
+    # --- 26. use_kernel="auto" ---------------------------------------------
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import should_use_kernel
+
+    auto = {}
+    for preset in ("full_body",) + NEW_PRESETS:
+        rows = []
+        for t in AUTO_T:
+            for k in AUTO_K:
+                c = kernel_case(preset, k, t, roll_off=True, seed=26)
+                times = time_interleaved({"kernel": (updater(c, "kernel"), 5),
+                                          "eager": (updater(c, "eager"), 5)}, 5)
+                rows.append((k * (t - 1), k, t, statistics.median(times["kernel"]),
+                             statistics.median(times["eager"])))
+        rows.sort()
+        model = PRESET_MODELS[preset][0]
+        measured = crossover(rows)
+        pick = should_use_kernel(model, dev)
+        # a point where auto's arm is slower than the other beyond a tie
+        misses = [r for r in rows if (r[3] if pick else r[4]) > (1 + TIE) * min(r[3], r[4])]
+        auto[model] = {"crossover": measured, "auto": "kernel" if pick else "eager",
+                       "misses": len(misses), "rows": rows}
+        print(f"[26 auto] {model}: kernel-lean vs eager-lean update, CUDA events, median "
+              f"of 5 on {card}:", flush=True)
+        for props, k, t, kern, eager in rows:
+            print(f"  K={k} T={t} K*(T-1)={props}: kernel {kern:.4f} ms, eager "
+                  f"{eager:.4f} ms -> {'kernel' if kern < eager else 'eager'}", flush=True)
+        where = measured if measured is not None else \
+            "none, the kernel was the faster at every point"
+        print(f"  crossover: {where}; auto picks the {auto[model]['auto']} at every point; slower than the "
+              f"other beyond {int(TIE * 100)} % at {len(misses)} points", flush=True)
+        require(not misses, f"{model}: auto's arm is the slower at {misses}")
+    fused_sample_rollout_cost.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["run", "--preset", "full_body", "--steps", "5", "--num-samples",
+                       str(K_MAIN), "--horizon", str(T_MAIN)])
+    first = buf.getvalue().splitlines()[0]
+    n = fused_sample_rollout_cost.launches
+    print(f"[26 auto cli] run with no flag at the flagship: {first}; kernel launches {n}",
+          flush=True)
+    require(rc == 0 and first.startswith("solver path: fused kernel (auto)") and n == 5,
+            "run with no flag at the flagship")
+    sys.path.insert(0, str(ROOT / "examples"))
+    import custom_model_torch as bicycle
+
+    fused_sample_rollout_cost.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        m = bicycle.main(["--device", str(dev)])
+    wall = time.perf_counter() - t0
+    n = fused_sample_rollout_cost.launches
+    lines = buf.getvalue().splitlines()
+    print(f"[26 bicycle] examples/custom_model_torch.py on {dev}: {' | '.join(lines)}; "
+          f"kernel launches {n}; {wall:.2f} s", flush=True)
+    require(m["rmse"] < 0.15 and n == 0 and "eager (auto)" in lines[1]
+            and not dist.is_initialized(), "the bicycle example on the card")
+    counters_zero("auto")
+
+    # --- 27. export on the card ---------------------------------------------
+    from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
+    from ccv_mppi_path_tracker_tpu_torch.runtime.export import load_control_step
+
+    # the export command (export_control_step) at the flagship, then the file
+    cfg = s["cfg"]
+    out = tmp / "step.pt2"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export", "--preset", "full_body", "--num-samples", str(K_MAIN),
+                       "--horizon", str(T_MAIN), "--out", str(out)])
+    export_s = time.perf_counter() - t0
+    print(f"[27 export cli] rc {rc}: {buf.getvalue().strip()} in {export_s:.2f} s",
+          flush=True)
+    require(rc == 0, "the export command")
+    blob = out.read_bytes()
+    call = load_control_step(blob)
+    c2, xres = call(*step_args)
+    _, kres = mppi_step(cfg, *step_args, model_params=s["mp"], use_kernel=True)
+
+    def eager_philox():
+        noise = philox_normals(ctrl.seed, ctrl.step, K_MAIN, T_MAIN - 1, 5, device=dev)
+        return mppi_step(cfg, *step_args, model_params=s["mp"], noise=noise)
+
+    eres = eager_philox()[1]
+    k_err, k_bound = u_err("export vs kernel", xres.u_opt, kres.u_opt)
+    e_rel = float(((xres.u_opt - eres.u_opt).abs() / (eres.u_opt.abs() + 1e-30)).max())
+    e_ok = bool(torch.allclose(xres.u_opt, eres.u_opt, rtol=1e-5, atol=1e-6))
+    ok = (bool(torch.isfinite(xres.u_opt).all()) and xres.u_opt.device == dev
+          and c2.step == ctrl.step + 1)
+    times = time_interleaved({
+        "exported": (lambda: call(*step_args), 10),
+        "eager_philox": (eager_philox, 10),
+        "eager": (lambda: mppi_step(cfg, *step_args, model_params=s["mp"]), 10)}, 5)
+    exported = {"export_s": export_s, "bytes": len(blob),
+                **{k: statistics.median(v) for k, v in times.items()}}
+    print(f"[27 export] full_body K={K_MAIN} T={T_MAIN}, loaded and run on "
+          f"{xres.u_opt.device} (finite, next step {c2.step}: {ok}): vs the kernel path "
+          f"(RNG mode, same seed and step) max abs err {k_err:.3e} (bound {k_bound:.3e}); "
+          f"vs eager mppi_step on philox_normals max rel err {e_rel:.3e} (rtol 1e-5 atol "
+          f"1e-6: {e_ok}); a step {exported['exported']:.4f} ms exported, "
+          f"{exported['eager_philox']:.4f} ms eager on the same Philox draw, "
+          f"{exported['eager']:.4f} ms eager on its generator (CUDA events, median of 5, "
+          f"on {card})", flush=True)
+    require(ok and e_ok, "the exported step on the card")
+
+    # --- 28. profile -------------------------------------------------------
+    trace_dir = tmp / "trace"
+    fused_sample_rollout_cost.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["profile", "--preset", "full_body", "--steps", str(PROFILE_STEPS),
+                       "--num-samples", str(K_MAIN), "--horizon", str(T_MAIN), "--out",
+                       str(trace_dir)])
+    n = fused_sample_rollout_cost.launches
+    lines = buf.getvalue().splitlines()
+    summary = json.loads(lines[-2])
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kern = [e for e in events if "rollout_cost_kernel" in str(e.get("name", ""))
+            and e.get("cat") == "kernel"]
+    print(f"[28 profile] {lines[0]}; {lines[-1]}; phases {summary}; rollout_cost device "
+          f"events in the trace {len(kern)} ({PROFILE_STEPS} steps), kernel launches "
+          f"{n} (the steps and the warm step)", flush=True)
+    require(rc == 0 and len(kern) == PROFILE_STEPS and n == PROFILE_STEPS + 1
+            and summary["control_cycle"]["count"] == PROFILE_STEPS, "the profile command")
+    cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    start = torch.tensor([course[0, 0], course[0, 1], 0.0], device=dev)
+    for use_kernel, opts in ((False, {"debug_candidates": 24}), (True, {})):
+        _, logs = simulate(cfg, ControllerState.initial(0, T_MAIN, 2, device=dev), start,
+                           path, torch.full((), 0.1, device=dev), sp, cp, num_steps=20,
+                           use_kernel=use_kernel, solver_options=opts, with_paths=True)
+        keys = [k for k in ("opt_xy", "ref_xy", "candidates") if k in logs]
+        ok = all(logs[k].device == dev and bool(torch.isfinite(logs[k]).all()) for k in keys)
+        print(f"[28 with_paths] diff_drive {'kernel' if use_kernel else 'eager'} 20 cycles: "
+              f"{', '.join(f'{k} {tuple(logs[k].shape)}' for k in keys)} on {dev}, finite "
+              f"{ok} (no figure drawn: the card's machine has no matplotlib)", flush=True)
+        require(ok and ("candidates" in keys) != use_kernel, "with_paths logs")
+    shutil.rmtree(tmp)
+    counters_zero("export and profile")
+    print(json.dumps({"sharded": sharded, "auto": {m: {k: v for k, v in a.items()
+                                                       if k != "rows"}
+                                                   for m, a in auto.items()},
+                      "export": exported}))
+
     def entry(name, path_key, err_key, ms, plain_ms, bound):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -1631,6 +2028,11 @@ def main():
         kernels.append(entry(f"rollout_cost_{m}_fleet", f"{m}_fleet", f"{m}_fleet",
                              med[f"fleet/{m}/kernel_alone"], med[f"fleet/{m}/plain_alone"],
                              bound(m, k=K_FLEET, t=T_FLEET, b=B_FLEET)))
+    # the sample offset (phase 24); launches: rank 1's (first_sample = K/2)
+    # 200-cycle sharded loop of phase 25
+    kernels.append(entry("rollout_cost_full_body_first_sample", "full_body_sharded",
+                         "full_body_offset", med[f"full_body/first_sample_{OFFSET}"],
+                         med["full_body/plain_first_sample"], bound("full_body")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,14 @@
 """Times the PyTorch port's fused CUDA kernel (csrc/rollout_cost.cu) on one
 NVIDIA card, at the shapes chip_smoke.py runs: each model's flagship
 (K=102400, T=30, RNG mode), the second moment, two-pass elite, and the fleet
-(B=256, K=1024, T=15). Each arm is one launch of prepared operands and its
-finish (``KernelLaunch.run`` then ``.finish``), so a checkout whose finish
-runs as PyTorch ops and one whose kernel finishes the update itself time the
-same work. CUDA events over 50 launches, median of 9 repetitions. The
+(B=256, K=1024, T=15). Each kernel arm is one launch of prepared operands
+and its finish (``KernelLaunch.run`` then ``.finish``), so a checkout whose
+finish runs as PyTorch ops and one whose kernel finishes the update itself
+time the same work. Four arms time whole updates instead, full_body and
+diff_drive at the flagship: the eager-lean ``mppi_step`` (no kernel, 10
+calls a repetition), and for full_body the kernel-lean one (20 calls) and
+the kernel-lean one refined by three Gauss-Newton steps (3 calls). CUDA
+events over 50 calls unless stated, median of 9 repetitions. The
 operands and the timing loop are chip_smoke.py's (kernel_case,
 time_interleaved).
 
@@ -51,9 +55,11 @@ def case(preset, k, t, robots=None):
 
 
 def time_arms(arms):
-    """{name: (median ms, min, max)} of arms {name: fn}, interleaved."""
-    times = smoke.time_interleaved({n: (fn, INNER) for n, fn in arms.items()}, REPS,
-                                   warm=3)
+    """{name: (median ms, min, max)} of arms {name: fn or (fn, calls a
+    repetition)}, interleaved; a bare fn is called INNER times."""
+    times = smoke.time_interleaved(
+        {n: fn if isinstance(fn, tuple) else (fn, INNER) for n, fn in arms.items()}, REPS,
+        warm=3)
     return {n: (statistics.median(v), min(v), max(v)) for n, v in times.items()}
 
 
@@ -62,6 +68,22 @@ def launch_arm(launch):
         launch.run()
         launch.finish()
     return fn
+
+
+def update_arm(preset, use_kernel, **opts):
+    """One lean mppi_step of the preset's flagship case, its warm start
+    carried from call to call."""
+    from ccv_mppi_path_tracker_tpu_torch.core import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
+
+    c = smoke.kernel_case(preset, smoke.K_MAIN, smoke.T_MAIN, roll_off=True, seed=5)
+    carry = [ControllerState(c["u_prev"], 0, 0)]
+
+    def fn():
+        carry[0], _ = mppi_step(c["cfg"], carry[0], c["state"], c["path"], c["dt"], c["sp"],
+                                c["cp"], model_params=c["mp"], use_kernel=use_kernel,
+                                lean=True, **opts)
+    return c["model"], fn
 
 
 def build_arms():
@@ -92,6 +114,11 @@ def build_arms():
                                   robots=smoke.B_FLEET)
         arms[f"fleet/{model}/kernel"] = launch_arm(KernelLaunch(
             *kargs, scal(), seed=1, step=2, num_samples=smoke.K_FLEET, model=model))
+        name, fn = update_arm(preset, False)
+        arms[f"{name}/update_eager_lean"] = (fn, 10)
+    arms["full_body/update_kernel_lean"] = (update_arm("full_body", True)[1], 20)
+    arms["full_body/update_kernel_lean_gauss_newton"] = (update_arm(
+        "full_body", True, refine_steps=3, refine_method="gauss_newton")[1], 3)
     return arms
 
 
@@ -149,7 +176,7 @@ def cmd_ab(parent, change):
         runs.append((label, json.loads(line)))
         print(f"[{label}] {line}", flush=True)
     print(f"parent, change, change, parent on {runs[0][1]['card']}; median ms of "
-          f"{REPS} reps x {INNER} launches (kernel and its finish):")
+          f"{REPS} reps of {INNER} calls (a kernel and its finish) or of 3-20 updates:")
     for name in runs[0][1]["ms"]:
         cells = [f"{r['ms'][name][0]:.4f}" for _, r in runs]
         p = (runs[0][1]["ms"][name][0] + runs[3][1]["ms"][name][0]) / 2

@@ -400,7 +400,8 @@ def test_convert_carries_a_batched_path_and_fleet_warm_start():
     close(got.yaw, want.yaw, F64)
 
 
-@pytest.mark.parametrize("extra", [[], ["--no-kernel"]], ids=["kernel", "eager"])
+@pytest.mark.parametrize("extra", [["--kernel"], ["--no-kernel"]],
+                         ids=["kernel", "eager"])
 def test_fleet_cli_on_cpu(extra, capsys):
     before = fused_sample_rollout_cost.launches
     rc = cli.main(["fleet", "--device", "cpu", "--robots", "3", "--steps", "20",
@@ -408,7 +409,7 @@ def test_fleet_cli_on_cpu(extra, capsys):
     out = capsys.readouterr().out.splitlines()
     assert rc == 0
     assert out[-3].startswith("fleet: 3 robots x K=256, 20 ticks, "
-                              + ("eager" if extra else "kernel"))
+                              + ("eager" if "--no-kernel" in extra else "kernel"))
     assert out[-2].startswith("RMSE mean=")
     assert float(out[-2].split("worst=")[1]) < 0.15
     assert out[-1].startswith("wall: ") and "robot-updates/s" in out[-1]

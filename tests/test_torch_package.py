@@ -91,7 +91,8 @@ def test_from_numpy_round_trips(as_dicts):
     assert sp32.lam.dtype == torch.float32
 
 
-@pytest.mark.parametrize("extra", [[], ["--no-kernel"]], ids=["kernel", "eager"])
+@pytest.mark.parametrize("extra", [["--kernel"], ["--no-kernel"]],
+                         ids=["kernel", "eager"])
 def test_cli_run_prints_the_metric_lines(extra, capsys):
     before = fused_sample_rollout_cost.launches
     rc = cli.main(["run", "--device", "cpu", "--steps", "3", "--num-samples", "256",
