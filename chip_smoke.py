@@ -138,7 +138,11 @@ failure ending the run with a non-zero exit:
  28. profile: the `profile` command's trace holds one rollout_cost kernel
      event per traced step (and the launch count adds the warm step);
      simulate(with_paths=True) logs on the card, eager with candidates and
-     kernel, finite; no figure (the card's machine has no matplotlib).
+     kernel, finite; no figure (the card's machine has no matplotlib);
+ 29. the benchmark (bench_torch/): `python3 -m bench_torch --all --quick`,
+     the seven cells each in a process of its own with short chains and no
+     traced run; every gate passes and every metric is finite, each cell's
+     line printed.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -1969,6 +1973,29 @@ def main():
                                                        if k != "rows"}
                                                    for m, a in auto.items()},
                       "export": exported}))
+
+    # --- 29. the benchmark's seven cells, quick --------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bench_torch", "--all", "--quick"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    for rec in lines:
+        lay = rec.get("layers", {})
+        print(f"[29 bench_torch] {rec['cell']}: {rec.get('metric')} {rec.get('value')} "
+              f"{rec.get('unit')} (step {rec.get('step_ms')} ms), gate "
+              f"{'ok' if rec['gate']['ok'] else 'FAILED'} {rec['gate']['checks']}; "
+              f"layers {lay}; on {rec.get('card')}", flush=True)
+    require(proc.returncode == 0, f"python3 -m bench_torch --all --quick exited "
+            f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    require(len(lines) == 7, f"bench_torch printed {len(lines)} cells, not 7")
+    for rec in lines:
+        nums = [rec["value"], rec["step_ms"], *[v for v in rec["layers"].values()
+                                                if v is not None]]
+        require(rec["gate"]["ok"] and all(np.isfinite(v) for v in nums),
+                f"bench_torch {rec['cell']}: gate or a metric not finite: {rec}")
+    print(f"[29 bench_torch] seven cells, every gate passed, {wall:.1f} s", flush=True)
 
     def entry(name, path_key, err_key, ms, plain_ms, bound):
         """One kernels entry; launches and launches_per_update are those of
