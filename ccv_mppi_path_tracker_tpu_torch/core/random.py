@@ -3,10 +3,9 @@ the run's integer ``seed``, the cycle counter ``step`` and, in a fleet, the
 robot index ``b``.
 
 - The eager path draws its exploration noise from a ``torch.Generator``
-  seeded by :func:`cycle_seed` (``stream`` 0); the plant's process noise
-  uses ``stream`` 1. No global RNG state is read or written. A fleet's robot
-  b seeds its own generator from (seed, step, stream, b); robot 0's seed is
-  the single-robot one.
+  seeded by :func:`cycle_seed` (``stream`` 0). No global RNG state is read
+  or written. A fleet's robot b seeds its own generator from (seed, step,
+  stream, b); robot 0's seed is the single-robot one.
 - The fused kernel draws its own normals with Philox4x32-10 keyed by
   ``(seed, step)`` at counter ``(k, t, pair, b)`` (b = 0 for one robot) and
   Box-Muller over the top 23 bits of words 0 and 1 (csrc/rollout_cost.cu).
@@ -16,6 +15,12 @@ robot index ``b``.
   arithmetic is emulated in int64 with ``& 0xFFFFFFFF``, so the kernel and
   its plain version draw the same samples. Robot 0 of a fleet draws the
   single-robot stream, and no normal depends on B or the block size.
+- The key (seed, step) may be a device tensor [seed, step]
+  (``ControllerState.key``): the kernel reads it there, and a CUDA graph of
+  a cycle draws anew at each replay. The plant's process noise is drawn
+  from the same key by :func:`plant_normals`, at counter (p, 0,
+  :data:`PLANT_PAIR`, 0): the kernel's pair word is below 3, so no control
+  normal shares a counter with it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 # 2*pi rounded to float32, the constant the kernel multiplies by
 TWO_PI_F32 = float(np.float32(2.0 * math.pi))
+# Counter word 2 of the plant's process noise (the kernel's pair index is
+# below 3).
+PLANT_PAIR = 0x80000000
 
 
 def cycle_seed(seed: int, step: int, stream: int = 0, robot: int = 0,
@@ -103,10 +111,29 @@ def philox_normals(seed, step, num_samples: int, tm1: int,
          rob.view(lead + (1, 1, 1)).expand(shape)),
         (seed, step),
     )
+    normals = _box_muller(x0, x1)
+    return normals.reshape(shape[:-1] + (2 * n_pairs,))[..., :u_dim].to(dtype)
+
+
+def _box_muller(x0, x1):
+    """(..., 2) normals, cosine then sine half, from two Philox words: the
+    top 23 bits of each as uniforms, as the kernel computes them."""
     scale = 1.0 / (1 << 23)
     u1 = (x0 >> 9).to(torch.float32) * scale
     u2 = (x1 >> 9).to(torch.float32) * scale
     r = torch.sqrt(-2.0 * torch.log1p(-u1))
     theta = TWO_PI_F32 * u2
-    normals = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
-    return normals.reshape(shape[:-1] + (2 * n_pairs,))[..., :u_dim].to(dtype)
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def plant_normals(key: torch.Tensor, shape, dtype=torch.float32):
+    """Standard normals of ``shape`` for the plant's process noise of the
+    cycle keyed by ``key`` [seed, step] (a (2,) int64 tensor), drawn on its
+    device: normals 2p and 2p+1 (in row-major order) from counter (p, 0,
+    PLANT_PAIR, 0). No host integer enters, so a CUDA graph of the cycle
+    draws anew at each replay."""
+    n = math.prod(shape)
+    p = torch.arange((n + 1) // 2, dtype=torch.int64, device=key.device)
+    zero = torch.zeros_like(p)
+    x0, x1, _, _ = philox4x32((p, zero, zero + PLANT_PAIR, zero), (key[0], key[1]))
+    return _box_muller(x0, x1).reshape(-1)[:n].reshape(shape).to(dtype)

@@ -92,6 +92,13 @@
 //   own too, and at another sample index (first_sample: counter word 0 is
 //   first_sample + k), so the shard of samples [s, s + K) of a sharded
 //   update draws exactly those samples of the unsharded stream.
+// - The key: (seed, step) come by value, or, where the wrapper passes the
+//   key pointer, from device memory: two int64 words [seed, step], read by
+//   every block before its first Philox call, as the TPU kernel reads its
+//   seed operand. A CUDA graph then replays with the key that the step
+//   advances on the device, and draws new samples every cycle. The low 32
+//   bits of each word are the Philox key, as the by-value launch masks
+//   them, so the two draw the same stream.
 // - rate_limited_steering's steer and rate limits come in as two arguments.
 // - Precise logf/expf/sinf/cosf: no fast-math.
 //
@@ -487,6 +494,7 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
                     float* __restrict__ costs,
                     float* partials,
                     unsigned int* counters,
+                    const long long* __restrict__ key,
                     float* __restrict__ u_num,
                     float* __restrict__ norm,
                     float* __restrict__ u2_num,
@@ -548,8 +556,8 @@ rollout_cost_kernel(const float* __restrict__ u_prev,
   smp.threads = threads;
   smp.valid = k < num_samples;
   smp.steer_off = steer_off != 0;
-  smp.seed = seed;
-  smp.step = step;
+  smp.seed = key != nullptr ? static_cast<uint32_t>(key[0]) : seed;
+  smp.step = key != nullptr ? static_cast<uint32_t>(key[1]) : step;
   smp.robot = first_robot + (uint32_t)robot;
   smp.ctr = first_sample + (uint32_t)k;
 
@@ -703,7 +711,8 @@ template <int M, bool M2, bool kStore>
 int launch(const float* u_prev, const float* sigma, const float* u_min,
            const float* u_max, const float* refc, const float* state0,
            const float* scal, const float* noise, const float* costs_in,
-           float* costs, float* partials, unsigned int* counters, float* u_num,
+           float* costs, float* partials, unsigned int* counters,
+           const long long* key, float* u_num,
            float* norm, float* u2_num, int num_samples, int horizon,
            int num_ref4, unsigned int seed, unsigned int step,
            unsigned int first_robot, unsigned int first_sample, int steer_off,
@@ -723,7 +732,7 @@ int launch(const float* u_prev, const float* sigma, const float* u_min,
   }
   rollout_cost_kernel<M, M2, kStore><<<grid, threads, smem, stream>>>(
       u_prev, sigma, u_min, u_max, reinterpret_cast<const float4*>(refc), state0,
-      scal, noise, costs_in, costs, partials, counters, u_num, norm, u2_num,
+      scal, noise, costs_in, costs, partials, counters, key, u_num, norm, u2_num,
       num_samples, horizon, num_ref4, floats, seed, step, first_robot, first_sample,
       steer_off, accumulate, steer_max, rate_max);
   return static_cast<int>(cudaGetLastError());
@@ -746,6 +755,13 @@ extern "C" {
 int rollout_cost_max_threads() { return kMaxThreads; }
 
 int rollout_cost_num_scalars() { return kNScal; }
+
+// The parameters of rollout_cost, one letter each: i int, u unsigned int,
+// f float, p pointer (kernels/rollout_cost.py SIGNATURE, which the binding
+// holds equal to this).
+const char* rollout_cost_signature() {
+  return "ii" "pppppppppppppppp" "iiiuuuuiiffiiip";
+}
 
 // U * 16 + S of model id `model`, or -1 for an unknown id.
 int rollout_cost_model_dims(int model) {
@@ -813,12 +829,15 @@ int rollout_cost_blocks_per_sm(int model, int store, int second_moment, int thre
 // (B,) and, with second_moment, u2_num (B, T-1, U). num_robots = B: every
 // per-robot operand has a leading (B,) axis; sigma, u_min and u_max are
 // shared. Robot b draws the RNG stream of robot index first_robot + b, and
-// sample k the normals of sample index first_sample + k.
+// sample k the normals of sample index first_sample + k. key non-null: the
+// (seed, step) of the RNG mode are read on the device from key[0], key[1]
+// (int64), and the by-value seed and step are unused.
 int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
                  const float* u_min, const float* u_max, const float* refc,
                  const float* state0, const float* scal, const float* noise,
                  const float* costs_in, float* costs, float* partials,
-                 unsigned int* counters, float* u_num, float* norm, float* u2_num,
+                 unsigned int* counters, const long long* key, float* u_num,
+                 float* norm, float* u2_num,
                  int num_samples, int horizon, int num_ref4, unsigned int seed,
                  unsigned int step, unsigned int first_robot,
                  unsigned int first_sample, int steer_off,
@@ -838,7 +857,8 @@ int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ROLLOUT_COST_ARGS                                                       \
   u_prev, sigma, u_min, u_max, refc, state0, scal, noise, costs_in, costs,      \
-      partials, counters, u_num, norm, u2_num, num_samples, horizon, num_ref4,  \
+      partials, counters, key, u_num, norm, u2_num, num_samples, horizon,       \
+      num_ref4,                                                                 \
       seed, step, first_robot, first_sample, steer_off, accumulate, steer_max,  \
       rate_max, num_robots, threads, s
 #define ROLLOUT_COST_CASE(M)                                                    \

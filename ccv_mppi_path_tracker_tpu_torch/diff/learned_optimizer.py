@@ -130,7 +130,7 @@ def learned_update_step(
         u_opt[:, STEER_DIM] = 0.0
     stats = {"min_cost": torch.amin(costs), "mean_cost": torch.mean(costs),
              "ess": 1.0 / torch.sum(weights * weights)}
-    next_ctrl = ControllerState(u_prev=u_opt, seed=ctrl.seed, step=ctrl.step + 1)
+    next_ctrl = ctrl.advanced(u_opt)
     return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=ref,
                                  opt_states=rollout(model.step, state, u_opt, dt),
                                  stats=stats)

@@ -17,6 +17,12 @@ the store form (each control drawn once into a shared-memory tile) wherever
 occupancy model of the H100 and how evenly the blocks spread over its
 132 SMs.
 
+The RNG mode's key, (seed, step), comes by value from host integers or from
+a (2,) int64 device tensor ``key`` [seed, step] that the kernel reads (the
+TPU kernel's seed operand): a CUDA graph of the update then replays with the
+key the step advances on the device (utils/cuda_graph.py). Both draw the same
+stream.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -40,6 +46,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.costs import full_body_cost, tracking_c
 from ccv_mppi_path_tracker_tpu_torch.ops.mindist import center_ref
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout, steer_limits
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import sample_controls
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import count_launches
 
 SOURCE = "ccv_mppi_path_tracker_tpu_torch/csrc/rollout_cost.cu"
 
@@ -129,11 +136,11 @@ def _unpack_scalars(scal):
 
 
 def fused_sample_rollout_cost_reference(
-    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
-    num_samples: int, model: str, steer_off: bool = False,
+    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: Optional[int],
+    step: Optional[int], num_samples: int, model: str, steer_off: bool = False,
     noise: Optional[torch.Tensor] = None, accumulate: bool = True,
     costs_in: Optional[torch.Tensor] = None, second_moment: bool = False,
-    robot: int = 0, first_sample: int = 0,
+    robot: int = 0, first_sample: int = 0, key: Optional[torch.Tensor] = None,
 ):
     """Plain PyTorch version of the kernel: same arguments and outputs.
 
@@ -146,6 +153,8 @@ def fused_sample_rollout_cost_reference(
     under its own baseline.
     """
     want_m2 = second_moment and accumulate
+    if key is not None:
+        seed, step = key[0], key[1]
     if u_prev.dim() == 3:
         num_robots, tm1, u_dim = u_prev.shape
         if noise is None:
@@ -482,8 +491,18 @@ def instantiations(summary: dict) -> dict:
     return out
 
 
-def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
-                  num_samples, model, noise, accumulate, costs_in):
+def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
+                  num_samples, model, noise, accumulate, costs_in, key):
+    if key is not None:
+        if seed is not None or step is not None:
+            raise ValueError("give the RNG key as seed and step or as key, not both")
+        if tuple(key.shape) != (2,) or key.dtype != torch.int64:
+            raise ValueError(f"key must be a (2,) int64 tensor [seed, step], got "
+                             f"{tuple(key.shape)} {key.dtype}")
+        if key.device != u_prev.device or not key.is_contiguous():
+            raise ValueError(f"key must be contiguous on {u_prev.device}")
+    elif noise is None and (seed is None or step is None):
+        raise ValueError("the RNG mode needs seed and step, or key")
     if model not in KERNEL_MODELS:
         raise ValueError(f"the fused kernel implements {KERNEL_MODELS}, not {model!r}")
     m = get_model(model)
@@ -528,12 +547,27 @@ def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
             raise ValueError(f"{name} must be contiguous")
 
 
+# The C entry point's parameters, one letter each (i int, u unsigned int, f
+# float, p pointer): model, store; u_prev ... scal, noise, costs_in, costs,
+# partials, counters, key, u_num, norm, u2_num; num_samples, horizon,
+# num_ref4, seed, step, robot, first_sample, steer_off, accumulate, steer_max,
+# rate_max, num_robots, second_moment, threads; the stream. csrc
+# rollout_cost_signature() returns the same string, checked when bound.
+SIGNATURE = "ii" + "p" * 16 + "iiiuuuuiiffiiip"
+_CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float, "p": ctypes.c_void_p}
+
+
 def _bind(lib):
     if getattr(lib, "_rollout_cost_bound", False):
         return lib
-    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    i = ctypes.c_int
+    lib.rollout_cost_signature.argtypes = []
+    lib.rollout_cost_signature.restype = ctypes.c_char_p
+    if lib.rollout_cost_signature().decode() != SIGNATURE:
+        raise RuntimeError("csrc/rollout_cost.cu rollout_cost's parameters differ from "
+                           "SIGNATURE")
     fn = lib.rollout_cost
-    fn.argtypes = [i, i] + [p] * 15 + [i, i, i, u, u, u, u, i, i, f, f, i, i, i, p]
+    fn.argtypes = [_CTYPES[c] for c in SIGNATURE]
     fn.restype = i
     for name in ("rollout_cost_max_threads", "rollout_cost_num_scalars"):
         getattr(lib, name).argtypes = []
@@ -572,7 +606,9 @@ def _bind(lib):
 # (device index, stream, length) -> int32 zeros: the tickets of the
 # in-kernel finish, one per group and one per robot. The kernel leaves them
 # at zero, so each buffer is made once and reused by every launch of that
-# length on that stream.
+# length on that stream. A launch captured into a CUDA graph takes zeros of
+# its own instead, from the graph's memory, zeroed again at every replay: no
+# two graphs share tickets, whatever streams they replay on.
 _COUNTERS = {}
 
 
@@ -597,7 +633,7 @@ class KernelLaunch:
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
                  step, num_samples, model, steer_off=False, noise=None,
                  accumulate=True, costs_in=None, second_moment=False, robot=0,
-                 first_sample=0, form=None, threads=None):
+                 first_sample=0, key=None, form=None, threads=None):
         from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
         self.lib = _bind(load_library("rollout_cost"))
@@ -638,7 +674,8 @@ class KernelLaunch:
         if model == "rate_limited_steering":
             steer_max, rate_max = steer_limits(model)
         # operands stay referenced by self until the launch is dropped
-        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t, rows)
+        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t, rows, key)
+        self.key = key
         self.device = dev
 
         def ptr(t):
@@ -653,7 +690,8 @@ class KernelLaunch:
         )
         self._tail = (
             ptr(self.u_num), ptr(self.norm), ptr(self.u2_num), num_samples,
-            self.tm1 + 1, refc.shape[-2], seed & 0xFFFFFFFF, step & 0xFFFFFFFF,
+            self.tm1 + 1, refc.shape[-2], (seed or 0) & 0xFFFFFFFF,
+            (step or 0) & 0xFFFFFFFF,
             robot & 0xFFFFFFFF, first_sample & 0xFFFFFFFF, int(steer_off),
             int(accumulate), steer_max, rate_max,
             self.num_robots, int(m2), self.shape.threads,
@@ -664,8 +702,15 @@ class KernelLaunch:
             stream = torch.cuda.current_stream(self.device).cuda_stream
             counters = None
             if self.accumulate:
-                counters = _counters(self.device, stream, self.num_counters).data_ptr()
-            err = self.lib.rollout_cost(*self._head, counters, *self._tail, stream)
+                if torch.cuda.is_current_stream_capturing():
+                    tickets = torch.zeros(self.num_counters, dtype=torch.int32,
+                                          device=self.device)
+                else:
+                    tickets = _counters(self.device, stream, self.num_counters)
+                counters = tickets.data_ptr()
+            err = self.lib.rollout_cost(*self._head, counters,
+                                        None if self.key is None else self.key.data_ptr(),
+                                        *self._tail, stream)
         if err != 0:
             msg = self.lib.rollout_cost_error_string(err).decode()
             raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
@@ -683,11 +728,11 @@ class KernelLaunch:
 
 
 def fused_sample_rollout_cost(
-    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: int, step: int,
-    num_samples: int, model: str, steer_off: bool = False,
+    u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed: Optional[int],
+    step: Optional[int], num_samples: int, model: str, steer_off: bool = False,
     noise: Optional[torch.Tensor] = None, accumulate: bool = True,
     costs_in: Optional[torch.Tensor] = None, second_moment: bool = False,
-    robot: int = 0, first_sample: int = 0,
+    robot: int = 0, first_sample: int = 0, key: Optional[torch.Tensor] = None,
 ):
     """Sample, roll out and cost K trajectories of ``model`` and accumulate
     the softmax-weighted update, in one kernel.
@@ -695,7 +740,10 @@ def fused_sample_rollout_cost(
     u_prev: (T-1, U) sampling mean; sigma/u_min/u_max: (U,); ref_xy: (R, 2)
     reference window; state0: (S,); scal: (NSCAL,) from :func:`pack_scalars`,
     whose last slot is the elite threshold (+inf: no mask). seed/step: the
-    cycle's Philox key (RNG mode, ``noise=None``); robot: the robot index of
+    cycle's Philox key (RNG mode, ``noise=None``) as host integers, passed
+    by value; or None, and ``key`` a (2,) int64 tensor [seed, step] on the
+    device of the other inputs, which the kernel reads (the same draw, and a
+    CUDA graph's replay reads the key's current value); robot: the robot index of
     the RNG counter (0 for one robot); first_sample: the sample index of the
     RNG counter's first sample (a shard of a sample-sharded update draws
     samples first_sample ... first_sample+K-1 of the unsharded stream).
@@ -719,13 +767,14 @@ def fused_sample_rollout_cost(
     Returns (costs (K,), u_num (T-1, U), norm ()) under the baseline
     min(costs): ``u_opt = u_num / norm``. A CPU tensor runs
     :func:`fused_sample_rollout_cost_reference`; a CUDA tensor launches the
-    kernel, counted in ``fused_sample_rollout_cost.launches``.
+    kernel, counted in ``fused_sample_rollout_cost.launches`` (a launch
+    captured into a CUDA graph counts once a replay, utils/cuda_graph.py).
     """
-    _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal,
-                  num_samples, model, noise, accumulate, costs_in)
+    _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
+                  num_samples, model, noise, accumulate, costs_in, key)
     args = (u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
             num_samples, model, steer_off, noise, accumulate, costs_in,
-            second_moment, robot, first_sample)
+            second_moment, robot, first_sample, key)
     if u_prev.device.type == "cpu":
         return fused_sample_rollout_cost_reference(*args)
     if u_prev.device.type != "cuda":
@@ -737,3 +786,4 @@ def fused_sample_rollout_cost(
 
 
 fused_sample_rollout_cost.launches = 0
+count_launches(fused_sample_rollout_cost)

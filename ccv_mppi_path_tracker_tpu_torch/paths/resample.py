@@ -59,6 +59,22 @@ class PathBuffer:
                                        device=device),
         )
 
+    def with_count_tensor(self) -> "PathBuffer":
+        """This path with ``num_valid`` a 0-d int64 tensor on the path's
+        device (made by a fill, no host sync), so that a CUDA graph takes the
+        count as an input: another course of the same capacity then replays
+        the same graph. Kept on this object while its fields stay the same
+        objects, so a path given every cycle makes one tensor."""
+        if isinstance(self.num_valid, torch.Tensor):
+            return self
+        fields = (self.xy, self.num_valid, self.resolution)
+        memo = self.__dict__.get("_counted")
+        if memo is None or any(a is not b for a, b in zip(memo[0], fields)):
+            memo = self.__dict__["_counted"] = (fields, dataclasses.replace(
+                self, num_valid=torch.full((), int(self.num_valid), dtype=torch.int64,
+                                           device=self.xy.device)))
+        return memo[1]
+
     @staticmethod
     def stack(paths):
         """Per-robot paths of one capacity stacked along a leading robot

@@ -4,8 +4,9 @@ own ``.npz`` format.
 The reference has no persistence; the controller state that matters is
 tiny: the warm-start sequence ``u_prev``, the run's integer ``seed`` and the
 cycle counter ``step`` (with the seed, the step fixes every random draw of a
-cycle, core/random.py), and the numeric parameter dataclasses. Restarting
-from a checkpoint reproduces the uninterrupted run bit-for-bit.
+cycle, core/random.py), and the numeric parameter dataclasses. The device
+key is [seed, step] and is rebuilt from them on load. Restarting from a
+checkpoint reproduces the uninterrupted run bit-for-bit.
 
 The file holds ``ctrl/u_prev``, ``ctrl/seed`` and ``ctrl/step``, one array
 ``<name>/<field>`` for each field of each named parameter dataclass, and
@@ -25,7 +26,7 @@ import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
-from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, make_key
 from ccv_mppi_path_tracker_tpu_torch.models.full_body import FullBodyParams
 
 FORMAT = "ccv_mppi_path_tracker_tpu_torch checkpoint 1"
@@ -55,17 +56,20 @@ def save_checkpoint(path: str, cfg: SolverConfig, ctrl: ControllerState, **param
 
 def load_checkpoint(path: str, device=None):
     """Restore (cfg, ctrl, params): the SolverConfig, the ControllerState
-    and {name: dataclass} of every saved parameter set, their tensors on
-    ``device`` (None: the card, core/device.py) in their saved dtypes."""
+    (its key [seed, step] rebuilt on ``device``) and {name: dataclass} of
+    every saved parameter set, their tensors on ``device`` (None: the card,
+    core/device.py) in their saved dtypes."""
     device = resolve_device(device)
     with np.load(path) as data:
         meta = json.loads(bytes(data["__config__"]).decode())
         if meta.get("format") != FORMAT:
             raise ValueError(f"{path} is not a checkpoint of this port")
+        seed, step = int(data["ctrl/seed"]), int(data["ctrl/step"])
         ctrl = ControllerState(
             u_prev=torch.as_tensor(data["ctrl/u_prev"], device=device),
-            seed=int(data["ctrl/seed"]),
-            step=int(data["ctrl/step"]),
+            seed=seed,
+            step=step,
+            key=make_key(seed, step, device),
         )
         params = {
             name: PARAM_CLASSES[spec["class"]](**{

@@ -132,7 +132,7 @@ def load_control_step(blob: bytes):
         u_opt, ref_xy, ref_yaw, opt_states, min_cost, mean_cost, ess = fn(
             *_flat_inputs(ctrl, state, path, dt, sp, cp, model_params))
         stats = {"min_cost": min_cost, "mean_cost": mean_cost, "ess": ess}
-        return (ControllerState(u_prev=u_opt, seed=ctrl.seed, step=ctrl.step + 1),
+        return (ctrl.advanced(u_opt),
                 StepResult(u_opt=u_opt, u0=u_opt[0], ref=RefWindow(xy=ref_xy, yaw=ref_yaw),
                            opt_states=opt_states, stats=stats))
 

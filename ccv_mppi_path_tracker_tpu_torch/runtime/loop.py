@@ -2,13 +2,17 @@
 
 - :func:`simulate` is the counterpart of the JAX package's
   ``build_simulate_scan``: controller and plant alternate on the device for
-  ``num_steps`` cycles, here as a Python loop over cycles in place of
-  ``lax.scan``. No cycle reads a value back to the host; the logs are
-  stacked at the end.
+  ``num_steps`` cycles, each cycle one call of :func:`cycle`. On the card
+  with the fused kernel the cycle is one CUDA graph, replayed once a cycle
+  with its carry (warm start, key, state, stale elite threshold) kept in the
+  graph's buffers (utils/cuda_graph.py ``Graphed.scan``, the counterpart of
+  ``lax.scan``); otherwise the same function runs eagerly. No cycle reads a
+  value back to the host; the logs are stacked on the device.
 - :class:`ControlLoop` is host-driven stepping for a live plant: the caller
   feeds the measured state each cycle (with a wall-clock-measured dt, as the
   reference's run loop, src/diff_drive_mppi.cpp:346-348) and reads back the
-  command.
+  command. Its step is :func:`solver.mppi.compile_step`'s, a CUDA graph's
+  replay on the card with the kernel.
 """
 
 from __future__ import annotations
@@ -21,13 +25,12 @@ import numpy as np
 import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
-from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.runtime.plant import Plant
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
 
 
 def simulate(
@@ -48,22 +51,30 @@ def simulate(
 ):
     """Run ``num_steps`` control cycles against the plant.
 
-    Each cycle runs ``mppi_step`` and applies u0 to the plant; the plant's
-    process noise (if any) is drawn from the cycle's generator stream 1
-    (core/random.py). Returns (final ctrl, logs) with logs "state" (N, S),
-    "u0" (N, U) and, with ``with_stats``, every solver stat (N,): min_cost,
-    mean_cost, ess, and elite_thresh or sigma_suggest where the options
-    compute them; tensors on the device. ``with_stats=False`` runs the lean
-    step (``mppi_step(..., lean=True)``) and logs the state and u0 only;
-    u0 is the same either way. ``with_paths`` also logs each cycle's planned
-    path "opt_xy" (N, T, 2) and reference window "ref_xy" (N, T, 2); with
-    ``solver_options={"debug_candidates": M}`` the stats add the sampled
-    paths "candidates" (N, M, T, 2), what metrics/animate.py draws.
+    Each cycle runs ``mppi_step`` and applies u0 to the plant (:func:`cycle`);
+    the plant's process noise (if any) is drawn from the cycle's device key
+    (core/random.py plant_normals; a state without a key gets one made from
+    its seed and step). Returns (final ctrl, logs) with logs "state"
+    (N, S), "u0" (N, U) and, with ``with_stats``, every solver stat (N,):
+    min_cost, mean_cost, ess, and elite_thresh or sigma_suggest where the
+    options compute them; tensors on the device. ``with_stats=False`` runs
+    the lean step (``mppi_step(..., lean=True)``) and logs the state and u0
+    only; u0 is the same either way. ``with_paths`` also logs each cycle's
+    planned path "opt_xy" (N, T, 2) and reference window "ref_xy" (N, T, 2);
+    with ``solver_options={"debug_candidates": M}`` the stats add the
+    sampled paths "candidates" (N, M, T, 2), what metrics/animate.py draws.
 
     solver_options: extra keyword options of every cycle's ``mppi_step``
     (shift_warm_start, delay, elite_frac, refine_steps, ...).
     ``"elite_stale": True`` (with elite_frac) runs single-pass elite: each
     cycle masks at the previous cycle's threshold, +inf on the first cycle.
+
+    On the card with ``use_kernel`` the cycle is one CUDA graph (captured by
+    the first run of its configuration and shapes, kept for later runs),
+    replayed ``num_steps`` times with its carry in the graph's buffers:
+    dt, the parameters and the path are its inputs, the key its carry, and
+    the final state's step is set on the host. A sharded cycle (``group``
+    among the options) runs eagerly: its collectives are not captured.
     """
     if plant is None:
         plant = Plant(model_name=cfg.model)
@@ -72,29 +83,43 @@ def simulate(
         model_params = model.default_params(device=state0.device, dtype=state0.dtype)
     opts = dict(solver_options or {})
     elite_stale = opts.pop("elite_stale", False)
+    thresh = None
     if elite_stale:
         if opts.get("elite_frac") is None:
             raise ValueError("elite_stale requires elite_frac")
-        opts["elite_stale_thresh"] = torch.full((), torch.inf, dtype=state0.dtype,
-                                                device=state0.device)
-    state = state0
-    logs = []
-    for _ in range(num_steps):
-        generator = None
-        if plant.process_noise:
-            generator = cycle_generator(ctrl.seed, ctrl.step, state.device, stream=1)
-        ctrl, res = mppi_step(
-            cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-            use_kernel=use_kernel, lean=not (with_stats or with_paths), **opts,
-        )
-        if elite_stale:
-            opts["elite_stale_thresh"] = res.stats["elite_thresh"]
-        state = plant.step(state, res.u0, dt, generator=generator)
-        log = {"state": state, "u0": res.u0, **(res.stats if with_stats else {})}
-        if with_paths:
-            log.update(opt_xy=res.opt_states[:, :2], ref_xy=res.ref.xy)
-        logs.append(log)
-    return ctrl, {k: torch.stack([log[k] for log in logs]) for k in logs[0]}
+        thresh = torch.full((), torch.inf, dtype=state0.dtype, device=state0.device)
+    opts.update(use_kernel=use_kernel, lean=not (with_stats or with_paths))
+    (ctrl, _, _), logs = CYCLE.scan(
+        (ctrl.with_key(), state0, thresh), path, dt, sp, cp, model_params, cfg, plant, opts,
+        with_stats, with_paths, length=num_steps,
+        graph=use_kernel and opts.get("group") is None)
+    return ctrl, logs
+
+
+def cycle(carry, path, dt, sp, cp, model_params, cfg, plant, options, with_stats,
+          with_paths):
+    """One closed-loop cycle, the function :func:`simulate` scans:
+    ``carry`` is (ctrl, state, stale elite threshold or None), ctrl with its
+    key; ``options`` the keyword options of ``mppi_step``. Returns (the next
+    carry, the cycle's log row)."""
+    ctrl, state, thresh = carry
+    if thresh is not None:
+        options = dict(options, elite_stale_thresh=thresh)
+    next_ctrl, res = mppi_step(cfg, ctrl, state, path, dt, sp, cp,
+                               model_params=model_params, **options)
+    if thresh is not None:
+        thresh = res.stats["elite_thresh"]
+    state = plant.step(state, res.u0, dt, key=ctrl.key)
+    log = {"state": state, "u0": res.u0, **(res.stats if with_stats else {})}
+    if with_paths:
+        log.update(opt_xy=res.opt_states[:, :2], ref_xy=res.ref.xy)
+    return (next_ctrl, state, thresh), log
+
+
+# The closed-loop cycle, compiled: on the card one CUDA graph per
+# configuration and shapes a process runs, kept across runs (least recently
+# used dropped first).
+CYCLE = KeyedGraph(cycle, max_graphs=16)
 
 
 @dataclasses.dataclass
@@ -102,10 +127,15 @@ class ControlLoop:
     """Host-driven control loop for live plants.
 
     Mirrors the reference run() loop: dt is measured wall-clock between
-    cycles (src/diff_drive_mppi.cpp:346-348). Every cycle runs
-    :func:`mppi_step` on the device of ``sp``; the only transfers are the
-    measured state in and whatever the caller reads from the returned
-    StepResult.
+    cycles (src/diff_drive_mppi.cpp:346-348). Every cycle runs the step of
+    :func:`solver.mppi.compile_step` on the device of ``sp`` (``compiled``):
+    on the card with ``use_kernel`` the replay of one CUDA graph, captured by
+    the first cycle, whose inputs are the state, the measured dt, sigma, the
+    stale elite threshold and the path; the only transfers are the measured
+    state in and whatever the caller reads from the returned StepResult.
+    Retune ``sp``, ``cp`` or ``model_params`` by new tensors or torch in-place
+    ops: a replay does not see a write through ``.data`` (utils/cuda_graph.py
+    ``Graphed``).
 
     sigma_adapt: covariance-adaptive importance sampling (PAPERS.md, "MPPI
         using Covariance Variable Importance Sampling"): the EMA coefficient
@@ -137,7 +167,7 @@ class ControlLoop:
         self._elite_stale = opts.pop("elite_stale", False)
         if self._elite_stale and opts.get("elite_frac") is None:
             raise ValueError("elite_stale requires elite_frac")
-        self._opts = opts
+        self.compiled = compile_step(self.cfg, adapt_sigma=self.sigma_adapt > 0, **opts)
         self._device, self._dtype = self.sp.lam.device, self.sp.lam.dtype
         self._reset_thresh()
         self._sigma0 = self.sp.control_noise
@@ -155,7 +185,7 @@ class ControlLoop:
     def set_path(self, path: PathBuffer):
         """Swap the reference course. The stale elite threshold belongs to
         the old course, so the next cycle runs unmasked, as a first cycle
-        does."""
+        does. A course of the same capacity replays the same graph."""
         self.path = path
         self._reset_thresh()
 
@@ -170,14 +200,10 @@ class ControlLoop:
         if dt is None:
             dt = self.measure_dt()
         state = torch.as_tensor(state, dtype=self._dtype, device=self._device)
-        opts = dict(self._opts)
-        if self._elite_stale:
-            opts["elite_stale_thresh"] = self._thresh
-        self.ctrl, res = mppi_step(
-            self.cfg, self.ctrl, state, self.path,
+        self.ctrl, res = self.compiled(
+            self.ctrl, state, self.path,
             torch.full((), dt, dtype=self._dtype, device=self._device), self.sp,
-            self.cp, model_params=self.model_params, adapt_sigma=self.sigma_adapt > 0,
-            **opts,
+            self.cp, model_params=self.model_params, elite_stale_thresh=self._thresh,
         )
         if self._elite_stale:
             self._thresh = res.stats["elite_thresh"]

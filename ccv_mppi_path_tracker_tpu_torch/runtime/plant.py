@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from ccv_mppi_path_tracker_tpu_torch.core.random import plant_normals
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 
 
@@ -16,7 +17,8 @@ class Plant:
 
     control_gain scales the applied controls (e.g. 0.9 simulates actuator
     droop); process_noise is the per-state-dim std-dev of additive Gaussian
-    noise, drawn from the generator passed to :meth:`step`.
+    noise, drawn from the cycle's device key [seed, step] passed to
+    :meth:`step` (core/random.py plant_normals).
     """
 
     model_name: str
@@ -24,17 +26,14 @@ class Plant:
     process_noise: float = 0.0
     substeps: int = 1
 
-    def step(self, state, u, dt, generator: Optional[torch.Generator] = None):
+    def step(self, state, u, dt, key: Optional[torch.Tensor] = None):
         m = get_model(self.model_name)
         u = u * self.control_gain
         sub_dt = dt / self.substeps
         for _ in range(self.substeps):
             state = m.step(state, u, sub_dt)
         if self.process_noise:
-            if generator is None:
-                raise ValueError("a plant with process noise needs a generator")
-            state = state + self.process_noise * torch.randn(
-                state.shape, generator=generator, dtype=state.dtype,
-                device=state.device,
-            )
+            if key is None:
+                raise ValueError("a plant with process noise needs the cycle's key")
+            state = state + self.process_noise * plant_normals(key, state.shape, state.dtype)
         return state

@@ -10,11 +10,17 @@ CSV recorder logs without blocking the control path. Deadline-miss and
 jitter statistics come back with the results; the reference silently slips.
 
 - :func:`run_realtime_experiment`: one update a cycle through
-  :class:`ControlLoop` (the fused kernel with ``use_kernel``) and a plant on
-  the device, with one device->host read a cycle.
+  :class:`ControlLoop` (the fused kernel with ``use_kernel``, on the card a
+  CUDA graph's replay) and a plant on the device, with one device->host read
+  a cycle.
 - :func:`run_pipelined_experiment`: cycle n dispatches the update of cycle
   n+1 before it fetches cycle n's command, with a host plant, optionally M
-  cycles per dispatch.
+  cycles per dispatch; on the card with the kernel a dispatch is the replay
+  of one CUDA graph (the JAX package's jitted step and its jitted scan of an
+  M-cycle window).
+
+The gate, the command geometry and the host plant stay outside the compiled
+step, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from ccv_mppi_path_tracker_tpu_torch.solver.command import (
     command_from_solution,
     steering_mode,
 )
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
 
 
 def _start_pose(course, num_states):
@@ -179,6 +185,19 @@ def _plant_step_np(model_name: str, state, u, dt: float):
     return s
 
 
+def window(ctrl, path, dt, state, sp, cp, cfg, micro_batch, plant_dt, step_kw):
+    """``micro_batch`` cycles of the lean update (``mppi_step`` with
+    ``step_kw``) and the model plant (a step of ``plant_dt``) back to back on
+    the device: (the last ctrl, the commands u0 (M, U))."""
+    model = get_model(cfg.model)
+    u0s = []
+    for _ in range(micro_batch):
+        ctrl, res = mppi_step(cfg, ctrl, state, path, dt, sp, cp, **step_kw)
+        state = model.step(state, res.u0, plant_dt)
+        u0s.append(res.u0)
+    return ctrl, torch.stack(u0s)
+
+
 def _ms_stats(seconds):
     """Mean, p95 and max, in ms, of host-clock durations in seconds (zeros
     for none: a one-window run dispatches nothing after its first window)."""
@@ -227,14 +246,16 @@ def run_pipelined_experiment(
     of up to one control period is hidden. The one-window actuation lag this
     introduces is compensated, with ``delay_compensation``:
 
-    - micro_batch = 1: one ``mppi_step(lean=True, delay=1/hz)`` a dispatch;
+    - micro_batch = 1: one ``mppi_step(lean=True, delay=1/hz)`` a dispatch
+      (``compile_step``'s: on the card with the kernel, a graph's replay);
       the step plans from the state Euler-predicted one period ahead under
       the command in flight (solver/mppi.py).
     - micro_batch = M > 1: M cycles of ``mppi_step`` + ``model.step`` on the
-      device, enqueued back to back with no host read between them; within
-      the window the controller advances on its own model plant, and the
-      next window is dispatched from the state the host plant will reach
-      after this window's M commands.
+      device with no host read between them (:func:`window`; on the card
+      with the kernel one CUDA graph of the whole window, the JAX package's
+      jitted scan); within the window the controller advances on its own
+      model plant, and the next window is dispatched from the state the host
+      plant will reach after this window's M commands.
 
     Each window's commands come back through one non-blocking copy into a
     pinned host buffer, marked by a CUDA event that the fetch waits on. The
@@ -265,21 +286,18 @@ def run_pipelined_experiment(
     # is rewritten only after the fetch that follows its copy
     state_host = torch.empty(model.num_states, dtype=dtype, pin_memory=fetch.cuda)
     step_kw = dict(model_params=model_params, use_kernel=use_kernel, lean=True)
+    step = compile_step(cfg, delay=delay, use_kernel=use_kernel, lean=True)
+    windows = KeyedGraph(window)
 
     def dispatch(ctrl, s_np):
         state_host.copy_(torch.from_numpy(s_np))
         state = state_host.to(device, non_blocking=fetch.cuda)
         if micro_batch == 1:
-            ctrl, res = mppi_step(cfg, ctrl, state, path, dt_solve, sp, cp, delay=delay,
-                                  **step_kw)
+            ctrl, res = step(ctrl, state, path, dt_solve, sp, cp, model_params=model_params)
             u = res.u0[None]
         else:
-            u0s = []
-            for _ in range(micro_batch):
-                ctrl, res = mppi_step(cfg, ctrl, state, path, dt_solve, sp, cp, **step_kw)
-                state = model.step(state, res.u0, nominal_dt)
-                u0s.append(res.u0)
-            u = torch.stack(u0s)
+            ctrl, u = windows(ctrl, path, dt_solve, state, sp, cp, cfg, micro_batch,
+                              nominal_dt, step_kw, steps=micro_batch, graph=use_kernel)
         fetch.start(u)
         return ctrl
 

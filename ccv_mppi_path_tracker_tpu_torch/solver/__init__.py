@@ -9,8 +9,13 @@ from ccv_mppi_path_tracker_tpu_torch.solver.command import (
     wheel_speeds,
     wheel_steer_angles,
 )
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import MPPISolver, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import (
+    CompiledStep,
+    MPPISolver,
+    compile_step,
+    mppi_step,
+)
 
-__all__ = ["MPPISolver", "STEERING_MODE_NAMES", "WheelSteerCommand", "build_fleet_step",
-           "command_from_solution", "init_fleet", "mppi_step", "steering_mode",
-           "wheel_speeds", "wheel_steer_angles"]
+__all__ = ["CompiledStep", "MPPISolver", "STEERING_MODE_NAMES", "WheelSteerCommand",
+           "build_fleet_step", "command_from_solution", "compile_step", "init_fleet",
+           "mppi_step", "steering_mode", "wheel_speeds", "wheel_steer_angles"]

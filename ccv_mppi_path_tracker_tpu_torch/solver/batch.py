@@ -15,12 +15,14 @@ card, the JAX package's production serving shape.
   blocks) between batched glue: the references (``resample_references``),
   the scalars (``pack_scalars``) and the per-robot finish, with no loop over
   robots. Robot b draws the kernel's Philox stream at counter word 3 = b
-  under the fleet's (seed, step) key.
+  under the fleet's (seed, step) key. On the card the tick is one CUDA
+  graph's replay (utils/cuda_graph.py), the counterpart of the JAX
+  package's ``@jax.jit`` fleet step.
 
 The fleet's ControllerState is the single robot's with a leading robot axis
-on ``u_prev`` (B, T-1, U). Its seed and step stay host integers, shared by
-the fleet: every robot steps together (the JAX package carries a key and a
-step per robot).
+on ``u_prev`` (B, T-1, U). Its seed and step stay host integers, and its key
+their copy on the device, shared by the fleet: every robot steps together
+(the JAX package carries a key and a step per robot).
 """
 
 from __future__ import annotations
@@ -32,7 +34,12 @@ import torch
 from ccv_mppi_path_tracker_tpu_torch.core.config import SolverConfig
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
-from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, RefWindow, StepResult
+from ccv_mppi_path_tracker_tpu_torch.core.types import (
+    ControllerState,
+    RefWindow,
+    StepResult,
+    make_key,
+)
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     fused_sample_rollout_cost,
     pack_scalars,
@@ -40,20 +47,22 @@ from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import softmax_weights
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_references
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _opt_rollout, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, _opt_rollout, mppi_step
 
 
 def init_fleet(cfg: SolverConfig, num_robots: int, seed: int = 0,
                dtype=torch.float32, device=None) -> ControllerState:
-    """Batched ControllerState: zero warm starts (B, T-1, U) on ``device``
-    (None: the card); each robot's random stream derives from ``seed`` and
-    its index."""
+    """Batched ControllerState: zero warm starts (B, T-1, U) and the key on
+    ``device`` (None: the card); each robot's random stream derives from
+    ``seed`` and its index."""
     model = get_model(cfg.model)
+    device = resolve_device(device)
     return ControllerState(
         u_prev=torch.zeros((num_robots, cfg.horizon - 1, model.num_controls),
-                           dtype=dtype, device=resolve_device(device)),
+                           dtype=dtype, device=device),
         seed=int(seed),
         step=0,
+        key=make_key(seed, 0, device),
     )
 
 
@@ -70,9 +79,13 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
     2) and (B, T), opt_states (B, T, S) and per-robot stats (B,).
 
     ``use_kernel`` runs the fleet through one fused-kernel launch (float32,
-    the four built-in models); otherwise the eager arm.
+    the four built-in models), on the card as the replay of the tick's CUDA
+    graph (captured by the first tick of its shapes; dt, the parameters and
+    the paths are its inputs, the key is read and advanced on the device,
+    and the step's host integer is set on the result; ``step.graphed``
+    counts the captures); otherwise the eager arm, op by op.
     """
-    model = get_model(cfg.model)
+    tick = KeyedGraph(_tick)
 
     def step(ctrls: ControllerState, states, path: PathBuffer, dt, sp, cp,
              model_params=None, noise: Optional[torch.Tensor] = None):
@@ -80,18 +93,24 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
             raise ValueError(f"shared_path={shared_path} needs a path xy of "
                              f"{'(N, 2)' if shared_path else '(B, N, 2)'}, got "
                              f"{tuple(path.xy.shape)}")
-        if model_params is None and model.default_params is not None:
-            model_params = model.default_params(device=states.device, dtype=states.dtype)
-        update = _kernel_update if use_kernel else _eager_update
-        u_opt, ref, stats = update(cfg, ctrls, states, path, dt, sp, cp, model_params,
-                                   noise)
-        opt_states = _opt_rollout(cfg.model, model, states, u_opt.transpose(0, 1),
-                                  dt).transpose(0, 1)
-        next_ctrls = ControllerState(u_prev=u_opt, seed=ctrls.seed, step=ctrls.step + 1)
-        return next_ctrls, StepResult(u_opt=u_opt, u0=u_opt[:, 0], ref=ref,
-                                      opt_states=opt_states, stats=stats)
+        return tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel,
+                    graph=use_kernel)
 
+    step.graphed = tick if use_kernel else None
     return step
+
+
+def _tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel):
+    """One fleet tick: the update of every robot, then its planned path."""
+    model = get_model(cfg.model)
+    if model_params is None and model.default_params is not None:
+        model_params = model.default_params(device=states.device, dtype=states.dtype)
+    update = _kernel_update if use_kernel else _eager_update
+    u_opt, ref, stats = update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise)
+    opt_states = _opt_rollout(cfg.model, model, states, u_opt.transpose(0, 1),
+                              dt).transpose(0, 1)
+    return ctrls.advanced(u_opt), StepResult(u_opt=u_opt, u0=u_opt[:, 0], ref=ref,
+                                             opt_states=opt_states, stats=stats)
 
 
 def _eager_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
@@ -122,9 +141,11 @@ def _kernel_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
     """The kernel branch of mppi_step for B robots in one launch."""
     ref = resample_references(path, states[:, :2], cp.v_ref, dt, cfg.horizon)
     scal = pack_scalars(dt, cp, ref.yaw[:, 0], model_params, sp.noise_beta, sp.lam)
+    rng = (dict(seed=ctrls.seed, step=ctrls.step) if ctrls.key is None
+           else dict(seed=None, step=None, key=ctrls.key))
     costs, u_num, norm = fused_sample_rollout_cost(
         ctrls.u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, states, scal,
-        seed=ctrls.seed, step=ctrls.step, num_samples=cfg.num_samples,
-        model=cfg.model, steer_off=cfg.steer_off, noise=noise)
+        num_samples=cfg.num_samples, model=cfg.model, steer_off=cfg.steer_off,
+        noise=noise, **rng)
     stats = torch.func.vmap(lambda c: softmax_weights(c, sp.lam)[1])(costs)
     return u_num / norm[:, None, None], ref, stats

@@ -13,14 +13,17 @@ or, with ``use_kernel=True``, all of it in the fused kernel
 (kernels/rollout_cost.py); ``refine_steps`` then polishes the update through
 the rollout (diff/gradients.py). Everything stays on the device of ``state``; the
 step reads nothing back to the host (the cycle's seed and counter are host
-integers in ControllerState). With ``group`` the same function is one shard of
-a sample-sharded update (parallel/sharded.py): the reductions become
-collectives over the shards.
+integers in ControllerState, and its key their copy on the device). With
+``group`` the same function is one shard of a sample-sharded update
+(parallel/sharded.py): the reductions become collectives over the shards.
+
+:func:`compile_step` is the counterpart of ``jax.jit`` of this function: on
+the card it replays the kernel path as a CUDA graph (utils/cuda_graph.py).
 """
 
 from __future__ import annotations
 
-import functools
+import dataclasses
 from typing import Optional
 
 import torch
@@ -51,7 +54,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import (
     weighted_update,
 )
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_reference
-from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import capturable, graphed_call
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed, capturable, scan
 
 
 def mppi_step(
@@ -85,7 +88,9 @@ def mppi_step(
     noise: optional injected standard normals (T-1, K, U) for parity tests;
         otherwise the eager path draws from a generator seeded by
         (ctrl.seed, ctrl.step) and the kernel from its Philox stream keyed
-        by the same pair.
+        by the same pair, which it reads from ``ctrl.key`` on the device
+        where the state has one (by value where it has none). The returned
+        state's step and key are advanced by one.
     use_kernel: run sample + rollout + cost + update in the fused kernel
         (float32 only, any K, the four built-in models).
     shift_warm_start: center sampling on the one-step-shifted previous
@@ -150,9 +155,10 @@ def mppi_step(
     if use_kernel:
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
-        kw = dict(seed=ctrl.seed, step=ctrl.step, num_samples=k, model=cfg.model,
-                  steer_off=cfg.steer_off, noise=noise, second_moment=adapt_sigma,
-                  first_sample=first_sample)
+        rng = (dict(seed=ctrl.seed, step=ctrl.step, key=None) if ctrl.key is None
+               else dict(seed=None, step=None, key=ctrl.key))
+        kw = dict(rng, num_samples=k, model=cfg.model, steer_off=cfg.steer_off,
+                  noise=noise, second_moment=adapt_sigma, first_sample=first_sample)
         scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta, sp.lam,
                             cost_thresh=elite_stale_thresh)
         costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
@@ -218,7 +224,7 @@ def mppi_step(
         u_opt = _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, refine_steps,
                         refine_step_size, refine_method)
 
-    next_ctrl = ControllerState(u_prev=u_opt, seed=ctrl.seed, step=ctrl.step + 1)
+    next_ctrl = ctrl.advanced(u_opt)
     if lean:
         # only what a caller feeds back survives
         keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}
@@ -228,6 +234,149 @@ def mppi_step(
     return next_ctrl, StepResult(
         u_opt=u_opt, u0=u_opt[0], ref=ref, opt_states=opt_states, stats=stats
     )
+
+
+class KeyedGraph:
+    """``fn``, a function of a ControllerState, compiled by
+    :class:`utils.cuda_graph.Graphed` with the state's host integers kept out
+    of the graph: the counterpart of ``jax.jit`` (and, with :meth:`scan`, of
+    ``lax.scan``) of a function of the JAX package's carried PRNG key.
+
+    A call is ``fn(ctrl, path, dt, *args) -> (ctrl, out)``, the state
+    advanced by ``steps`` cycles; :meth:`scan` runs ``fn((ctrl, *carry),
+    path, dt, *args) -> ((ctrl, *carry), y)`` ``length`` times. With
+    ``graph`` and a state on the card the call replays the graph of its
+    shapes, captured by the first such call: the graph takes the state's warm
+    start and key (seed and step 0, so that no host integer enters its cache
+    key), the path with its count of valid points a tensor and dt a tensor,
+    and the state it returns gets the caller's seed and step + ``steps``.
+    Otherwise ``fn`` runs eagerly on the arguments as given.
+    """
+
+    def __init__(self, fn, max_graphs: Optional[int] = None):
+        self.fn = fn
+        self.graphed = Graphed(fn, max_graphs=max_graphs)
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured so far: one per shape set seen."""
+        return self.graphed.captures
+
+    @staticmethod
+    def _inputs(ctrl, path, dt):
+        """The state, path and dt as the graph takes them."""
+        like = ctrl.u_prev
+        if not isinstance(dt, torch.Tensor):
+            dt = torch.full((), float(dt), dtype=like.dtype, device=like.device)
+        return ControllerState(like, 0, 0, ctrl.with_key().key), path.with_count_tensor(), dt
+
+    @staticmethod
+    def _graphed(ctrl, graph) -> bool:
+        return graph and ctrl.u_prev.device.type == "cuda"
+
+    def cache_key(self, first, path, dt, *args):
+        """The key of the graph that a call (``first`` its state) or a scan
+        (``first`` its carry) with these arguments would replay."""
+        ctrl = first[0] if isinstance(first, tuple) else first
+        bare, path, dt = self._inputs(ctrl, path, dt)
+        if isinstance(first, tuple):
+            bare = (bare,) + tuple(first[1:])
+        return self.graphed.cache_key(bare, path, dt, *args)
+
+    def __call__(self, ctrl, path, dt, *args, steps: int = 1, graph: bool = True):
+        if not self._graphed(ctrl, graph):
+            return self.fn(ctrl, path, dt, *args)
+        out_ctrl, out = self.graphed(*self._inputs(ctrl, path, dt), *args)
+        return _restored(ctrl, out_ctrl, steps), out
+
+    def scan(self, carry, path, dt, *args, length: int, graph: bool = True):
+        ctrl = carry[0]
+        if not self._graphed(ctrl, graph):
+            return scan(self.fn, carry, path, dt, *args, length=length)
+        bare, path, dt = self._inputs(ctrl, path, dt)
+        (last, *rest), ys = self.graphed.scan((bare,) + tuple(carry[1:]), path, dt, *args,
+                                              length=length)
+        return (_restored(ctrl, last, length), *rest), ys
+
+
+def _restored(ctrl, out_ctrl, steps):
+    """``out_ctrl`` (a graph's, seed and step 0) with ``ctrl``'s seed and its
+    step + ``steps``."""
+    return dataclasses.replace(out_ctrl, seed=ctrl.seed, step=ctrl.step + steps)
+
+
+class CompiledStep:
+    """``mppi_step`` of one configuration and option set: the counterpart of
+    ``jax.jit(functools.partial(mppi_step, cfg, **options))``. Made by
+    :func:`compile_step`; call it as ``step(ctrl, state, path, dt, sp, cp,
+    model_params=None, noise=None, elite_stale_thresh=None)``, with what
+    ``mppi_step`` returns.
+
+    - On the card with ``use_kernel=True``: each call replays the CUDA graph
+      of the update (:class:`KeyedGraph`), captured by the first call of its
+      shapes, which returns the eager run's result. The graph reads the key
+      (``ctrl.key``, made from seed and step where the state has none) and
+      advances it on the device. ``dt``, the parameters, the path, its count
+      of valid points, ``model_params``, ``noise`` and ``elite_stale_thresh``
+      are inputs of the graph, so a measured dt, retuned weights or another
+      course of the same capacity replay the same graph. Retune a parameter
+      by passing a new tensor or by a torch in-place op, not through
+      ``.data`` (utils/cuda_graph.py :class:`Graphed`). With
+      ``refine_steps`` the graph holds the refine stage. A call that cannot
+      be captured (a tensor that requires grad, tensors of two devices)
+      raises, and so does a capture that fails.
+    - With ``use_kernel=False`` on the card, each call runs the eager arm op
+      by op: its host-seeded generators (core/random.py cycle_generator)
+      draw from host integers that a replay cannot advance.
+    - On the CPU, where the caller asked for it, each call is ``mppi_step``.
+
+    ``group`` (the sample-sharded step) is refused: its collectives are not
+    captured; call ``mppi_step``.
+    """
+
+    def __init__(self, cfg: SolverConfig, **options):
+        if options.get("group") is not None:
+            raise ValueError("compile_step does not take group: the sharded step's "
+                             "collectives are not captured; call mppi_step")
+        self.cfg = cfg
+        self.options = options
+        self.graph = KeyedGraph(_graph_step)
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured so far: one per shape set this step has seen."""
+        return self.graph.captures
+
+    def _args(self, ctrl, state, path, dt, sp, cp, model_params=None, noise=None,
+              elite_stale_thresh=None):
+        """The arguments of :func:`_graph_step` for this call: the options
+        with the call's tensors (those given) beside them."""
+        kw = dict(self.options)
+        for name, value in (("model_params", model_params), ("noise", noise),
+                            ("elite_stale_thresh", elite_stale_thresh)):
+            if value is not None:
+                kw[name] = value
+        return ctrl, path, dt, state, sp, cp, self.cfg, kw
+
+    def cache_key(self, *args, **kwargs):
+        """The key of the graph that this call replays (``__call__``'s
+        arguments); the configuration and options are part of it."""
+        return self.graph.cache_key(*self._args(*args, **kwargs))
+
+    def __call__(self, *args, **kwargs):
+        return self.graph(*self._args(*args, **kwargs),
+                          graph=bool(self.options.get("use_kernel")))
+
+
+def compile_step(cfg: SolverConfig, **options) -> CompiledStep:
+    """The compiled control step of ``cfg`` under ``options`` (the keyword
+    options of :func:`mppi_step`): see :class:`CompiledStep`."""
+    return CompiledStep(cfg, **options)
+
+
+def _graph_step(ctrl, path, dt, state, sp, cp, cfg, kw):
+    """The function a :class:`CompiledStep` captures."""
+    return mppi_step(cfg, ctrl, state, path, dt, sp, cp, **kw)
 
 
 def _sum_shards(costs, global_min, lam, u_num, norm, u2_num, group):
@@ -258,15 +407,15 @@ def _sigma_suggest(m2, u_opt):
 def _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
     """The refine stage of ``mppi_step`` (diff/gradients.py). On the card,
     for a built-in model, it runs as a CUDA graph captured on its first
-    call for these shapes and options (utils/cuda_graph.py): eagerly it is
+    call for these shapes and options (:data:`REFINE_GRAPHS`): eagerly it is
     about 1700 small launches (Gauss-Newton, full_body), which the host
-    takes far longer to issue than the card to run."""
-    args = (u_opt, state, ref, dt, sp, cp, model_params)
-    stage = functools.partial(refine_stage, cfg, steps=steps, step_size=step_size,
-                              method=method)
+    takes far longer to enqueue than the card to run. Inside a capture (a
+    compiled step's) it runs inline, so the outer graph holds it; with a
+    tensor that requires grad, eagerly."""
+    args = (cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method)
     if cfg.model in CLOSED_FORM_MODELS and capturable(args):
-        return graphed_call(("refine", cfg, steps, step_size, method), stage, args)
-    return stage(*args)
+        return REFINE_GRAPHS(*args)
+    return refine_stage(*args)
 
 
 def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
@@ -288,6 +437,11 @@ def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_s
     return u_opt
 
 
+# The refine stage's CUDA graphs: one per refine configuration and shapes a
+# process runs (least recently used dropped first).
+REFINE_GRAPHS = Graphed(refine_stage, max_graphs=16)
+
+
 def _opt_rollout(model_name, model, state, u_opt, dt):
     """Planned-path re-roll of the optimal sequence (the reference's
     publish_OptimalPath, src/diff_drive_mppi.cpp:295-312), in the closed
@@ -299,7 +453,9 @@ def _opt_rollout(model_name, model, state, u_opt, dt):
 
 class MPPISolver:
     """One configuration's control step: construct with a config, call
-    :meth:`step` each control cycle with the measured state."""
+    :meth:`step` each control cycle with the measured state. The step is
+    :func:`compile_step`'s (the JAX package's solver owns its jitted step):
+    on the card with the kernel, a CUDA graph's replay."""
 
     def __init__(self, cfg: SolverConfig, use_kernel=False, device=None):
         """use_kernel: False (the eager path), True (the fused kernel) or
@@ -311,6 +467,7 @@ class MPPISolver:
         self.cfg = cfg
         self.use_kernel = use_kernel
         self.model = get_model(cfg.model)
+        self.compiled = compile_step(cfg, use_kernel=use_kernel)
 
     def init(self, seed: int = 0, dtype=torch.float32, device=None) -> ControllerState:
         """A zero warm start on ``device`` (None: the card)."""
@@ -319,7 +476,4 @@ class MPPISolver:
         )
 
     def step(self, ctrl, state, path, dt, sp, cp, model_params=None):
-        return mppi_step(
-            self.cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-            use_kernel=self.use_kernel,
-        )
+        return self.compiled(ctrl, state, path, dt, sp, cp, model_params=model_params)

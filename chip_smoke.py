@@ -142,7 +142,22 @@ failure ending the run with a non-zero exit:
  29. the benchmark (bench_torch/): `python3 -m bench_torch --all --quick`,
      the seven cells each in a process of its own with short chains and no
      traced run; every gate passes and every metric is finite, each cell's
-     line printed.
+     line printed;
+ 30. the compiled paths (utils/cuda_graph.py, the counterparts of jax.jit
+     and lax.scan): the kernel with its (seed, step) key read from device
+     memory, bit-equal to the by-value key (every model, both elite passes,
+     the second moment, the fleet, first_sample) and within the kernel gate
+     of its plain version with the same key tensor; compile_step over 50
+     chained updates against op-by-op mppi_step (full_body, unicycle, elite,
+     Gauss-Newton refined: bit-equality printed, the u_opt gate required),
+     one capture each, replays counted as launches, the key [seed, step];
+     no host sync in a replay of the step, the ControlLoop cycle, the fleet
+     tick and the graphed loop; the graphed loop (RMSE < 0.15 m), fleet
+     (every robot within 0.3 m), paced ControlLoop at 10 Hz (0 misses) and
+     pipelined M=8 window (0 misses); CUDA-event and host times of the
+     op-by-op and graphed arms in turns (updates, the loop, the fleet tick,
+     the serving cycle, the window's enqueue) and the graphed update's busy
+     share.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -150,7 +165,7 @@ back at 0.
 Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
-...}. The last three lines are the kernels JSON line (each entry with its bound:
+...}, phase 30 with {"compiled": ...}. The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
 the main-path run's count over its cycles), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
@@ -364,6 +379,522 @@ def crossover(rows):
     return None
 
 
+GRAPH_UPDATES = 50          # phase 30: chained updates, compiled against op by op
+SEED_30, STEP_30 = 2 ** 33 + 5, 9  # phase 30's key: a seed past 32 bits
+
+
+def host_split(keyed, args, calls=200):
+    """Host microseconds of each piece of a replayed call of ``keyed`` (a
+    KeyedGraph whose graph of ``args`` exists), over ``calls`` calls after
+    one: the state, path and dt made graph inputs, the argument walk for the
+    cache key, the refusal check, the load of the inputs (none changed), a
+    copy of every input (what a call would cost without the skip), the
+    replay's launch, the copies of the outputs and the rebuild of the
+    result."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
+
+    full = keyed._inputs(*args[:3]) + tuple(args[3:])
+    leaves = []
+    graph = keyed.graphed.graphs[cuda_graph._flatten(full, leaves)]
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return out
+
+    return {
+        "graph_inputs": us(lambda: keyed._inputs(*args[:3])),
+        "walk": us(lambda: cuda_graph._flatten(full, [])),
+        "refusal": us(lambda: cuda_graph.refusal(leaves)),
+        "load_unchanged": us(lambda: graph.load(leaves)),
+        "copy_every_input": us(lambda: torch._foreach_copy_(graph.inputs, leaves)),
+        "replay": us(graph.replay),
+        "clone_outputs": us(lambda: cuda_graph._clone_all(graph.outputs)),
+        "rebuild": us(lambda: cuda_graph.fill_tensors(graph.out_template, graph.outputs)),
+        "inputs": len(leaves), "outputs": len(graph.outputs)}
+
+
+def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
+    """Phase 30: the compiled paths (utils/cuda_graph.py), the counterparts
+    of the JAX package's jax.jit and lax.scan. (a) the kernel's key read from
+    device memory, bit-equal to the by-value key and within the kernel gate
+    of its plain version with the same key tensor; (b) compile_step against
+    op by op over GRAPH_UPDATES chained updates; (c) replays draw anew and
+    the key reads [seed, step]; (d) no host sync in a replay, one capture a
+    configuration; (g) a replay reads a parameter retuned in place and runs
+    under torch.inference_mode; (e) the gates on the graphed paths; (f)
+    timings of the op-by-op and graphed arms in turns, and where a graphed
+    call's host time goes (:func:`host_split`). Fills ``launches``, ``max_abs_err``
+    and ``times_out`` for the kernels line; returns its JSON record."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        KernelLaunch,
+        fused_sample_rollout_cost,
+        fused_sample_rollout_cost_reference,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import elite_threshold
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.runtime import (
+        ControlLoop,
+        run_tracking_experiment,
+        simulate,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.runtime import loop as loop_mod
+    from ccv_mppi_path_tracker_tpu_torch.runtime import realtime
+    from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet
+    from ccv_mppi_path_tracker_tpu_torch.solver import batch as batch_mod
+    from ccv_mppi_path_tracker_tpu_torch.solver.command import command_from_solution
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import (
+        REFINE_GRAPHS,
+        KeyedGraph,
+        compile_step,
+        mppi_step,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
+
+    kernel_fn, plain_fn = fused_sample_rollout_cost, fused_sample_rollout_cost_reference
+    record = {}
+    t_phase = time.perf_counter()
+
+    def key_of(seed, step):
+        return torch.tensor([seed, step], dtype=torch.int64, device=dev)
+
+    def key_reads(ctrl):
+        return ctrl.key.tolist() == [ctrl.seed, ctrl.step]
+
+    # (a) the kernel's key --------------------------------------------------
+    key = key_of(SEED_30, STEP_30)
+    by_value = dict(seed=SEED_30, step=STEP_30)
+    by_key = dict(seed=None, step=None, key=key)
+    key_cases = [(p, K_MAIN, T_MAIN, None, {}) for p in PRESET_MODELS]
+    key_cases += [("full_body", K_MAIN, T_MAIN, None, {"accumulate": False}),
+                  ("full_body", K_MAIN, T_MAIN, None, {"costs_in": True}),
+                  ("diff_drive", K_MAIN, T_MAIN, None, {"costs_in": True}),
+                  ("full_body", K_MAIN, T_MAIN, None, {"second_moment": True}),
+                  ("diff_drive", K_MAIN, T_MAIN, None, {"second_moment": True}),
+                  ("full_body", K_MAIN, T_MAIN, None, {"first_sample": OFFSET}),
+                  ("diff_drive", K_FLEET, T_FLEET, B_FLEET, {}),
+                  ("full_body", K_FLEET, T_FLEET, B_FLEET, {})]
+    worst = {}
+    for preset, k, t, robots, opts in key_cases:
+        s = kernel_case(preset, k, t, robots=robots, seed=30)
+        kw = dict(num_samples=k, model=s["model"], **opts)
+        args = s["kargs"]
+        if opts.get("costs_in"):
+            costs = kernel_fn(*args, accumulate=False, **by_value, num_samples=k,
+                              model=s["model"])[0]
+            args = args[:6] + (s["scal"](elite_threshold(costs, ELITE)),)
+            kw["costs_in"] = costs
+        a = kernel_fn(*args, **by_value, **kw)
+        b = kernel_fn(*args, **by_key, **kw)
+        c = plain_fn(*args, **by_key, **kw)
+        torch.cuda.synchronize()
+        same = all((x is None and y is None) or bool(torch.equal(x, y)) for x, y in zip(a, b))
+        tag = f"{s['model']} K={k} T={t}{f' B={robots}' if robots else ''} {opts or ''}"
+        require(same, f"[30] {tag}: the device key's draw differs from the by-value key's")
+        cost_rel = float(((b[0] - c[0]).abs() / c[0].abs()).max())
+        require(cost_rel <= COST_RTOL, f"[30] {tag}: key costs vs plain {cost_rel}")
+        err = 0.0
+        if b[1] is not None:
+            norm_b, norm_c = b[2], c[2]
+            if robots:
+                norm_b, norm_c = norm_b[:, None, None], norm_c[:, None, None]
+            ub, uc = b[1] / norm_b, c[1] / norm_c
+            err = float((ub - uc).abs().max())
+            require(bool(torch.isfinite(ub).all()) and err <= u_bound(uc),
+                    f"[30] {tag}: key u_opt vs plain {err} > {u_bound(uc)}")
+        worst[tag] = err
+        print(f"[30 key] {tag}: device key bit-equal to the by-value key {same}; vs the "
+              f"plain version with the same key tensor: costs max rel err {cost_rel:.3e}, "
+              f"u_opt max abs err {err:.3e}", flush=True)
+        counters_zero(f"[30] {tag}")
+    max_abs_err["full_body_key"] = worst[f"full_body K={K_MAIN} T={T_MAIN} "]
+    record["key_cases"] = len(key_cases)
+
+    # (b, c) compile_step against op by op ---------------------------------
+    chains = {}
+    for preset, opts in (("full_body", {}), ("diff_drive", {}),
+                         ("full_body", {"elite_frac": ELITE}),
+                         ("full_body", {"refine_steps": 3,
+                                        "refine_method": "gauss_newton"})):
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+        m = get_model(cfg.model)
+        path = PathBuffer.from_points(course, 0.1, device=dev)
+        state = torch.zeros(m.num_states, device=dev)
+        state[1] = float(course[0, 1])
+        n = GRAPH_UPDATES if "refine_steps" not in opts else 10
+        compiled = compile_step(cfg, use_kernel=True, lean=True, **opts)
+        refine_graphs = REFINE_GRAPHS.captures
+        fused_sample_rollout_cost.launches = 0
+        c1 = ControllerState.initial(SEED_30, cfg.horizon, m.num_controls, device=dev)
+        outs_g = []
+        for i in range(n):
+            c1, r1 = compiled(c1, state, path, 0.1 + 0.001 * i, sp, cp)
+            outs_g.append(r1.u_opt)
+        n_graph = fused_sample_rollout_cost.launches
+        inlined = REFINE_GRAPHS.captures == refine_graphs
+        c2 = ControllerState.initial(SEED_30, cfg.horizon, m.num_controls, device=dev)
+        outs_e = []
+        for i in range(n):
+            c2, r2 = mppi_step(cfg, c2, state, path, torch.full((), 0.1 + 0.001 * i,
+                                                                device=dev),
+                               sp, cp, use_kernel=True, lean=True, **opts)
+            outs_e.append(r2.u_opt)
+        g, e = torch.stack(outs_g), torch.stack(outs_e)
+        bit = bool(torch.equal(g, e))
+        err = float((g - e).abs().max())
+        moved = bool((g[1:] - g[:-1]).abs().amax(dim=(1, 2)).min() > 0)
+        name = f"{cfg.model}{''.join('_' + k for k in opts)}"
+        per = 2 if "elite_frac" in opts else 1
+        require(err <= u_bound(e), f"[30] {name}: compiled vs op by op {err}")
+        require(compiled.captures == 1, f"[30] {name}: {compiled.captures} captures")
+        require(n_graph == per * n, f"[30] {name}: {n_graph} launches in {n} updates")
+        require(key_reads(c1) and c1.step == n and c1.key.tolist() == c2.key.tolist(),
+                f"[30] {name}: key {c1.key.tolist()} after {n} updates")
+        require(moved, f"[30] {name}: two consecutive replays gave the same update")
+        require(inlined, f"[30] {name}: the refine stage was captured apart")
+        chains[name] = dict(bit_equal=bit, max_abs_err=err, updates=n, launches=n_graph)
+        print(f"[30 compile_step] {name} K={K_MAIN} T={T_MAIN}, {n} chained updates, dt "
+              f"varying: u_opt bit-equal to op by op {bit} (max abs err {err:.3e}, bound "
+              f"{u_bound(e):.3e}); 1 capture; kernel launches {n_graph} (replays counted); "
+              f"every update moved; key {c1.key.tolist()} = [seed, step]"
+              f"{'; refine stage inlined in the graph' if 'refine_steps' in opts else ''}",
+              flush=True)
+        counters_zero(f"[30] {name}")
+    record["compile_step"] = chains
+    # consecutive replays from one warm start draw new samples
+    cfg, sp, cp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    state = torch.zeros(5, device=dev)
+    state[1] = float(course[0, 1])
+    compiled = compile_step(cfg, use_kernel=True, lean=True)
+    c0 = ControllerState.initial(SEED_30, cfg.horizon, 5, device=dev)
+    ua = compiled(c0, state, path, 0.1, sp, cp)[1].u_opt        # the capture's eager run
+    ub = compiled(c0, state, path, 0.1, sp, cp)[1].u_opt        # a replay, same key
+    c1 = ControllerState(c0.u_prev, c0.seed, 1, key_of(SEED_30, 1))
+    uc = compiled(c1, state, path, 0.1, sp, cp)[1].u_opt        # a replay, the next key
+    require(bool(torch.equal(ua, ub)) and not bool(torch.equal(ub, uc)),
+            "[30] a replay does not follow the key it is given")
+    print("[30 replays] from one warm start: the replay at the same key bit-equal to the "
+          "capturing run, the replay at the next key a new draw", flush=True)
+
+    # (d) one capture a configuration, no host sync in a replay ----------------
+    loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=path, sigma_adapt=0.2,
+                       solver_options={"use_kernel": True, "lean": True})
+    fused_sample_rollout_cost.launches = 0
+    st = state
+    for i in range(GRAPH_UPDATES):
+        res = loop.step(st, dt=0.1 + 0.002 * i)
+        st = get_model("full_body").step(st, res.u0, 0.1)
+    require(loop.compiled.captures == 1 and fused_sample_rollout_cost.launches ==
+            GRAPH_UPDATES and key_reads(loop.ctrl),
+            f"[30] ControlLoop: {loop.compiled.captures} captures, "
+            f"{fused_sample_rollout_cost.launches} launches in {GRAPH_UPDATES} cycles")
+    fcfg, fsp, fcp, fcourse = PRESETS["diff_drive"](num_samples=K_FLEET, horizon=T_FLEET,
+                                                    device=dev)
+    fpath = PathBuffer.from_points(fcourse, 0.1, device=dev)
+    fstates = torch.zeros((B_FLEET, 3), device=dev)
+    fstates[:, 1] = float(fcourse[0, 1]) + torch.linspace(-0.4, 0.4, B_FLEET, device=dev)
+    fstep = build_fleet_step(fcfg, use_kernel=True)
+    fctrls = init_fleet(fcfg, B_FLEET, seed=1, device=dev)
+    fdt = torch.full((), 0.1, device=dev)
+    fctrls, _ = fstep(fctrls, fstates, fpath, fdt, fsp, fcp)
+    lcfg, lsp, lcp, lcourse = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                   device=dev)
+    lpath = PathBuffer.from_points(lcourse, 0.1, device=dev)
+    lstart = torch.tensor([0.0, float(lcourse[0, 1]), 0.0, 0.0, 0.0], device=dev)
+    ldt = torch.full((), 0.1, device=dev)
+
+    def lrun(n, seed=0):
+        return simulate(lcfg, ControllerState.initial(seed, T_MAIN, 5, device=dev), lstart,
+                        lpath, ldt, lsp, lcp, num_steps=n, use_kernel=True, with_stats=False)
+
+    before = loop_mod.CYCLE.captures
+    lrun(5)
+    lrun(7, seed=3)
+    loop_captures = loop_mod.CYCLE.captures - before
+    ctrl = ControllerState.initial(SEED_30, cfg.horizon, 5, device=dev)
+    ctrl, _ = compiled(ctrl, state, path, 0.1, sp, cp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            ctrl, _ = compiled(ctrl, state, path, 0.1, sp, cp)
+            loop.step(st, dt=0.1)
+            fctrls, _ = fstep(fctrls, fstates, fpath, fdt, fsp, fcp)
+        lrun(5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(loop_captures <= 1 and fstep.graphed.captures == 1,
+            f"[30] captures: loop {loop_captures}, fleet {fstep.graphed.captures}")
+    print(f"[30 captures] one capture a configuration: compile_step 1, ControlLoop 1 over "
+          f"{GRAPH_UPDATES} cycles with dt varying ({GRAPH_UPDATES} launches), the fleet "
+          f"tick 1, the loop's cycle {loop_captures} over two runs of 5 and 7 cycles "
+          f"(kept from an earlier run of this configuration where 0); no host sync in a "
+          f"replay of the step, the ControlLoop cycle, the fleet tick, nor in a 5-cycle "
+          f"graphed loop", flush=True)
+    counters_zero("[30] captures")
+
+    # (g) what a replay reads: a parameter retuned in place by a torch op, and
+    # calls under torch.inference_mode (inference tensors, copied at every
+    # call), the graph captured inside it and replayed inside and outside
+    rcfg, rsp, rcp, rcourse = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                   device=dev)
+    rpath = PathBuffer.from_points(rcourse, 0.1, device=dev)
+    rstep = compile_step(rcfg, use_kernel=True, lean=True)
+    r0 = ControllerState.initial(SEED_30, T_MAIN, 5, device=dev)
+    before = rstep(r0, state, rpath, 0.1, rsp, rcp)[1].u_opt       # the capture
+    rcp.path_weight.mul_(3.0)
+    got = rstep(r0, state, rpath, 0.1, rsp, rcp)[1].u_opt
+    want = mppi_step(rcfg, r0, state, rpath, torch.full((), 0.1, device=dev), rsp, rcp,
+                     use_kernel=True, lean=True)[1].u_opt
+    retune_bit = bool(torch.equal(got, want))
+    retune_err = float((got - want).abs().max())
+    require(retune_err <= u_bound(want) and not bool(torch.equal(got, before)),
+            f"[30] a replay after an in-place retune: {retune_err} from op by op")
+    with torch.inference_mode():
+        istep = compile_step(rcfg, use_kernel=True, lean=True)
+        ic = ControllerState.initial(SEED_30, T_MAIN, 5, device=dev)
+        ig = []
+        for i in range(3):
+            ic, ires = istep(ic, state, rpath, 0.1 + 0.01 * i, rsp, rcp)
+            ig.append(ires.u_opt)
+    ic, ires = istep(ic, state, rpath, 0.13, rsp, rcp)
+    ig.append(ires.u_opt)
+    ie, ieo = ControllerState.initial(SEED_30, T_MAIN, 5, device=dev), []
+    for i in range(4):
+        ie, ires = mppi_step(rcfg, ie, state, rpath, torch.full((), 0.1 + 0.01 * i, device=dev),
+                             rsp, rcp, use_kernel=True, lean=True)
+        ieo.append(ires.u_opt)
+    infer_err = float((torch.stack(ig) - torch.stack(ieo)).abs().max())
+    infer_bit = bool(torch.equal(torch.stack(ig), torch.stack(ieo)))
+    require(infer_err <= u_bound(ieo[-1]) and istep.captures == 1 and key_reads(ic),
+            f"[30] inference mode: {infer_err} from op by op, {istep.captures} captures")
+    record["replay_reads"] = dict(retune_bit_equal=retune_bit, retune_max_abs_err=retune_err,
+                                  inference_bit_equal=infer_bit,
+                                  inference_max_abs_err=infer_err)
+    print(f"[30 inputs] path_weight retuned by an in-place torch op between replays: u_opt "
+          f"bit-equal to op by op with the new weight {retune_bit} (max abs err "
+          f"{retune_err:.3e}), and moved; 3 updates under torch.inference_mode (captured "
+          f"there) and one replay outside it: bit-equal to op by op {infer_bit} (max abs err "
+          f"{infer_err:.3e}), 1 capture, key {ic.key.tolist()} = [seed, step]", flush=True)
+    counters_zero("[30] inputs")
+
+    # (e) the gates on the graphed paths ---------------------------------------
+    fused_sample_rollout_cost.launches = 0
+    out = run_tracking_experiment(lcfg, lsp, lcp, lcourse, num_steps=STEPS, use_kernel=True)
+    n = fused_sample_rollout_cost.launches
+    launches["full_body_graphed"] = n
+    rmse = out["metrics"]["rmse"]
+    require(rmse < 0.15 and n == STEPS and key_reads(out["ctrl"]),
+            f"[30] graphed loop: RMSE {rmse}, {n} launches")
+    fused_sample_rollout_cost.launches = 0
+    fctrls = init_fleet(fcfg, B_FLEET, seed=1, device=dev)
+    fs = fstates
+    fm = get_model(fcfg.model)
+    for _ in range(STEPS):
+        fctrls, fres = fstep(fctrls, fs, fpath, fdt, fsp, fcp)
+        fs = fm.step(fs, fres.u0, fdt)
+    final = fs.cpu().numpy()
+    d = np.min(np.linalg.norm(final[:, None, :2] - fcourse[None], axis=-1), axis=1)
+    nf = fused_sample_rollout_cost.launches
+    require(bool((d < 0.3).all()) and nf == STEPS and key_reads(fctrls),
+            f"[30] graphed fleet: worst robot {d.max()} m, {nf} launches")
+    paced = realtime.run_realtime_experiment(lcfg, lsp, lcp, lcourse, hz=10.0,
+                                             num_cycles=20, use_kernel=True)
+    prs = paced["rate_stats"]
+    require(prs["deadline_misses"] == 0 and paced["metrics"]["rmse"] < 0.15,
+            f"[30] paced ControlLoop at 10 Hz: {prs['deadline_misses']} misses, RMSE "
+            f"{paced['metrics']['rmse']}")
+    pcfg, psp, pcp, pcourse = PRESETS["diff_drive"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                    device=dev)
+    piped = realtime.run_pipelined_experiment(pcfg, psp, pcp, pcourse, hz=50.0,
+                                              num_cycles=96, use_kernel=True, micro_batch=8)
+    pipe_rs, pipe_dm = piped["rate_stats"], piped["dispatch_ms"]
+    require(pipe_rs["deadline_misses"] == 0 and piped["metrics"]["rmse"] < 0.5,
+            f"[30] pipelined M=8: {pipe_rs['deadline_misses']} misses, RMSE "
+            f"{piped['metrics']['rmse']}")
+    record["gates"] = dict(
+        loop_rmse=rmse, loop_launches=n, fleet_worst_m=float(d.max()), fleet_launches=nf,
+        paced_misses=prs["deadline_misses"], paced_mean_dt_ms=prs["mean_dt"] * 1e3,
+        paced_rmse=paced["metrics"]["rmse"], pipelined_m8_misses=pipe_rs["deadline_misses"],
+        pipelined_m8_dispatch_ms=pipe_dm, pipelined_m8_rmse=piped["metrics"]["rmse"])
+    print(f"[30 gates] graphed loop {STEPS} cycles full_body K={K_MAIN} T={T_MAIN}: RMSE "
+          f"{rmse:.4f} m, {n} launches; graphed fleet {STEPS} ticks B={B_FLEET} K={K_FLEET} "
+          f"T={T_FLEET}: every robot within {d.max():.4f} m, {nf} launches; paced "
+          f"ControlLoop full_body 10 Hz 20 cycles: {prs['deadline_misses']} misses, mean dt "
+          f"{prs['mean_dt'] * 1e3:.4f} ms, RMSE {paced['metrics']['rmse']:.4f} m; pipelined "
+          f"M=8 diff_drive 50 Hz 96 cycles: {pipe_rs['deadline_misses']} misses, a window's "
+          f"dispatch mean {pipe_dm['mean']:.4f} ms max {pipe_dm['max']:.4f} ms, RMSE "
+          f"{piped['metrics']['rmse']:.4f} m on {card}", flush=True)
+    counters_zero("[30] gates")
+
+    # (f) timing: op by op against graphed, in turns ---------------------------
+    arms, per = {}, {}
+    for name, preset, k, t, opts in (
+            ("full_body", "full_body", K_MAIN, T_MAIN, {}),
+            ("unicycle", "diff_drive", K_MAIN, T_MAIN, {}),
+            ("full_body_K10000_T15", "full_body", K_REF, T_REF, {}),
+            ("full_body_elite", "full_body", K_MAIN, T_MAIN, {"elite_frac": ELITE})):
+        s = kernel_case(preset, k, t, roll_off=True, seed=5)
+        step_args = (s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+        comp = compile_step(s["cfg"], use_kernel=True, lean=True, **opts)
+
+        def chain(fn, s=s, step_args=step_args):
+            carry = [ControllerState.initial(0, s["cfg"].horizon, s["u_prev"].shape[1],
+                                             device=dev)]
+
+            def call():
+                carry[0], _ = fn(carry[0], *step_args, model_params=s["mp"])
+            return call
+
+        arms[f"{name}/op_by_op"] = (chain(functools.partial(
+            mppi_step, s["cfg"], use_kernel=True, lean=True, **opts)), 20)
+        arms[f"{name}/graphed"] = (chain(comp), 20)
+    s = kernel_case("full_body", K_MAIN, T_MAIN, roll_off=True, seed=5)
+    mkw = dict(num_samples=K_MAIN, model="full_body")
+    arms["kernel/by_value"] = (KernelLaunch(*s["kargs"], **by_value, **mkw).run, 50)
+    arms["kernel/device_key"] = (KernelLaunch(*s["kargs"], **by_key, **mkw).run, 50)
+    arms["kernel/plain_key"] = (lambda: plain_fn(*s["kargs"], **by_key, **mkw), 3)
+    # the 200-cycle loop: the eager scan of the cycle against its graph
+    static = (lcfg, loop_mod.Plant(model_name="full_body"),
+              {"use_kernel": True, "lean": False}, True, False)
+    mp = get_model("full_body").default_params(device=dev)
+
+    def loop_eager():
+        c = ControllerState.initial(0, T_MAIN, 5, device=dev)
+        cuda_graph.scan(loop_mod.cycle, (c, lstart, None), lpath, ldt, lsp, lcp, mp, *static,
+                        length=STEPS)
+
+    def loop_graphed():
+        simulate(lcfg, ControllerState.initial(0, T_MAIN, 5, device=dev), lstart, lpath,
+                 ldt, lsp, lcp, model_params=mp, num_steps=STEPS, use_kernel=True)
+
+    arms["loop200/op_by_op"], arms["loop200/graphed"] = (loop_eager, 1), (loop_graphed, 1)
+    per["loop200"] = STEPS
+    # the fleet tick
+    fc = [init_fleet(fcfg, B_FLEET, seed=1, device=dev)] * 2
+
+    def tick_eager():
+        fc[0], _ = batch_mod._tick(fc[0], fpath, fdt, fstates, fsp, fcp, None, None, fcfg, True)
+
+    def tick_graphed():
+        fc[1], _ = fstep(fc[1], fstates, fpath, fdt, fsp, fcp)
+
+    arms["fleet/op_by_op"], arms["fleet/graphed"] = (tick_eager, 20), (tick_graphed, 20)
+    # the serving cycle: update, command geometry, plant, one read to the host
+    serve = {}
+    for arm in ("op_by_op", "graphed"):
+        sl = ControlLoop(cfg=lcfg, sp=lsp, cp=lcp, path=lpath,
+                         solver_options={"use_kernel": True, "lean": True})
+        if arm == "op_by_op":
+            sl.compiled = functools.partial(mppi_step, lcfg, use_kernel=True, lean=True)
+        serve[arm] = sl
+
+        def cycle(sl=sl):
+            res = sl.step(lstart, dt=0.01)
+            cmd = command_from_solution("full_body", res.u0, 0.01)
+            nxt = get_model("full_body").step(lstart, res.u0, 0.01)
+            torch.cat([nxt, torch.stack([cmd.v, cmd.w, cmd.steer_r, cmd.steer_l,
+                                         cmd.roll])]).cpu()
+        arms[f"serving/{arm}"] = (cycle, 20)
+    # the pipelined M=8 window's enqueue
+    wkw = dict(model_params=None, use_kernel=True, lean=True)
+    pstate = torch.tensor([0.0, float(pcourse[0, 1]), 0.0], device=dev)
+    ppath = PathBuffer.from_points(pcourse, 0.1, device=dev)
+    pdt = torch.full((), 0.1, device=dev)
+    gwin = KeyedGraph(realtime.window)
+    pc = ControllerState.initial(0, T_MAIN, 2, device=dev)
+    wargs = (pc, ppath, pdt, pstate, psp, pcp, pcfg, 8, 0.02, wkw)
+    arms["window_m8/op_by_op"] = (lambda: realtime.window(*wargs), 5)
+    arms["window_m8/graphed"] = (lambda: gwin(*wargs, steps=8), 5)
+    per["window_m8"] = 1
+    host = {name: [] for name in arms}
+    kl = {name: [0, 0] for name in arms}
+
+    def wrap(name, fn):
+        def call():
+            before = fused_sample_rollout_cost.launches
+            t0 = time.perf_counter()
+            fn()
+            host[name].append(time.perf_counter() - t0)
+            kl[name][0] += fused_sample_rollout_cost.launches - before
+            kl[name][1] += 1
+        return call
+
+    reps = 5
+    times = time_interleaved({name: (wrap(name, fn), inner)
+                              for name, (fn, inner) in arms.items()}, reps)
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    timing = {}
+    for name, v in times.items():
+        div = per.get(name.split("/")[0], 1)
+        timing[name] = dict(
+            ms=statistics.median(v) / div, ms_min=min(v) / div, ms_max=max(v) / div,
+            host_us=statistics.median(host[name]) * 1e6 / div,
+            launches=kl[name][0] / kl[name][1] / div)
+        times_out[name] = timing[name]["ms"]
+    # the graphed update's device busy share (phase 17's measure)
+    comp = compile_step(s["cfg"], use_kernel=True, lean=True)
+    pc2 = [ControllerState.initial(0, T_MAIN, 5, device=dev)]
+
+    def graphed_update():
+        pc2[0], _ = comp(pc2[0], s["state"], s["path"], s["dt"], s["sp"], s["cp"],
+                         model_params=s["mp"])
+
+    for _ in range(3):
+        graphed_update()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            graphed_update()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = None
+    if dev_events:
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / 20
+        busy = dev_ms / timing["full_body/graphed"]["ms"]
+    record["busy_share_graphed_full_body"] = busy
+    # where a graphed call's host time goes: the update's and the fleet tick's
+    record["host_split_us"] = {
+        "full_body_update": host_split(comp.graph, comp._args(
+            pc2[0], s["state"], s["path"], s["dt"], s["sp"], s["cp"], model_params=s["mp"])),
+        "fleet_tick": host_split(fstep.graphed, (fc[1], fpath, fdt, fstates, fsp, fcp, None,
+                                                 None, fcfg, True))}
+    record["device_events_per_graphed_update"] = len(dev_events) / 20
+    record["timing"] = timing
+    print(f"[30 timing] median of {reps} rounds in turns, CUDA events (ms a call; the loop "
+          f"a cycle), host us a call, fused-kernel launches a call (replays counted), on "
+          f"{card} (after: sm clock, draw, limit, temp = {clocks})", flush=True)
+    for name, tm in timing.items():
+        print(f"  {name}: {tm['ms']:.4f} ms [{tm['ms_min']:.4f}, {tm['ms_max']:.4f}], host "
+              f"{tm['host_us']:.1f} us, {tm['launches']:.2f} kernel launches", flush=True)
+    print(f"  graphed full_body update: {len(dev_events) / 20:.1f} device events an update "
+          f"in the profiler, busy "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}", flush=True)
+    for name, split in record["host_split_us"].items():
+        print(f"  host us of a graphed call, {name}: " + ", ".join(
+            f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}" for k, v in split.items()),
+            flush=True)
+    counters_zero("[30] timing")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[30 compiled] done in {record['seconds']:.1f} s", flush=True)
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -411,8 +942,12 @@ def main():
         simulate,
     )
     from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
-    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _refine, _sigma_suggest, refine_stage
-    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import (
+        REFINE_GRAPHS,
+        _refine,
+        _sigma_suggest,
+        refine_stage,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1461,7 +1996,8 @@ def main():
             require(excess <= 0.0, f"{model} {m} refine stage: card and CPU differ beyond "
                                    f"rtol 1e-8 at float64 (max |d| {errs[m][0]})")
             # the card's _refine is a CUDA graph's replay: against the eager stage
-            require(any(key[0] == ("refine", cfg, 3, 0.02, m) for key in cuda_graph._GRAPHS),
+            require(REFINE_GRAPHS.cache_key(cfg, *stage_inputs(torch.float64, dev), 3, 0.02, m)
+                    in REFINE_GRAPHS.graphs,
                     f"{model} {m}: the refine stage was not captured as a CUDA graph")
             eager = refine_stage(cfg, *stage_inputs(torch.float64, dev), 3, 0.02, m).cpu()
             graph_d = float((a - eager).abs().max())
@@ -1997,6 +2533,11 @@ def main():
                 f"bench_torch {rec['cell']}: gate or a metric not finite: {rec}")
     print(f"[29 bench_torch] seven cells, every gate passed, {wall:.1f} s", flush=True)
 
+    # --- 30. the compiled paths: CUDA graphs and the device key ----------------
+    med30 = {}
+    compiled = phase_30(dev, card, launches, max_abs_err, med30, counters_zero)
+    print(json.dumps({"compiled": compiled}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -2060,6 +2601,11 @@ def main():
     kernels.append(entry("rollout_cost_full_body_first_sample", "full_body_sharded",
                          "full_body_offset", med[f"full_body/first_sample_{OFFSET}"],
                          med["full_body/plain_first_sample"], bound("full_body")))
+    # the key read from device memory (phase 30); launches: the graphed
+    # 200-cycle full_body loop's replays
+    kernels.append(entry("rollout_cost_full_body_device_key", "full_body_graphed",
+                         "full_body_key", med30["kernel/device_key"],
+                         med30["kernel/plain_key"], bound("full_body")))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

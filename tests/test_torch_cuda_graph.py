@@ -16,7 +16,7 @@ import torch
 from ccv_mppi_path_tracker_tpu import diff as jdiff
 from ccv_mppi_path_tracker_tpu_torch.core.config import make_solver_params
 from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import _refine, refine_stage
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import REFINE_GRAPHS, _refine, refine_stage
 from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
 from test_torch_diff import F64, GN, MODELS, Problem, close
 
@@ -69,7 +69,7 @@ def test_capturable_refuses_cpu_grad_and_no_tensor():
     args[0].requires_grad_(True)
     assert not cuda_graph.capturable(args)
     with pytest.raises(ValueError, match="one CUDA device"):
-        cuda_graph.graphed_call("k", lambda *a: a[0], _args())
+        cuda_graph.Graphed(lambda *a: a[0])(*_args())
 
 
 @pytest.mark.parametrize("method", ["gradient", "gauss_newton"])
@@ -77,12 +77,12 @@ def test_capturable_refuses_cpu_grad_and_no_tensor():
 def test_refine_on_cpu_is_the_eager_stage(model, method):
     """_refine on CPU tensors runs refine_stage itself (bit-equal), captures
     nothing, and matches the JAX refinement."""
-    captured = len(cuda_graph._GRAPHS)
+    captured = REFINE_GRAPHS.captures
     p = Problem(model, seed=2)
     u, state, ref, dt, cp, mp = p.port_args()
     got = _refine(p.cfg, u, state, ref, dt, p.sp, cp, mp, 3, 0.02, method)
     eager = refine_stage(p.cfg, u, state, ref, dt, p.sp, cp, mp, 3, 0.02, method)
-    assert torch.equal(got, eager) and len(cuda_graph._GRAPHS) == captured
+    assert torch.equal(got, eager) and REFINE_GRAPHS.captures == captured
     jargs = p.jax_args()
     if method == "gradient":
         ref_u = jax.jit(lambda u: jdiff.gradient_refine(

@@ -14,6 +14,7 @@ from ccv_mppi_path_tracker_tpu.runtime.realtime import _plant_step_np as jax_pla
 from ccv_mppi_path_tracker_tpu_torch.core.presets import diff_drive_launch
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import fused_sample_rollout_cost
 from ccv_mppi_path_tracker_tpu_torch.runtime import realtime
+from ccv_mppi_path_tracker_tpu_torch.solver import mppi as mppi_mod
 
 STATES = {"unicycle": 3, "steering_unicycle": 3, "full_body": 5,
           "rate_limited_steering": 4}
@@ -123,7 +124,8 @@ def test_pipelined_runs_the_cycles_plus_the_warm_up_window(micro_batch, monkeypa
         return step(*args, **kw)
 
     step = realtime.mppi_step
-    monkeypatch.setattr(realtime, "mppi_step", counted)
+    monkeypatch.setattr(realtime, "mppi_step", counted)   # the window of micro_batch > 1
+    monkeypatch.setattr(mppi_mod, "mppi_step", counted)   # compile_step's, micro_batch = 1
     cfg, sp, cp, course = diff_drive_launch(num_samples=64, device="cpu")
     out = realtime.run_pipelined_experiment(cfg, sp, cp, course, hz=100.0, num_cycles=18,
                                             micro_batch=micro_batch)
