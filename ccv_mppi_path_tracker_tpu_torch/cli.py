@@ -29,9 +29,10 @@ recovers a droopy plant's actuator gains by Adam through the model step;
 ``profile`` writes a ``torch.profiler`` trace of control cycles and a phase
 summary. ``--kernel`` forces the fused CUDA kernel and ``--no-kernel`` the
 eager path; with neither, the solver path is chosen by
-``kernels/rollout_cost.py should_use_kernel`` (auto). Every subcommand but
-``course`` runs on ``--device`` (``cuda`` by default; a CUDA device that is
-not there is an error, never a fallback).
+``kernels/rollout_cost.py should_use_kernel`` (auto); on the card either
+path replays as a CUDA graph, and the "solver path" line says so. Every
+subcommand but ``course`` runs on ``--device`` (``cuda`` by default; a CUDA
+device that is not there is an error, never a fallback).
 """
 
 from __future__ import annotations
@@ -94,8 +95,9 @@ def _kernel_choice(args, cfg, device):
 
 
 def _print_path(use_kernel, auto, device):
+    replay = ", replayed as a CUDA graph" if torch.device(device).type == "cuda" else ""
     print(f"solver path: {'fused kernel' if use_kernel else 'eager'}"
-          f"{' (auto)' if auto else ''} on {device}")
+          f"{' (auto)' if auto else ''} on {device}{replay}")
 
 
 def _add_solver_args(p):
@@ -395,8 +397,9 @@ def cmd_fleet(args):
     wall = time.perf_counter() - t0
     rmses = [tracking_metrics(traj[:, b, :2], course, dt=args.dt)["rmse"]
              for b in range(num_robots)]
+    replay = ", replayed as a CUDA graph" if torch.device(device).type == "cuda" else ""
     print(f"fleet: {num_robots} robots x K={cfg.num_samples}, {args.steps} ticks, "
-          f"{'kernel' if use_kernel else 'eager'} path on {device}")
+          f"{'kernel' if use_kernel else 'eager'} path on {device}{replay}")
     print(f"RMSE mean={np.mean(rmses):.3f} worst={np.max(rmses):.3f}")
     print(f"wall: {wall:.2f} s = {num_robots * args.steps / wall:,.0f} robot-updates/s "
           f"(host clock)")

@@ -1,26 +1,27 @@
 """PRNG policy: every random draw of a control cycle is a pure function of
 the run's integer ``seed``, the cycle counter ``step`` and, in a fleet, the
-robot index ``b``.
+robot index ``b``. Both arms of the solver draw one stream.
 
-- The eager path draws its exploration noise from a ``torch.Generator``
-  seeded by :func:`cycle_seed` (``stream`` 0). No global RNG state is read
-  or written. A fleet's robot b seeds its own generator from (seed, step,
-  stream, b); robot 0's seed is the single-robot one.
-- The fused kernel draws its own normals with Philox4x32-10 keyed by
-  ``(seed, step)`` at counter ``(k, t, pair, b)`` (b = 0 for one robot) and
-  Box-Muller over the top 23 bits of words 0 and 1 (csrc/rollout_cost.cu).
-  A shard of a sample-sharded update starts its k at ``first_sample``, so
-  its samples are those samples of the unsharded stream.
-  :func:`philox_normals` is the same generator in plain torch: its uint32
-  arithmetic is emulated in int64 with ``& 0xFFFFFFFF``, so the kernel and
-  its plain version draw the same samples. Robot 0 of a fleet draws the
+- Philox4x32-10 keyed by ``(seed, step)`` at counter ``(k, t, pair, b)``
+  (b = 0 for one robot), and Box-Muller over the top 23 bits of words 0 and
+  1 (csrc/rollout_cost.cu ``philox_pair``). The fused kernel draws its
+  normals so; the eager arm draws the same ones, written out by the same
+  device code (``ops/sampling.py draw_standard_normals``, whose CUDA kernel
+  is ``kernels/rollout_cost.py philox_normals_cuda``). A shard of a
+  sample-sharded update starts its k at ``first_sample``, so its samples
+  are those samples of the unsharded stream. Robot 0 of a fleet draws the
   single-robot stream, and no normal depends on B or the block size.
+- :func:`philox_normals` is the same generator in plain torch, the kernels'
+  plain version: its uint32 arithmetic is emulated in int64 with ``&
+  0xFFFFFFFF``, and its libm calls are torch's, so it equals the card's
+  draw up to their last bits.
 - The key (seed, step) may be a device tensor [seed, step]
-  (``ControllerState.key``): the kernel reads it there, and a CUDA graph of
-  a cycle draws anew at each replay. The plant's process noise is drawn
-  from the same key by :func:`plant_normals`, at counter (p, 0,
-  :data:`PLANT_PAIR`, 0): the kernel's pair word is below 3, so no control
-  normal shares a counter with it.
+  (``ControllerState.key``): the kernels read it there, and a CUDA graph of
+  a cycle draws anew at each replay. No global RNG state is read or
+  written. The plant's process noise is drawn from the same key by
+  :func:`plant_normals`, at counter (p, 0, :data:`PLANT_PAIR`, 0): the
+  kernel's pair word is below 3, so no control normal shares a counter
+  with it.
 """
 
 from __future__ import annotations
@@ -43,48 +44,27 @@ TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 PLANT_PAIR = 0x80000000
 
 
-def cycle_seed(seed: int, step: int, stream: int = 0, robot: int = 0,
-               shard: int = 0) -> int:
-    """A 63-bit generator seed derived from (seed, step, stream, robot) and,
-    for shard s > 0 of a sample-sharded update, s. NumPy's SeedSequence pads
-    its entropy with zeros to four words, so robot 0 gives the seed of
-    (seed, step, stream) alone; shard 0 adds no word, so it draws the
-    unsharded stream."""
-    words = [seed & _MASK, step & _MASK, stream, robot] + ([shard] if shard else [])
-    state = np.random.SeedSequence(words)
-    return int(state.generate_state(1, np.uint64)[0] >> np.uint64(1))
-
-
-def cycle_generator(seed: int, step: int, device, stream: int = 0, robot: int = 0,
-                    shard: int = 0):
-    """A fresh ``torch.Generator`` on ``device`` for one cycle's draws."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(cycle_seed(seed, step, stream, robot, shard))
-    return gen
-
-
-def _mulhilo(m: int, x: torch.Tensor):
-    """(hi, lo) 32-bit halves of the 64-bit product m * x, with x holding
-    uint32 values in int64. x is split into 16-bit halves so that no partial
-    product leaves the int64 range."""
-    a = m * (x >> 16)
-    b = m * (x & 0xFFFF)
-    c = a + (b >> 16)
-    return c >> 16, ((c & 0xFFFF) << 16) | (b & 0xFFFF)
-
-
 def philox4x32(counter, key):
     """Philox4x32-10 of four uint32 counter words (int64 tensors of one
-    shape) under two uint32 key words (Python ints). Returns four words."""
+    shape) under two uint32 key words (Python ints or 0-d int64 tensors).
+    Returns four words.
+
+    Each round's products m * c are taken in int64, which wraps modulo
+    2**64: the bit pattern is the unsigned 64-bit product's, so ``p >> 32``
+    holds the high word in its low 32 bits and ``p`` the low word. Only the
+    words that enter a product are masked back to 32 bits each round (the
+    XOR keeps the low words exact); the two low words are masked at the end.
+    """
     c0, c1, c2, c3 = counter
     k0, k1 = key[0] & _MASK, key[1] & _MASK
     for _ in range(PHILOX_ROUNDS):
-        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
-        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        p0 = PHILOX_M0 * c0
+        p1 = PHILOX_M1 * c2
+        c0, c1, c2, c3 = (((p1 >> 32) ^ c1 ^ k0) & _MASK, p1,
+                          ((p0 >> 32) ^ c3 ^ k1) & _MASK, p0)
         k0 = (k0 + PHILOX_W0) & _MASK
         k1 = (k1 + PHILOX_W1) & _MASK
-    return c0, c1, c2, c3
+    return c0, c1 & _MASK, c2, c3 & _MASK
 
 
 def philox_normals(seed, step, num_samples: int, tm1: int,

@@ -65,6 +65,14 @@ class ControllerState:
         return dataclasses.replace(self, key=make_key(self.seed, self.step,
                                                       self.u_prev.device))
 
+    def rng(self) -> dict:
+        """The cycle's Philox key as the draws take it (the fused kernel's RNG
+        mode, ops/sampling.py draw_standard_normals): ``key`` where the state
+        has one, else ``seed`` and ``step`` by value."""
+        if self.key is None:
+            return dict(key=None, seed=self.seed, step=self.step)
+        return dict(key=self.key, seed=None, step=None)
+
     def advanced(self, u_prev: torch.Tensor, steps: int = 1) -> "ControllerState":
         """The state ``steps`` cycles on: warm start ``u_prev``, the step and
         the key (where there is one) advanced together."""

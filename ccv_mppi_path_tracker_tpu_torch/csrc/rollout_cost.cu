@@ -84,7 +84,8 @@
 // - RNG mode: Philox4x32-10 keyed by (seed, step) at counter (k, t, pair, b)
 //   with k the sample and b the robot (0 for one robot); Box-Muller over
 //   the top 23 bits of words 0 and 1 gives the normals of controls 2*pair
-//   (cosine) and 2*pair+1 (sine). (U+1)/2 pairs per row: for U = 3 the
+//   (cosine) and 2*pair+1 (sine), in philox_pair, which the eager arm's
+//   draw (philox_normals_kernel) calls too. (U+1)/2 pairs per row: for U = 3 the
 //   fourth normal is drawn and dropped. Every normal is a pure function of (seed, step, b, k,
 //   t, j), independent of the block size, the form and B; robot 0 of a
 //   fleet draws the single-robot stream. A launch may start at another
@@ -101,6 +102,11 @@
 //   them, so the two draw the same stream.
 // - rate_limited_steering's steer and rate limits come in as two arguments.
 // - Precise logf/expf/sinf/cosf: no fast-math.
+//
+// The second entry point, philox_normals, writes the RNG mode's normals out
+// for the eager arm (its own note is at philox_normals_kernel). It lives in
+// this file because the build hashes this file alone (kernels/build.py) and
+// because both kernels share philox_pair, so they draw the same numbers.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (kernels/build.py), bound with ctypes.
@@ -184,6 +190,24 @@ __device__ __forceinline__ void philox4x32_10(uint32_t& c0, uint32_t& c1,
   }
 }
 
+// The two normals of counter (sample, t, pair, robot) under key (seed, step):
+// Philox4x32-10, then Box-Muller over the top 23 bits of words 0 and 1, the
+// cosine half for control 2*pair and the sine half for control 2*pair+1.
+// The fused kernel's sampler and the eager arm's draw (philox_normals_kernel)
+// both call it, so on this card the two draw the same floats, bit for bit.
+__device__ __forceinline__ void philox_pair(uint32_t sample, uint32_t t, uint32_t pair,
+                                            uint32_t robot, uint32_t seed, uint32_t step,
+                                            float& z0, float& z1) {
+  uint32_t c0 = sample, c1 = t, c2 = pair, c3 = robot;
+  philox4x32_10(c0, c1, c2, c3, seed, step);
+  const float u1 = (float)(c0 >> 9) * kInv2p23;
+  const float u2 = (float)(c1 >> 9) * kInv2p23;
+  const float r = sqrtf(-2.0f * log1pf(-u1));
+  const float theta = kTwoPi * u2;
+  z0 = r * cosf(theta);
+  z1 = r * sinf(theta);
+}
+
 // Index of (column, sample) in the store form's control tile: column-major
 // with the sample swizzled by the column's low five bits. A warp writing one
 // column (32 samples) and a warp reading 32 columns at one sample both touch
@@ -222,14 +246,8 @@ struct RowSampler {
     } else {
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
-        uint32_t c0 = ctr, c1 = (uint32_t)t, c2 = (uint32_t)p, c3 = robot;
-        philox4x32_10(c0, c1, c2, c3, seed, step);
-        const float u1 = (float)(c0 >> 9) * kInv2p23;
-        const float u2 = (float)(c1 >> 9) * kInv2p23;
-        const float r = sqrtf(-2.0f * log1pf(-u1));
-        const float theta = kTwoPi * u2;
-        eta[2 * p] = r * cosf(theta);
-        eta[2 * p + 1] = r * sinf(theta);
+        philox_pair(ctr, (uint32_t)t, (uint32_t)p, robot, seed, step, eta[2 * p],
+                    eta[2 * p + 1]);
       }
     }
 #pragma unroll
@@ -738,6 +756,42 @@ int launch(const float* u_prev, const float* sigma, const float* u_min,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The eager arm's exploration noise: the standard normals that the fused
+// kernel's RNG mode draws, written out as (B, T-1, K, U) float32. It ports no
+// Pallas kernel: the JAX package draws its eager noise with XLA's RBG normal
+// inside the jitted step (ops/sampling.py draw_standard_normals). What
+// bounds it: the stores, (T-1)*K*U*4 bytes a robot, against Philox's 62
+// integer instructions a pair at half the FP32 rate, nearly even at
+// full_body (kernels/rollout_cost.py philox_normals_bound_ms). One thread
+// per (b, t, k) draws the row's ceil(U/2) pairs through philox_pair and
+// stores its U floats, so a warp writes 32*U consecutive floats. Grid
+// (ceil(K / kDrawThreads), T-1, B). The key is read from device memory
+// where the pointer is given (a CUDA graph's replay then draws anew), else
+// (seed, step) come by value, as in rollout_cost_kernel.
+constexpr int kDrawThreads = 256;
+
+__global__ void __launch_bounds__(kDrawThreads)
+philox_normals_kernel(float* __restrict__ out, const long long* __restrict__ key,
+                      uint32_t seed, uint32_t step, int num_samples, int tm1, int u_dim,
+                      uint32_t robot_base, uint32_t first_sample) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= num_samples) return;
+  const int t = blockIdx.y;
+  const int b = blockIdx.z;
+  if (key != nullptr) {
+    seed = static_cast<uint32_t>(key[0]);
+    step = static_cast<uint32_t>(key[1]);
+  }
+  float* row = out + (((size_t)b * tm1 + t) * num_samples + k) * u_dim;
+  for (int p = 0; 2 * p < u_dim; ++p) {
+    float z0, z1;
+    philox_pair(first_sample + (uint32_t)k, (uint32_t)t, (uint32_t)p,
+                robot_base + (uint32_t)b, seed, step, z0, z1);
+    row[2 * p] = z0;
+    if (2 * p + 1 < u_dim) row[2 * p + 1] = z1;  // U odd: the last sine dropped
+  }
+}
+
 int model_u(int model) {
   switch (model) {
     case kUnicycle: return Dims<kUnicycle>::U;
@@ -756,11 +810,12 @@ int rollout_cost_max_threads() { return kMaxThreads; }
 
 int rollout_cost_num_scalars() { return kNScal; }
 
-// The parameters of rollout_cost, one letter each: i int, u unsigned int,
-// f float, p pointer (kernels/rollout_cost.py SIGNATURE, which the binding
-// holds equal to this).
+// The parameters of each entry point, one letter each: i int, u unsigned
+// int, f float, p pointer (kernels/rollout_cost.py SIGNATURE, which the
+// binding holds equal to this).
 const char* rollout_cost_signature() {
-  return "ii" "pppppppppppppppp" "iiiuuuuiiffiiip";
+  return "rollout_cost:" "ii" "pppppppppppppppp" "iiiuuuuiiffiiip"
+         ";philox_normals:" "ppuuiiiiuup";
 }
 
 // U * 16 + S of model id `model`, or -1 for an unknown id.
@@ -878,6 +933,26 @@ int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
   }
 #undef ROLLOUT_COST_CASE
 #undef ROLLOUT_COST_ARGS
+}
+
+// Writes the standard normals of robots robot_base ... robot_base+robots-1,
+// samples first_sample ... first_sample+num_samples-1, into out (robots,
+// tm1, num_samples, u_dim) float32 on `stream`: entry (b, t, k, 2p) is the
+// cosine half and (b, t, k, 2p+1) the sine half of counter (first_sample +
+// k, t, p, robot_base + b) under key (seed, step), or under key[0], key[1]
+// (int64, on the device) where key is non-null. Returns the cudaError_t of
+// the launch.
+int philox_normals(float* out, const long long* key, unsigned int seed,
+                   unsigned int step, int num_samples, int tm1, int u_dim, int robots,
+                   unsigned int robot_base, unsigned int first_sample, void* stream) {
+  if (out == nullptr || num_samples < 1 || tm1 < 1 || tm1 > 65535 || u_dim < 1 ||
+      robots < 1 || robots > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((num_samples + kDrawThreads - 1) / kDrawThreads, tm1, robots);
+  philox_normals_kernel<<<grid, kDrawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, key, seed, step, num_samples, tm1, u_dim, robot_base, first_sample);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

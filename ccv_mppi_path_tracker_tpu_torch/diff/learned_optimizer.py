@@ -31,14 +31,17 @@ import torch
 from torch import nn
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
-from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.diff.gradients import make_trajectory_cost
 from ccv_mppi_path_tracker_tpu_torch.diff.learned_sampler import random_poses
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout
-from ccv_mppi_path_tracker_tpu_torch.ops.sampling import STEER_DIM, sample_controls
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
+    STEER_DIM,
+    draw_standard_normals,
+    sample_controls,
+)
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import weighted_update
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_reference
 
@@ -102,18 +105,19 @@ def learned_update_step(
 ):
     """One control cycle with the learned update rule: ``mppi_step``'s eager
     path (sample, sequential rollout, cost) with the weighting and step size
-    of ``rule``. Without ``noise`` the normals come from the generator of
-    (ctrl.seed, ctrl.step), as in ``mppi_step``. Returns (next
+    of ``rule``. Without ``noise`` the normals are the cycle's draw from its
+    key (ops/sampling.py draw_standard_normals), as in ``mppi_step``. Returns (next
     ControllerState, StepResult); differentiable in ``rule``."""
     model = get_model(cfg.model)
     if model_params is None and model.default_params is not None:
         model_params = model.default_params(device=state.device, dtype=state.dtype)
     ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
-    generator = None
     if noise is None:
-        generator = cycle_generator(ctrl.seed, ctrl.step, state.device)
+        tm1, u_dim = ctrl.u_prev.shape
+        noise = draw_standard_normals(**ctrl.rng(), shape=(tm1, cfg.num_samples, u_dim),
+                                      dtype=state.dtype, device=state.device)
     u_samples = sample_controls(ctrl.u_prev, sp, cfg.num_samples, steer_off=cfg.steer_off,
-                                noise=noise, generator=generator)
+                                noise=noise)
     states = rollout(model.step, state.expand(cfg.num_samples, -1), u_samples, dt)
     aux = {}
     if model.aux_from_rollout is not None:
@@ -150,8 +154,8 @@ def solved_cost(cfg, rule, state, path, dt, sp, cp, seed: int = 0, iterations: i
 
     noise: optional standard normals (iterations, T-1, K, U), one draw per
     cycle (the JAX function takes one (T-1, K, U) draw and repeats it every
-    cycle: pass it stacked). Without it cycle i draws from the generator of
-    (seed, i).
+    cycle: pass it stacked). Without it cycle i draws the Philox stream of
+    (seed, i) (ops/sampling.py draw_standard_normals).
     """
     model = get_model(cfg.model)
     if rule is None:

@@ -101,8 +101,10 @@ def collect_imitation_data(cfg, sp, cp, course, generator: torch.Generator,
     Each datum is the update after ``solve_cycles`` warm-started solves at a
     frozen pose, the imitation target. The solves are the fleet's eager arm
     (``solver/batch.py build_fleet_step``): all poses in one vmapped step a
-    cycle, each robot on its own random stream under a seed drawn from
-    ``generator``, which also draws the poses.
+    cycle (on the card a CUDA graph's replay), robot b drawing the Philox
+    stream of robot word b under the fleet's key, made from a seed drawn
+    from ``generator``, which also draws the poses: the data is a function
+    of ``generator``'s state.
     """
     from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_references
     from ccv_mppi_path_tracker_tpu_torch.solver.batch import build_fleet_step, init_fleet

@@ -25,6 +25,11 @@ stream.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
+
+The same library's second kernel, :func:`philox_normals_cuda`, writes the RNG
+mode's normals out for the eager arm (ops/sampling.py
+draw_standard_normals); its plain version is ``core/random.py
+philox_normals``.
 """
 
 from __future__ import annotations
@@ -454,10 +459,15 @@ def rollout_cost_bound_ms(model: str, num_samples: int, horizon: int, num_ref: i
     work of :func:`rollout_cost_work`, the larger of flops / FP32_PEAK, int
     ops / INT32_PEAK and bytes / HBM_BYTES_PER_S; ``which`` is "fp32",
     "int32" or "bytes", the one that bounds."""
-    w = rollout_cost_work(model, num_samples, horizon, num_ref, second_moment, rng,
-                          num_robots, accumulate, costs_in)
-    times = {"fp32": w["flops"] / FP32_PEAK, "int32": w["int_ops"] / INT32_PEAK,
-             "bytes": w["bytes"] / HBM_BYTES_PER_S}
+    return _bound_ms(rollout_cost_work(model, num_samples, horizon, num_ref, second_moment,
+                                       rng, num_robots, accumulate, costs_in))
+
+
+def _bound_ms(work: dict):
+    """(ms, which) of a work count: the larger of flops / FP32_PEAK, int ops
+    / INT32_PEAK and bytes / HBM_BYTES_PER_S."""
+    times = {"fp32": work["flops"] / FP32_PEAK, "int32": work["int_ops"] / INT32_PEAK,
+             "bytes": work["bytes"] / HBM_BYTES_PER_S}
     which = max(times, key=times.get)
     return times[which] * 1e3, which
 
@@ -491,18 +501,25 @@ def instantiations(summary: dict) -> dict:
     return out
 
 
-def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
-                  num_samples, model, noise, accumulate, costs_in, key):
+def _check_key(key, seed, step, device, needed: bool = True):
+    """The RNG key comes as ``key``, a contiguous (2,) int64 tensor [seed,
+    step] on ``device``, or as the host integers ``seed`` and ``step`` (where
+    ``needed``), not both."""
     if key is not None:
         if seed is not None or step is not None:
             raise ValueError("give the RNG key as seed and step or as key, not both")
         if tuple(key.shape) != (2,) or key.dtype != torch.int64:
             raise ValueError(f"key must be a (2,) int64 tensor [seed, step], got "
                              f"{tuple(key.shape)} {key.dtype}")
-        if key.device != u_prev.device or not key.is_contiguous():
-            raise ValueError(f"key must be contiguous on {u_prev.device}")
-    elif noise is None and (seed is None or step is None):
+        if key.device != device or not key.is_contiguous():
+            raise ValueError(f"key must be contiguous on {device}")
+    elif needed and (seed is None or step is None):
         raise ValueError("the RNG mode needs seed and step, or key")
+
+
+def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
+                  num_samples, model, noise, accumulate, costs_in, key):
+    _check_key(key, seed, step, u_prev.device, needed=noise is None)
     if model not in KERNEL_MODELS:
         raise ValueError(f"the fused kernel implements {KERNEL_MODELS}, not {model!r}")
     m = get_model(model)
@@ -547,13 +564,16 @@ def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
             raise ValueError(f"{name} must be contiguous")
 
 
-# The C entry point's parameters, one letter each (i int, u unsigned int, f
-# float, p pointer): model, store; u_prev ... scal, noise, costs_in, costs,
-# partials, counters, key, u_num, norm, u2_num; num_samples, horizon,
-# num_ref4, seed, step, robot, first_sample, steer_off, accumulate, steer_max,
-# rate_max, num_robots, second_moment, threads; the stream. csrc
-# rollout_cost_signature() returns the same string, checked when bound.
-SIGNATURE = "ii" + "p" * 16 + "iiiuuuuiiffiiip"
+# The C entry points' parameters, one letter each (i int, u unsigned int, f
+# float, p pointer). rollout_cost: model, store; u_prev ... scal, noise,
+# costs_in, costs, partials, counters, key, u_num, norm, u2_num; num_samples,
+# horizon, num_ref4, seed, step, robot, first_sample, steer_off, accumulate,
+# steer_max, rate_max, num_robots, second_moment, threads; the stream.
+# philox_normals: out, key; seed, step, num_samples, tm1, u_dim, robots,
+# robot_base, first_sample; the stream. csrc rollout_cost_signature()
+# returns them as "name:letters;...", checked when bound.
+SIGNATURE = {"rollout_cost": "ii" + "p" * 16 + "iiiuuuuiiffiiip",
+             "philox_normals": "ppuuiiiiuup"}
 _CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float, "p": ctypes.c_void_p}
 
 
@@ -563,12 +583,13 @@ def _bind(lib):
     i = ctypes.c_int
     lib.rollout_cost_signature.argtypes = []
     lib.rollout_cost_signature.restype = ctypes.c_char_p
-    if lib.rollout_cost_signature().decode() != SIGNATURE:
-        raise RuntimeError("csrc/rollout_cost.cu rollout_cost's parameters differ from "
+    if lib.rollout_cost_signature().decode() != ";".join(
+            f"{name}:{letters}" for name, letters in SIGNATURE.items()):
+        raise RuntimeError("csrc/rollout_cost.cu's entry points' parameters differ from "
                            "SIGNATURE")
-    fn = lib.rollout_cost
-    fn.argtypes = [_CTYPES[c] for c in SIGNATURE]
-    fn.restype = i
+    for name, letters in SIGNATURE.items():
+        getattr(lib, name).argtypes = [_CTYPES[c] for c in letters]
+        getattr(lib, name).restype = i
     for name in ("rollout_cost_max_threads", "rollout_cost_num_scalars"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
@@ -787,3 +808,69 @@ def fused_sample_rollout_cost(
 
 fused_sample_rollout_cost.launches = 0
 count_launches(fused_sample_rollout_cost)
+
+
+# --- the eager arm's draw ---------------------------------------------------
+
+def philox_normals_work(num_samples: int, tm1: int, u_dim: int, robots: int = 1) -> dict:
+    """The work of one :func:`philox_normals_cuda` launch, from the shapes:
+    float32 operations (Box-Muller, 10 a pair, as :func:`rollout_cost_work`
+    counts it), Philox integer operations (62 a call, one call a pair) and
+    bytes (the (robots, T-1, K, U) float32 output written once and the
+    (2,) int64 key read once)."""
+    calls = robots * tm1 * num_samples * ((u_dim + 1) // 2)
+    return {"flops": 10 * calls, "int_ops": 62 * calls,
+            "bytes": 4 * robots * tm1 * num_samples * u_dim + 16}
+
+
+def philox_normals_bound_ms(num_samples: int, tm1: int, u_dim: int, robots: int = 1):
+    """(ms, which): the least time an H100 SXM at 700 W could take for
+    :func:`philox_normals_work`, as :func:`rollout_cost_bound_ms` bounds the
+    fused kernel."""
+    return _bound_ms(philox_normals_work(num_samples, tm1, u_dim, robots))
+
+
+def philox_normals_cuda(key: Optional[torch.Tensor] = None, seed: Optional[int] = None,
+                        step: Optional[int] = None, *, num_samples: int, tm1: int,
+                        u_dim: int, robots: int = 1, robot_base: int = 0,
+                        first_sample: int = 0, device=None):
+    """The fused kernel's RNG-mode normals, drawn on the card by
+    csrc/rollout_cost.cu ``philox_normals``: a (robots, T-1, K, U) float32
+    tensor whose row b is ``core/random.py philox_normals(seed, step,
+    num_samples, tm1, u_dim, robot=robot_base + b, first_sample=...)``, its
+    plain version (equal up to the last bits of the libm calls, which the
+    kernel computes with CUDA's).
+
+    The key is ``key``, a contiguous (2,) int64 tensor [seed, step] on the
+    card, which the kernel reads there (a CUDA graph's replay then draws
+    from the key's current value); or, with ``key`` None, the host integers
+    ``seed`` and ``step`` by value on ``device``. Launches on the current
+    stream, counted in ``philox_normals_cuda.launches`` (a launch captured
+    into a CUDA graph counts once a replay, utils/cuda_graph.py); raises on
+    a launch error. It runs on a CUDA device only: ops/sampling.py
+    draw_standard_normals takes the plain version for the CPU."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
+
+    device = key.device if key is not None else torch.device(device or "cuda")
+    _check_key(key, seed, step, device)
+    if device.type != "cuda":
+        raise ValueError(f"philox_normals_cuda runs on a CUDA device, not {device}")
+    if num_samples < 1 or tm1 < 1 or u_dim < 1 or not 1 <= robots <= MAX_ROBOTS:
+        raise ValueError(f"no draw of robots={robots} T-1={tm1} K={num_samples} U={u_dim}")
+    lib = _bind(load_library("rollout_cost"))
+    out = torch.empty((robots, tm1, num_samples, u_dim), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.philox_normals(
+            out.data_ptr(), None if key is None else key.data_ptr(),
+            (seed or 0) & 0xFFFFFFFF, (step or 0) & 0xFFFFFFFF, num_samples, tm1, u_dim,
+            robots, robot_base & 0xFFFFFFFF, first_sample & 0xFFFFFFFF,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = lib.rollout_cost_error_string(err).decode()
+        raise RuntimeError(f"philox_normals kernel launch failed: {msg} ({err})")
+    philox_normals_cuda.launches += 1
+    return out
+
+
+philox_normals_cuda.launches = 0
+count_launches(philox_normals_cuda)

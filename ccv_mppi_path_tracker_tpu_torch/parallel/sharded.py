@@ -2,13 +2,15 @@
 ``parallel/sharded.py``).
 
 ``mppi_step`` threads ``group`` through its reductions (ops/softmax_update.py);
-here each rank runs it on K/N samples. Each shard draws its own samples: the
-kernel samples first_sample ... first_sample + K/N - 1 of the unsharded
-Philox stream (counter word 0), the eager path the generator of its rank;
-the softmax update is exact through an all-reduce MIN and SUMs. Every output
-is replicated, so the controller state stays identical on every rank, and a
-run fed the whole noise tensor equals the unsharded step up to the order of
-the final sums.
+here each rank runs it on K/N samples. Each shard draws its own samples,
+on either path samples first_sample ... first_sample + K/N - 1 of the
+unsharded Philox stream (counter word 0; the eager path through
+ops/sampling.py draw_standard_normals), so a run on N shards uses the
+unsharded step's samples; the softmax update is exact through an all-reduce
+MIN and SUMs. Every output is replicated, so the controller state stays
+identical on every rank, and a sharded step equals the unsharded one, in
+its RNG mode or fed the whole noise tensor, up to the order of the final
+sums.
 """
 
 from __future__ import annotations
@@ -68,8 +70,8 @@ def build_sharded_simulate(cfg: SolverConfig, group=None, num_steps: int = 100,
                            plant: Optional[Plant] = None, use_kernel: bool = False):
     """The closed loop (runtime/loop.py simulate) with the controller
     sample-sharded over ``group``. The plant runs replicated: each rank
-    steps the same robot with the same process-noise generator, so every
-    rank holds the same state. Returns ``sim(ctrl, state0, path, dt, sp,
+    steps the same robot with the same process noise (drawn from the key),
+    so every rank holds the same state. Returns ``sim(ctrl, state0, path, dt, sp,
     cp, model_params=None) -> (ctrl, logs)`` as ``simulate`` does."""
     group, k_local, first = _shard(cfg, group)
     opts = dict(group=group, num_samples=k_local, first_sample=first)

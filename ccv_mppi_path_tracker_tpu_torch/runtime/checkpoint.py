@@ -12,8 +12,7 @@ The file holds ``ctrl/u_prev``, ``ctrl/seed`` and ``ctrl/step``, one array
 ``<name>/<field>`` for each field of each named parameter dataclass, and
 ``__config__``: JSON of the SolverConfig fields and of each dataclass's
 class name and fields. It does not read a JAX package checkpoint: that one
-carries a JAX PRNG key, which means nothing to this port's Philox and
-``torch.Generator`` streams.
+carries a JAX PRNG key, which means nothing to this port's Philox stream.
 """
 
 from __future__ import annotations

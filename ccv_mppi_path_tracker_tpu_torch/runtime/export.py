@@ -11,10 +11,12 @@ warm start, the state, the path and dt stay inputs, so weights can be
 retuned through the artifact.
 
 The exported step draws its own noise: the kernel's Philox normals
-(``core/random.py philox_normals``) keyed by the cycle's seed and step,
-which enter as 0-d int64 tensors. It therefore samples the stream of the
-kernel's RNG mode, and on the card its update can be held against the
-kernel path at the same seed and step.
+(``core/random.py philox_normals``, the plain torch version, which
+``torch.export`` traces) keyed by the cycle's seed and step, which enter as
+0-d int64 tensors. It therefore samples the stream of the kernel's RNG mode
+and of the eager ``mppi_step`` (whose draw on the card is the CUDA kernel of
+the same normals): on the card its update can be held against either at
+the same seed and step.
 """
 
 from __future__ import annotations

@@ -2,9 +2,9 @@
 
 - :func:`simulate` is the counterpart of the JAX package's
   ``build_simulate_scan``: controller and plant alternate on the device for
-  ``num_steps`` cycles, each cycle one call of :func:`cycle`. On the card
-  with the fused kernel the cycle is one CUDA graph, replayed once a cycle
-  with its carry (warm start, key, state, stale elite threshold) kept in the
+  ``num_steps`` cycles, each cycle one call of :func:`cycle`. On the card,
+  with the fused kernel or on the eager path, the cycle is one CUDA graph,
+  replayed once a cycle with its carry (warm start, key, state, stale elite threshold) kept in the
   graph's buffers (utils/cuda_graph.py ``Graphed.scan``, the counterpart of
   ``lax.scan``); otherwise the same function runs eagerly. No cycle reads a
   value back to the host; the logs are stacked on the device.
@@ -12,7 +12,7 @@
   feeds the measured state each cycle (with a wall-clock-measured dt, as the
   reference's run loop, src/diff_drive_mppi.cpp:346-348) and reads back the
   command. Its step is :func:`solver.mppi.compile_step`'s, a CUDA graph's
-  replay on the card with the kernel.
+  replay on the card.
 """
 
 from __future__ import annotations
@@ -69,12 +69,13 @@ def simulate(
     ``"elite_stale": True`` (with elite_frac) runs single-pass elite: each
     cycle masks at the previous cycle's threshold, +inf on the first cycle.
 
-    On the card with ``use_kernel`` the cycle is one CUDA graph (captured by
-    the first run of its configuration and shapes, kept for later runs),
-    replayed ``num_steps`` times with its carry in the graph's buffers:
-    dt, the parameters and the path are its inputs, the key its carry, and
-    the final state's step is set on the host. A sharded cycle (``group``
-    among the options) runs eagerly: its collectives are not captured.
+    On the card the cycle is one CUDA graph (captured by the first run of its
+    configuration and shapes, kept for later runs), replayed ``num_steps``
+    times with its carry in the graph's buffers: dt, the parameters and the
+    path are its inputs, the key its carry (the kernel and the eager path's
+    draw read it there), and the final state's step is set on the host. A
+    sharded cycle (``group`` among the options) runs op by op: its
+    collectives are not captured.
     """
     if plant is None:
         plant = Plant(model_name=cfg.model)
@@ -92,7 +93,7 @@ def simulate(
     (ctrl, _, _), logs = CYCLE.scan(
         (ctrl.with_key(), state0, thresh), path, dt, sp, cp, model_params, cfg, plant, opts,
         with_stats, with_paths, length=num_steps,
-        graph=use_kernel and opts.get("group") is None)
+        graph=opts.get("group") is None)
     return ctrl, logs
 
 
@@ -129,8 +130,7 @@ class ControlLoop:
     Mirrors the reference run() loop: dt is measured wall-clock between
     cycles (src/diff_drive_mppi.cpp:346-348). Every cycle runs the step of
     :func:`solver.mppi.compile_step` on the device of ``sp`` (``compiled``):
-    on the card with ``use_kernel`` the replay of one CUDA graph, captured by
-    the first cycle, whose inputs are the state, the measured dt, sigma, the
+    on the card the replay of one CUDA graph, captured by the first cycle, whose inputs are the state, the measured dt, sigma, the
     stale elite threshold and the path; the only transfers are the measured
     state in and whatever the caller reads from the returned StepResult.
     Retune ``sp``, ``cp`` or ``model_params`` by new tensors or torch in-place

@@ -10,13 +10,13 @@ CSV recorder logs without blocking the control path. Deadline-miss and
 jitter statistics come back with the results; the reference silently slips.
 
 - :func:`run_realtime_experiment`: one update a cycle through
-  :class:`ControlLoop` (the fused kernel with ``use_kernel``, on the card a
-  CUDA graph's replay) and a plant on the device, with one device->host read
+  :class:`ControlLoop` (the fused kernel with ``use_kernel``, else the eager
+  path; on the card either is a CUDA graph's replay) and a plant on the device, with one device->host read
   a cycle.
 - :func:`run_pipelined_experiment`: cycle n dispatches the update of cycle
   n+1 before it fetches cycle n's command, with a host plant, optionally M
-  cycles per dispatch; on the card with the kernel a dispatch is the replay
-  of one CUDA graph (the JAX package's jitted step and its jitted scan of an
+  cycles per dispatch; on the card a dispatch is the replay of one CUDA
+  graph, on either path (the JAX package's jitted step and its jitted scan of an
   M-cycle window).
 
 The gate, the command geometry and the host plant stay outside the compiled
@@ -247,15 +247,15 @@ def run_pipelined_experiment(
     introduces is compensated, with ``delay_compensation``:
 
     - micro_batch = 1: one ``mppi_step(lean=True, delay=1/hz)`` a dispatch
-      (``compile_step``'s: on the card with the kernel, a graph's replay);
+      (``compile_step``'s: on the card, a graph's replay);
       the step plans from the state Euler-predicted one period ahead under
       the command in flight (solver/mppi.py).
     - micro_batch = M > 1: M cycles of ``mppi_step`` + ``model.step`` on the
       device with no host read between them (:func:`window`; on the card
-      with the kernel one CUDA graph of the whole window, the JAX package's
-      jitted scan); within the window the controller advances on its own
-      model plant, and the next window is dispatched from the state the host
-      plant will reach after this window's M commands.
+      one CUDA graph of the whole window, the JAX package's jitted scan);
+      within the window the controller advances on its own model plant,
+      and the next window is dispatched from the state the host plant will
+      reach after this window's M commands.
 
     Each window's commands come back through one non-blocking copy into a
     pinned host buffer, marked by a CUDA event that the fetch waits on. The
@@ -297,7 +297,7 @@ def run_pipelined_experiment(
             u = res.u0[None]
         else:
             ctrl, u = windows(ctrl, path, dt_solve, state, sp, cp, cfg, micro_batch,
-                              nominal_dt, step_kw, steps=micro_batch, graph=use_kernel)
+                              nominal_dt, step_kw, steps=micro_batch)
         fetch.start(u)
         return ctrl
 

@@ -7,17 +7,19 @@ With B=256, K=1024 that is a quarter-million trajectories per tick on one
 card, the JAX package's production serving shape.
 
 - Eager arm: ``torch.func.vmap`` of :func:`mppi_step`, as the JAX package
-  vmaps it, so every op runs once for the whole fleet. Robot b draws its
-  normals from its own ``torch.Generator``, seeded from (seed, step, b)
-  (``core/random.py`` ``cycle_seed``), one robot after another; robot 0's
-  generator is the single-robot one.
+  vmaps it, so every op runs once for the whole fleet. The normals of every
+  robot come from one draw before it (ops/sampling.py
+  draw_standard_normals, (B, T-1, K, U); a launch of the draw's kernel
+  cannot run inside ``vmap``): robot b's are the kernel's Philox stream at
+  counter word 3 = b, robot 0's the single-robot stream.
 - Kernel arm: one launch of the fused kernel for all B robots (grid B x K
   blocks) between batched glue: the references (``resample_references``),
   the scalars (``pack_scalars``) and the per-robot finish, with no loop over
-  robots. Robot b draws the kernel's Philox stream at counter word 3 = b
-  under the fleet's (seed, step) key. On the card the tick is one CUDA
-  graph's replay (utils/cuda_graph.py), the counterpart of the JAX
-  package's ``@jax.jit`` fleet step.
+  robots. Robot b draws the same Philox stream as on the eager arm.
+
+On the card either arm's tick is one CUDA graph's replay
+(utils/cuda_graph.py), the counterpart of the JAX package's ``@jax.jit``
+fleet step.
 
 The fleet's ControllerState is the single robot's with a leading robot axis
 on ``u_prev`` (B, T-1, U). Its seed and step stay host integers, and its key
@@ -33,7 +35,6 @@ import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import SolverConfig
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
-from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import (
     ControllerState,
     RefWindow,
@@ -45,6 +46,7 @@ from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     pack_scalars,
 )
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import softmax_weights
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_references
 from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, _opt_rollout, mppi_step
@@ -79,11 +81,12 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
     2) and (B, T), opt_states (B, T, S) and per-robot stats (B,).
 
     ``use_kernel`` runs the fleet through one fused-kernel launch (float32,
-    the four built-in models), on the card as the replay of the tick's CUDA
-    graph (captured by the first tick of its shapes; dt, the parameters and
-    the paths are its inputs, the key is read and advanced on the device,
-    and the step's host integer is set on the result; ``step.graphed``
-    counts the captures); otherwise the eager arm, op by op.
+    the four built-in models), else through the vmapped eager arm. On the
+    card either is the replay of the tick's CUDA graph (captured by the
+    first tick of its shapes; dt, the parameters and the paths are its
+    inputs, the key is read and advanced on the device, and the step's host
+    integer is set on the result; ``step.graphed`` counts the captures); on
+    the CPU, op by op.
     """
     tick = KeyedGraph(_tick)
 
@@ -93,10 +96,9 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
             raise ValueError(f"shared_path={shared_path} needs a path xy of "
                              f"{'(N, 2)' if shared_path else '(B, N, 2)'}, got "
                              f"{tuple(path.xy.shape)}")
-        return tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel,
-                    graph=use_kernel)
+        return tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel)
 
-    step.graphed = tick if use_kernel else None
+    step.graphed = tick
     return step
 
 
@@ -114,15 +116,13 @@ def _tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel)
 
 
 def _eager_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
-    """mppi_step per robot, vectorized over the fleet by torch.func.vmap."""
+    """mppi_step per robot, vectorized over the fleet by torch.func.vmap,
+    on the normals of one draw for the whole fleet."""
     if noise is None:
-        shape = (cfg.horizon - 1, cfg.num_samples, ctrls.u_prev.shape[-1])
-        noise = torch.stack([
-            torch.randn(shape, dtype=states.dtype, device=states.device,
-                        generator=cycle_generator(ctrls.seed, ctrls.step, states.device,
-                                                  robot=b))
-            for b in range(states.shape[0])
-        ])
+        num_robots, tm1, u_dim = ctrls.u_prev.shape
+        noise = draw_standard_normals(**ctrls.rng(), shape=(num_robots, tm1, cfg.num_samples,
+                                                            u_dim),
+                                      dtype=states.dtype, device=states.device)
     dims = None if path.xy.dim() == 2 else 0
 
     def one(u_prev, state, nz, xy, num_valid, resolution):
@@ -141,11 +141,9 @@ def _kernel_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
     """The kernel branch of mppi_step for B robots in one launch."""
     ref = resample_references(path, states[:, :2], cp.v_ref, dt, cfg.horizon)
     scal = pack_scalars(dt, cp, ref.yaw[:, 0], model_params, sp.noise_beta, sp.lam)
-    rng = (dict(seed=ctrls.seed, step=ctrls.step) if ctrls.key is None
-           else dict(seed=None, step=None, key=ctrls.key))
     costs, u_num, norm = fused_sample_rollout_cost(
         ctrls.u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, states, scal,
         num_samples=cfg.num_samples, model=cfg.model, steer_off=cfg.steer_off,
-        noise=noise, **rng)
+        noise=noise, **ctrls.rng())
     stats = torch.func.vmap(lambda c: softmax_weights(c, sp.lam)[1])(costs)
     return u_num / norm[:, None, None], ref, stats

@@ -18,7 +18,7 @@ integers in ControllerState, and its key their copy on the device). With
 (parallel/sharded.py): the reductions become collectives over the shards.
 
 :func:`compile_step` is the counterpart of ``jax.jit`` of this function: on
-the card it replays the kernel path as a CUDA graph (utils/cuda_graph.py).
+the card it replays either path as a CUDA graph (utils/cuda_graph.py).
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import torch.distributed as dist
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
-from ccv_mppi_path_tracker_tpu_torch.core.random import cycle_generator
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.diff.gradients import gauss_newton_refine, gradient_refine
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
@@ -46,7 +45,11 @@ from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
     rollout,
     rollout_closed_form,
 )
-from ccv_mppi_path_tracker_tpu_torch.ops.sampling import STEER_DIM, sample_controls
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
+    STEER_DIM,
+    draw_standard_normals,
+    sample_controls,
+)
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import (
     all_reduce,
     elite_threshold,
@@ -86,11 +89,13 @@ def mppi_step(
 
     state: (S,) measured state. dt: control period (tensor or number).
     noise: optional injected standard normals (T-1, K, U) for parity tests;
-        otherwise the eager path draws from a generator seeded by
-        (ctrl.seed, ctrl.step) and the kernel from its Philox stream keyed
-        by the same pair, which it reads from ``ctrl.key`` on the device
-        where the state has one (by value where it has none). The returned
-        state's step and key are advanced by one.
+        otherwise both paths draw the kernel's Philox stream keyed by
+        (ctrl.seed, ctrl.step) (core/random.py): the kernel in its RNG mode,
+        the eager path by ops/sampling.py draw_standard_normals, a CUDA
+        kernel on the card, so the two sample the same controls. The key is
+        read from ``ctrl.key`` on the device where the state has one (by
+        value where it has none). The returned state's step and key are
+        advanced by one.
     use_kernel: run sample + rollout + cost + update in the fused kernel
         (float32 only, any K, the four built-in models).
     shift_warm_start: center sampling on the one-step-shifted previous
@@ -131,10 +136,10 @@ def mppi_step(
         ``num_samples`` samples (the shard's K/N; default cfg.num_samples)
         starting at sample index ``first_sample``, and every reduction is a
         collective, so u_opt and the stats are those of all K samples and
-        equal on every rank. The kernel draws samples first_sample ...
-        first_sample + K/N - 1 of the unsharded Philox stream; the eager
-        path draws from the generator of (seed, step, shard = this rank).
-        ``noise`` is then this shard's (T-1, K/N, U).
+        equal on every rank. Either path draws samples first_sample ...
+        first_sample + K/N - 1 of the unsharded Philox stream, so N shards
+        draw the unsharded step's samples. ``noise`` is then this shard's
+        (T-1, K/N, U).
     """
     if elite_stale_thresh is not None and elite_frac is None:
         raise ValueError("elite_stale_thresh requires elite_frac (for the next threshold)")
@@ -155,9 +160,7 @@ def mppi_step(
     if use_kernel:
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
-        rng = (dict(seed=ctrl.seed, step=ctrl.step, key=None) if ctrl.key is None
-               else dict(seed=None, step=None, key=ctrl.key))
-        kw = dict(rng, num_samples=k, model=cfg.model, steer_off=cfg.steer_off,
+        kw = dict(ctrl.rng(), num_samples=k, model=cfg.model, steer_off=cfg.steer_off,
                   noise=noise, second_moment=adapt_sigma, first_sample=first_sample)
         scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta, sp.lam,
                             cost_thresh=elite_stale_thresh)
@@ -189,13 +192,12 @@ def mppi_step(
         if adapt_sigma:
             stats["sigma_suggest"] = _sigma_suggest(u2_num[0] / safe_norm, u_opt)
     else:
-        generator = None
         if noise is None:
-            shard = 0 if group is None else dist.get_rank(group)
-            generator = cycle_generator(ctrl.seed, ctrl.step, state.device, shard=shard)
-        u_samples = sample_controls(
-            u_mean, sp, k, steer_off=cfg.steer_off, noise=noise, generator=generator,
-        )
+            tm1, u_dim = u_mean.shape
+            noise = draw_standard_normals(**ctrl.rng(), shape=(tm1, k, u_dim),
+                                          first_sample=first_sample, dtype=u_mean.dtype,
+                                          device=state.device)
+        u_samples = sample_controls(u_mean, sp, k, steer_off=cfg.steer_off, noise=noise)
         state0 = state.expand(k, -1)
         if cfg.model in CLOSED_FORM_MODELS:
             states = rollout_closed_form(cfg.model, state0, u_samples, dt)
@@ -312,11 +314,12 @@ class CompiledStep:
     model_params=None, noise=None, elite_stale_thresh=None)``, with what
     ``mppi_step`` returns.
 
-    - On the card with ``use_kernel=True``: each call replays the CUDA graph
-      of the update (:class:`KeyedGraph`), captured by the first call of its
+    - On the card, on either path: each call replays the CUDA graph of the
+      update (:class:`KeyedGraph`), captured by the first call of its
       shapes, which returns the eager run's result. The graph reads the key
       (``ctrl.key``, made from seed and step where the state has none) and
-      advances it on the device. ``dt``, the parameters, the path, its count
+      advances it on the device: the kernel draws from it, and so does the
+      eager path's draw (ops/sampling.py draw_standard_normals). ``dt``, the parameters, the path, its count
       of valid points, ``model_params``, ``noise`` and ``elite_stale_thresh``
       are inputs of the graph, so a measured dt, retuned weights or another
       course of the same capacity replay the same graph. Retune a parameter
@@ -324,10 +327,10 @@ class CompiledStep:
       ``.data`` (utils/cuda_graph.py :class:`Graphed`). With
       ``refine_steps`` the graph holds the refine stage. A call that cannot
       be captured (a tensor that requires grad, tensors of two devices)
-      raises, and so does a capture that fails.
-    - With ``use_kernel=False`` on the card, each call runs the eager arm op
-      by op: its host-seeded generators (core/random.py cycle_generator)
-      draw from host integers that a replay cannot advance.
+      raises, and so does a first call that reads the card back to the host
+      (a user-registered model whose step or cost does, utils/cuda_graph.py
+      :func:`refuse_host_syncs`) or a capture that fails: no call runs op by
+      op in a graph's place.
     - On the CPU, where the caller asked for it, each call is ``mppi_step``.
 
     ``group`` (the sample-sharded step) is refused: its collectives are not
@@ -364,8 +367,7 @@ class CompiledStep:
         return self.graph.cache_key(*self._args(*args, **kwargs))
 
     def __call__(self, *args, **kwargs):
-        return self.graph(*self._args(*args, **kwargs),
-                          graph=bool(self.options.get("use_kernel")))
+        return self.graph(*self._args(*args, **kwargs))
 
 
 def compile_step(cfg: SolverConfig, **options) -> CompiledStep:
@@ -455,7 +457,8 @@ class MPPISolver:
     """One configuration's control step: construct with a config, call
     :meth:`step` each control cycle with the measured state. The step is
     :func:`compile_step`'s (the JAX package's solver owns its jitted step):
-    on the card with the kernel, a CUDA graph's replay."""
+    on the card, a CUDA graph's replay on either path, a user-registered
+    model's eager path too."""
 
     def __init__(self, cfg: SolverConfig, use_kernel=False, device=None):
         """use_kernel: False (the eager path), True (the fused kernel) or

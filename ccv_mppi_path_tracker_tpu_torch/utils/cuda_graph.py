@@ -29,9 +29,13 @@ which launches nothing. Replays run on the caller's current stream. A launch
 counter registered with :func:`count_launches` counts a captured launch once
 a replay: the capture's own increments are undone.
 
-The function must be free of host syncs (the capture fails on one). Under a
-capture already in progress, or inside a graphed function's first run or
-capture, a graphed function runs inline, so the outer graph holds it.
+The function must be free of host syncs: its first run is made under
+torch's sync debug mode "error", so a host sync (``.item()``, a Python branch
+on a tensor, a data-dependent shape) raises there, before any capture, with
+its site in the traceback (:func:`refuse_host_syncs`); no call then runs op
+by op in the graph's place. Under a capture already in progress, or inside
+a graphed function's first run or capture, a graphed function runs inline,
+so the outer graph holds it.
 """
 
 from __future__ import annotations
@@ -172,6 +176,33 @@ def capturable(args: tuple) -> bool:
     return refusal(_leaves(args)) is None and not _inline()
 
 
+# torch's message at a host sync in sync debug mode "error"
+SYNC_ERROR = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def refuse_host_syncs(what: str):
+    """Run the block with torch's sync debug mode at "error" (the mode it
+    had is restored after), and turn a host sync inside it into a
+    ValueError that names ``what`` and why a CUDA graph cannot hold it: the
+    refusal of a function that reads the card back to the host, such as a
+    user-registered model whose step or cost calls ``.item()``. Any other
+    error passes unchanged."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        if SYNC_ERROR not in str(e):
+            raise
+        raise ValueError(f"no CUDA graph of {what}: it reads the card back to the host "
+                         f"({e}), which a graph cannot replay; remove the read (keep the "
+                         "value a tensor, branch with torch.where), or call the function "
+                         "op by op") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
 def _clone_all(tensors):
     """Copies of ``tensors`` (a tensor that appears twice is copied once)."""
     copies = {}
@@ -197,7 +228,8 @@ class _Graph:
         side = torch.cuda.Stream()
         side.wait_stream(current)
         with _tracing(), torch.cuda.stream(side):
-            first = fn(*fill_tensors(template, leaves))
+            with refuse_host_syncs(getattr(fn, "__qualname__", repr(fn))):
+                first = fn(*fill_tensors(template, leaves))
             before = [f.launches for f in _COUNTED]
             self.graph = torch.cuda.CUDAGraph()
             self.graph.capture_begin()
@@ -291,7 +323,8 @@ class Graphed:
     many, least recently used dropped first; None keeps every one);
     :attr:`captures` counts the captures made. A call that cannot be
     captured raises and says why (:func:`refusal`): CPU tensors, tensors of
-    two devices, a tensor that requires grad. A capture that fails raises.
+    two devices, a tensor that requires grad; so does a first run that makes
+    a host sync (:func:`refuse_host_syncs`), and a capture that fails.
 
     A call copies into the graph's buffers only the tensors that changed
     since the last call (:func:`stale`): another tensor object, or the same

@@ -157,7 +157,24 @@ failure ending the run with a non-zero exit:
      pipelined M=8 window (0 misses); CUDA-event and host times of the
      op-by-op and graphed arms in turns (updates, the loop, the fleet tick,
      the serving cycle, the window's enqueue) and the graphed update's busy
-     share.
+     share;
+ 31. the eager arm's compiled programs: the draw kernel
+     (kernels/rollout_cost.py philox_normals_cuda, the eager step's keyed
+     normals) against its plain version core/random.py philox_normals on the
+     card (max abs err <= 1e-5; the flagship, U=3, the fleet, first_sample
+     K/2, by value and by the device key bit-equal), the fused kernel fed the
+     draw bit-equal to its own RNG mode, the draw's ptxas report and the
+     fused kernel's registers unchanged; the eager RNG-mode update against
+     the kernel's, every model, within the kernel gate; compile_step(
+     use_kernel=False) over 50 chained updates against op by op (full_body,
+     unicycle, elite 0.1, adapt_sigma, the custom bicycle through
+     MPPISolver(use_kernel="auto")), one capture each, no host sync in a
+     replay, and the refusal of a user model whose step reads the card back;
+     the graphed eager 200-cycle loop (RMSE < 0.15 m), fleet over 200 ticks
+     (every robot within 0.3 m) and pipelined M=8 window (0 misses), exact
+     draw launches; op-by-op and graphed eager timings in turns, host us,
+     launches, busy share, the draw against its bound and torch.randn's time
+     (a different stream: a yardstick), and the eager update's peak memory.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -165,9 +182,10 @@ back at 0.
 Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
-...}, phase 30 with {"compiled": ...}. The last three lines are the kernels JSON line (each entry with its bound:
-kernels/rollout_cost.py rollout_cost_bound_ms, and its launches per update:
-the main-path run's count over its cycles), the card's name and power limit
+...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...}.
+The last three lines are the kernels JSON line (each entry with its bound:
+kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
+its launches per update: the main-path run's count over its cycles), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -435,8 +453,6 @@ def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
     and ``times_out`` for the kernels line; returns its JSON record."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
@@ -856,17 +872,7 @@ def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
         pc2[0], _ = comp(pc2[0], s["state"], s["path"], s["dt"], s["sp"], s["cp"],
                          model_params=s["mp"])
 
-    for _ in range(3):
-        graphed_update()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            graphed_update()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = None
-    if dev_events:
-        dev_ms = sum(e.time_range.elapsed_us() for e in dev_events) / 1e3 / 20
-        busy = dev_ms / timing["full_body/graphed"]["ms"]
+    busy, dev_events = busy_share(graphed_update, 20, timing["full_body/graphed"]["ms"])
     record["busy_share_graphed_full_body"] = busy
     # where a graphed call's host time goes: the update's and the fleet tick's
     record["host_split_us"] = {
@@ -874,7 +880,7 @@ def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
             pc2[0], s["state"], s["path"], s["dt"], s["sp"], s["cp"], model_params=s["mp"])),
         "fleet_tick": host_split(fstep.graphed, (fc[1], fpath, fdt, fstates, fsp, fcp, None,
                                                  None, fcfg, True))}
-    record["device_events_per_graphed_update"] = len(dev_events) / 20
+    record["device_events_per_graphed_update"] = dev_events
     record["timing"] = timing
     print(f"[30 timing] median of {reps} rounds in turns, CUDA events (ms a call; the loop "
           f"a cycle), host us a call, fused-kernel launches a call (replays counted), on "
@@ -882,7 +888,7 @@ def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
     for name, tm in timing.items():
         print(f"  {name}: {tm['ms']:.4f} ms [{tm['ms_min']:.4f}, {tm['ms_max']:.4f}], host "
               f"{tm['host_us']:.1f} us, {tm['launches']:.2f} kernel launches", flush=True)
-    print(f"  graphed full_body update: {len(dev_events) / 20:.1f} device events an update "
+    print(f"  graphed full_body update: {dev_events:.1f} device events an update "
           f"in the profiler, busy "
           f"{'not measured' if busy is None else f'{100 * busy:.1f} %'}", flush=True)
     for name, split in record["host_split_us"].items():
@@ -893,6 +899,516 @@ def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
     record["seconds"] = time.perf_counter() - t_phase
     print(f"[30 compiled] done in {record['seconds']:.1f} s", flush=True)
     return record
+
+
+EAGER_UPDATES = 50          # phase 31: chained updates, graphed eager against op by op
+DRAW_TOL = 1e-5             # phase 31: the draw kernel against its plain version, max |diff|
+SEED_31, STEP_31 = 2 ** 33 + 7, 11  # phase 31's key: a seed past 32 bits
+REPLACES_DRAW = "ccv_mppi_path_tracker_tpu/ops/sampling.py:53"  # XLA's RBG normal
+
+
+def busy_share(fn, calls, ms_per_call):
+    """(the device's busy share, device events a call) of ``calls`` calls
+    of ``fn`` under torch.profiler, against ``ms_per_call`` CUDA-event ms a
+    call; (None, 0) where the profiler shows no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, 0
+    dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls
+    return dev_ms / ms_per_call, len(events) / calls
+
+
+def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_zero):
+    """Phase 31: the eager arm's compiled programs. (a) the draw kernel
+    (kernels/rollout_cost.py philox_normals_cuda) against its plain version
+    (core/random.py philox_normals) on the card at the flagship, U=3, the
+    fleet and first_sample K/2, by value and by the device key (bit-equal);
+    the fused kernel fed the draw bit-equal to its own RNG mode; the draw's
+    ptxas report and the fused kernel's registers; (b) the eager RNG-mode
+    update against the kernel RNG-mode update, every model, within the
+    kernel gate; (c) compile_step(use_kernel=False) against op by op over
+    EAGER_UPDATES chained updates (full_body, unicycle, elite, adapt_sigma,
+    the custom bicycle through auto), one capture each, no host sync in a
+    replay, and the refusal of a user model whose step reads the card back;
+    (d) the graphed eager loop, fleet and pipelined window with their gates;
+    (e) timings of the op-by-op and graphed arms in turns, host us,
+    launches, busy share, and the graphed eager update's peak memory. Fills
+    ``launches``, ``max_abs_err`` and ``times_out`` for the kernels line;
+    returns its JSON record."""
+    import numpy as np
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core import SolverConfig
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
+    from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        REGISTERS,
+        fused_sample_rollout_cost,
+        instantiations,
+        philox_normals_cuda,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.models import Model, get_model, register_model
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.runtime import run_tracking_experiment, simulate
+    from ccv_mppi_path_tracker_tpu_torch.runtime import loop as loop_mod
+    from ccv_mppi_path_tracker_tpu_torch.runtime import realtime
+    from ccv_mppi_path_tracker_tpu_torch.solver import (
+        MPPISolver,
+        build_fleet_step,
+        init_fleet,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.solver import batch as batch_mod
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
+
+    record = {}
+    t_phase = time.perf_counter()
+    draw_fn = philox_normals_cuda
+
+    def key_of(seed, step):
+        return torch.tensor([seed, step], dtype=torch.int64, device=dev)
+
+    def key_reads(ctrl):
+        return ctrl.key.tolist() == [ctrl.seed, ctrl.step]
+
+    def on_course(cfg, course):
+        st = torch.zeros(get_model(cfg.model).num_states, device=dev)
+        st[1] = float(course[0, 1])
+        return st
+
+    # (a) the draw kernel against its plain version ----------------------------
+    draws = {}
+    for name, robots, tm1, k, u_dim, first in (
+            ("flagship", 1, T_MAIN - 1, K_MAIN, 5, 0), ("u3", 1, T_MAIN - 1, K_MAIN, 3, 0),
+            ("fleet", B_FLEET, T_FLEET - 1, K_FLEET, 2, 0),
+            ("first_sample", 1, T_MAIN - 1, K_MAIN, 5, K_MAIN // 2)):
+        kw = dict(num_samples=k, tm1=tm1, u_dim=u_dim, robots=robots, first_sample=first)
+        by_value = draw_fn(None, SEED_31, STEP_31, device=dev, **kw)
+        by_key = draw_fn(key_of(SEED_31, STEP_31), **kw)
+        rob = torch.arange(robots, device=dev) if robots > 1 else 0
+        plain = philox_normals(SEED_31, STEP_31, k, tm1, u_dim, robot=rob, device=dev,
+                               first_sample=first)
+        plain = plain if robots > 1 else plain[None]
+        torch.cuda.synchronize()
+        same = bool(torch.equal(by_value, by_key))
+        err = float((by_key - plain).abs().max())
+        bit = bool(torch.equal(by_key, plain))
+        finite = bool(torch.isfinite(by_key).all())
+        draws[name] = dict(shape=list(by_key.shape), key_bit_equal_value=same,
+                           max_abs_err=err, bit_equal_plain=bit)
+        print(f"[31 draw] {name} (B, T-1, K, U) = {tuple(by_key.shape)} first_sample {first}: "
+              f"device key bit-equal to the by-value key {same}; vs philox_normals on the "
+              f"card max abs err {err:.3e} (tol {DRAW_TOL}), bit-equal {bit}; finite "
+              f"{finite}", flush=True)
+        require(same and finite and err <= DRAW_TOL,
+                f"[31] draw {name}: key {same}, finite {finite}, err {err}")
+        if name == "flagship":
+            whole = by_key
+        if name == "first_sample":
+            half = K_MAIN // 2
+            overlap = bool(torch.equal(by_key[:, :, :half], whole[:, :, half:]))
+            require(overlap, "[31] the draw at first_sample K/2 is not samples K/2... of the "
+                             "draw at 0")
+            print(f"  the draw at first_sample {half} is samples {half}... of the draw at 0, "
+                  f"bit for bit: {overlap}", flush=True)
+    max_abs_err["philox_normals"] = draws["flagship"]["max_abs_err"]
+    record["draws"] = draws
+    # the fused kernel fed the eager draw is its own RNG mode, bit for bit
+    fed = {}
+    for preset in PRESET_MODELS:
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=31)
+        u_dim = s["u_prev"].shape[1]
+        mkw = dict(num_samples=K_MAIN, model=s["model"])
+        own = fused_sample_rollout_cost(*s["kargs"], seed=SEED_31, step=STEP_31, **mkw)
+        noise = draw_fn(key_of(SEED_31, STEP_31), num_samples=K_MAIN, tm1=T_MAIN - 1,
+                        u_dim=u_dim)[0]
+        given = fused_sample_rollout_cost(*s["kargs"], seed=None, step=None, noise=noise,
+                                          **mkw)
+        torch.cuda.synchronize()
+        bit = all(bool(torch.equal(a, b)) for a, b in zip(own, given))
+        fed[s["model"]] = bit
+        print(f"[31 fused] {s['model']} K={K_MAIN} T={T_MAIN}: the fused kernel fed the "
+              f"eager draw bit-equal to its RNG mode (costs, u_num, norm) {bit}", flush=True)
+        require(bit, f"[31] {s['model']}: the eager draw is not the fused kernel's own")
+        counters_zero(f"[31] fused {s['model']}")
+    record["fused_fed_draw_bit_equal"] = fed
+    summary = build.ptxas_summary(build_log or "")
+    fused_regs = {f"{m} m2={int(m2)} {f}": p["registers"]
+                  for (m, m2, f), p in instantiations(summary).items()}
+    unchanged = all(p["registers"] == REGISTERS[m, f]
+                    for (m, _, f), p in instantiations(summary).items())
+    draw_ptx = next((p for n, p in summary.items() if "philox_normals_kernel" in n), None)
+    require(not build_log or (len(fused_regs) == 16 and unchanged and draw_ptx is not None),
+            f"[31] ptxas: fused {fused_regs}, draw {draw_ptx}")
+    record["ptxas"] = {"draw": draw_ptx, "fused_registers": fused_regs,
+                       "fused_unchanged": unchanged if build_log else "library reused"}
+    print(f"[31 ptxas] philox_normals_kernel: {draw_ptx}; the fused kernel's "
+          f"{len(fused_regs)} instantiations' registers equal REGISTERS (unchanged): "
+          f"{unchanged if build_log else 'not rebuilt here'}", flush=True)
+
+    # (b) eager RNG mode against kernel RNG mode -------------------------------
+    arms_err = {}
+    for preset in PRESET_MODELS:
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=32)
+        ctrl = ControllerState(s["u_prev"], SEED_31, STEP_31, key_of(SEED_31, STEP_31))
+        args = (s["cfg"], ctrl, s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+        _, re_ = mppi_step(*args, model_params=s["mp"], lean=True)
+        _, rk = mppi_step(*args, model_params=s["mp"], lean=True, use_kernel=True)
+        torch.cuda.synchronize()
+        err = float((re_.u_opt - rk.u_opt).abs().max())
+        arms_err[s["model"]] = err
+        print(f"[31 arms] {s['model']} K={K_MAIN} T={T_MAIN} RNG mode, same key: eager u_opt "
+              f"vs kernel u_opt max abs err {err:.3e} (bound {u_bound(rk.u_opt):.3e})",
+              flush=True)
+        require(bool(torch.isfinite(re_.u_opt).all()) and err <= u_bound(rk.u_opt),
+                f"[31] {s['model']}: eager vs kernel in RNG mode {err}")
+    counters_zero("[31] arms")
+    record["eager_vs_kernel_rng"] = arms_err
+
+    # (c) compile_step(use_kernel=False) against op by op ----------------------
+    sys.path.insert(0, str(ROOT / "examples"))
+    import custom_model_torch as bicycle
+
+    chains, replays = {}, {}
+    cases = [("full_body", "full_body", {}), ("unicycle", "diff_drive", {}),
+             ("full_body_elite", "full_body", {"elite_frac": ELITE}),
+             ("full_body_adapt_sigma", "full_body", {"adapt_sigma": True}),
+             ("bicycle_auto", None, {})]
+    for name, preset, opts in cases:
+        if preset is None:
+            cfg, sp, cp, course, path = bicycle.make_problem(device=dev)
+            solver = MPPISolver(cfg, use_kernel="auto", device=dev)
+            require(solver.use_kernel is False, "[31] auto picked the kernel for the bicycle")
+            compiled, fn = solver.compiled, solver.step
+        else:
+            cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN,
+                                                  device=dev)
+            path = PathBuffer.from_points(course, 0.1, device=dev)
+            compiled = fn = compile_step(cfg, use_kernel=False, lean=True, **opts)
+        state = on_course(cfg, course)
+        u_dim = get_model(cfg.model).num_controls
+        lean = preset is not None
+        draw_fn.launches = fused_sample_rollout_cost.launches = 0
+        c1 = ControllerState.initial(SEED_31, cfg.horizon, u_dim, device=dev)
+        outs_g = []
+        for i in range(EAGER_UPDATES):
+            c1, r1 = fn(c1, state, path, 0.1 + 0.001 * i, sp, cp)
+            outs_g.append(r1.u_opt)
+        n_draw, n_fused = draw_fn.launches, fused_sample_rollout_cost.launches
+        c2 = ControllerState.initial(SEED_31, cfg.horizon, u_dim, device=dev)
+        outs_e = []
+        for i in range(EAGER_UPDATES):
+            c2, r2 = mppi_step(cfg, c2, state, path,
+                               torch.full((), 0.1 + 0.001 * i, device=dev), sp, cp,
+                               lean=lean, **opts)
+            outs_e.append(r2.u_opt)
+        g, e = torch.stack(outs_g), torch.stack(outs_e)
+        bit = bool(torch.equal(g, e))
+        err = float((g - e).abs().max())
+        moved = bool((g[1:] - g[:-1]).abs().amax(dim=(1, 2)).min() > 0)
+        require(err <= u_bound(e), f"[31] {name}: graphed eager vs op by op {err}")
+        require(compiled.captures == 1, f"[31] {name}: {compiled.captures} captures")
+        require(n_draw == EAGER_UPDATES and n_fused == 0,
+                f"[31] {name}: {n_draw} draw, {n_fused} fused launches in {EAGER_UPDATES}")
+        require(key_reads(c1) and c1.step == EAGER_UPDATES and
+                c1.key.tolist() == c2.key.tolist(), f"[31] {name}: key {c1.key.tolist()}")
+        require(moved, f"[31] {name}: two consecutive replays gave the same update")
+        chains[name] = dict(bit_equal=bit, max_abs_err=err, updates=EAGER_UPDATES,
+                            draw_launches=n_draw, k=cfg.num_samples, t=cfg.horizon)
+        replays[name] = (fn, (c1, state, path, 0.1, sp, cp))
+        print(f"[31 compile_step eager] {name} ({cfg.model} K={cfg.num_samples} "
+              f"T={cfg.horizon}{', MPPISolver auto' if preset is None else ''}), "
+              f"{EAGER_UPDATES} chained updates, dt varying: u_opt bit-equal to op by op "
+              f"{bit} (max abs err {err:.3e}, bound {u_bound(e):.3e}); 1 capture; draw "
+              f"launches {n_draw} (replays counted), fused 0; every update moved; key "
+              f"{c1.key.tolist()} = [seed, step]", flush=True)
+    record["compile_step"] = chains
+    # the refusal: a user model whose step reads the card back to the host
+    reads = register_model(Model(
+        name="kinematic_bicycle_reads_host", state_names=bicycle.BICYCLE.state_names,
+        control_names=bicycle.BICYCLE.control_names,
+        step=lambda st, u, dt: bicycle.bicycle_step(st, u, dt) * (
+            1.0 if float(u[..., 0].max()) < 1e9 else 0.0)))
+    rcfg = SolverConfig(model=reads.name, num_samples=2048, horizon=20)
+    _, rsp, rcp, rcourse, rpath = bicycle.make_problem(device=dev)
+    rstep = compile_step(rcfg)
+    draw_fn.launches = 0
+    refused = None
+    try:
+        rstep(ControllerState.initial(0, 20, 2, device=dev), on_course(rcfg, rcourse), rpath,
+              0.1, rsp, rcp)
+    except ValueError as err:
+        refused = str(err)
+    torch.cuda.synchronize()
+    require(refused is not None and "reads the card back to the host" in refused
+            and rstep.captures == 0, f"[31] the reading model: {refused!r}, "
+                                     f"{rstep.captures} captures")
+    record["refusal"] = refused.split("\n")[0][:300]
+    print(f"[31 refusal] compile_step of a user model whose step calls float() on a card "
+          f"tensor raises ValueError, no capture: {record['refusal']}", flush=True)
+    # no host sync in a replay: the steps, the fleet tick, the loop, the window
+    fcfg, fsp, fcp, fcourse = PRESETS["diff_drive"](num_samples=K_FLEET, horizon=T_FLEET,
+                                                    device=dev)
+    fpath = PathBuffer.from_points(fcourse, 0.1, device=dev)
+    fstates = torch.zeros((B_FLEET, 3), device=dev)
+    fstates[:, 1] = float(fcourse[0, 1]) + torch.linspace(-0.4, 0.4, B_FLEET, device=dev)
+    fdt = torch.full((), 0.1, device=dev)
+    fstep = build_fleet_step(fcfg, use_kernel=False)
+    fctrls, _ = fstep(init_fleet(fcfg, B_FLEET, seed=1, device=dev), fstates, fpath, fdt,
+                      fsp, fcp)
+    lcfg, lsp, lcp, lcourse = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                   device=dev)
+    lpath = PathBuffer.from_points(lcourse, 0.1, device=dev)
+    lstart = torch.tensor([0.0, float(lcourse[0, 1]), 0.0, 0.0, 0.0], device=dev)
+    ldt = torch.full((), 0.1, device=dev)
+
+    def lrun(n, seed=0):
+        return simulate(lcfg, ControllerState.initial(seed, T_MAIN, 5, device=dev), lstart,
+                        lpath, ldt, lsp, lcp, num_steps=n, use_kernel=False,
+                        with_stats=False)
+
+    before = loop_mod.CYCLE.captures
+    lrun(5)
+    lrun(7, seed=3)
+    loop_captures = loop_mod.CYCLE.captures - before
+    pcfg, psp, pcp, pcourse = PRESETS["diff_drive"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                    device=dev)
+    ppath = PathBuffer.from_points(pcourse, 0.1, device=dev)
+    pstate = torch.tensor([0.0, float(pcourse[0, 1]), 0.0], device=dev)
+    pdt = torch.full((), 0.1, device=dev)
+    gwin = KeyedGraph(realtime.window)
+    wkw = dict(model_params=None, use_kernel=False, lean=True)
+    pc = ControllerState.initial(0, T_MAIN, 2, device=dev)
+    wargs = (pc, ppath, pdt, pstate, psp, pcp, pcfg, 8, 0.02, wkw)
+    gwin(*wargs, steps=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, args in replays.values():
+            ctrl = args[0]
+            for _ in range(3):
+                ctrl, _ = fn(ctrl, *args[1:])
+        for _ in range(3):
+            fctrls, _ = fstep(fctrls, fstates, fpath, fdt, fsp, fcp)
+        lrun(5)
+        gwin(*wargs, steps=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(loop_captures <= 1 and fstep.graphed.captures == 1 and gwin.captures == 1,
+            f"[31] captures: loop {loop_captures}, fleet {fstep.graphed.captures}, window "
+            f"{gwin.captures}")
+    print(f"[31 captures] one capture a configuration: the eager fleet tick 1, the eager "
+          f"loop's cycle {loop_captures} over two runs of 5 and 7 cycles, the M=8 eager "
+          f"window 1; no host sync in a replay of the five compiled steps, the fleet tick, "
+          f"a 5-cycle graphed eager loop nor the window", flush=True)
+    counters_zero("[31] captures")
+
+    # (d) the gates on the graphed eager paths ---------------------------------
+    draw_fn.launches = fused_sample_rollout_cost.launches = 0
+    out = run_tracking_experiment(lcfg, lsp, lcp, lcourse, num_steps=STEPS, use_kernel=False)
+    n = draw_fn.launches
+    launches["philox_eager_loop"] = n
+    rmse = out["metrics"]["rmse"]
+    require(rmse < 0.15 and n == STEPS and fused_sample_rollout_cost.launches == 0
+            and key_reads(out["ctrl"]), f"[31] graphed eager loop: RMSE {rmse}, {n} draws")
+    draw_fn.launches = 0
+    fctrls = init_fleet(fcfg, B_FLEET, seed=1, device=dev)
+    fs = fstates
+    fm = get_model(fcfg.model)
+    for _ in range(STEPS):
+        fctrls, fres = fstep(fctrls, fs, fpath, fdt, fsp, fcp)
+        fs = fm.step(fs, fres.u0, fdt)
+    final = fs.cpu().numpy()
+    d = np.min(np.linalg.norm(final[:, None, :2] - fcourse[None], axis=-1), axis=1)
+    nf = draw_fn.launches
+    require(bool((d < 0.3).all()) and nf == STEPS and key_reads(fctrls)
+            and fstep.graphed.captures == 1,
+            f"[31] graphed eager fleet: worst robot {d.max()} m, {nf} draws")
+    draw_fn.launches = 0
+    piped = realtime.run_pipelined_experiment(pcfg, psp, pcp, pcourse, hz=50.0,
+                                              num_cycles=96, use_kernel=False, micro_batch=8)
+    np_ = draw_fn.launches
+    pipe_rs, pipe_dm = piped["rate_stats"], piped["dispatch_ms"]
+    require(pipe_rs["deadline_misses"] == 0 and piped["metrics"]["rmse"] < 0.5
+            and np_ == (96 // 8 + 1) * 8,
+            f"[31] pipelined eager M=8: {pipe_rs['deadline_misses']} misses, RMSE "
+            f"{piped['metrics']['rmse']}, {np_} draws")
+    record["gates"] = dict(
+        loop_rmse=rmse, loop_draws=n, fleet_worst_m=float(d.max()), fleet_draws=nf,
+        pipelined_m8_misses=pipe_rs["deadline_misses"], pipelined_m8_dispatch_ms=pipe_dm,
+        pipelined_m8_rmse=piped["metrics"]["rmse"], pipelined_m8_draws=np_)
+    print(f"[31 gates] graphed eager loop {STEPS} cycles full_body K={K_MAIN} T={T_MAIN}: "
+          f"RMSE {rmse:.4f} m, {n} draw launches, 0 fused; graphed eager fleet {STEPS} ticks "
+          f"B={B_FLEET} K={K_FLEET} T={T_FLEET}: every robot within {d.max():.4f} m, {nf} "
+          f"draw launches; pipelined eager M=8 diff_drive 50 Hz 96 cycles: "
+          f"{pipe_rs['deadline_misses']} misses, a window's dispatch mean "
+          f"{pipe_dm['mean']:.4f} ms max {pipe_dm['max']:.4f} ms, RMSE "
+          f"{piped['metrics']['rmse']:.4f} m, {np_} draw launches (the cycles and the "
+          f"warm-up window) on {card}", flush=True)
+    counters_zero("[31] gates")
+
+    # (e) timing: op by op against graphed, in turns; memory --------------------
+    arms, per = {}, {}
+    s = kernel_case("full_body", K_MAIN, T_MAIN, roll_off=True, seed=5)
+    step_args = (s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+
+    def chain(fn, cfg, u_dim, args, **kw):
+        carry = [ControllerState.initial(0, cfg.horizon, u_dim, device=dev)]
+
+        def call():
+            carry[0], _ = fn(carry[0], *args, **kw)
+        return call
+
+    comp = compile_step(s["cfg"], use_kernel=False, lean=True)
+    arms["eager_update/op_by_op"] = (chain(functools.partial(
+        mppi_step, s["cfg"], lean=True), s["cfg"], 5, step_args, model_params=s["mp"]), 5)
+    arms["eager_update/graphed"] = (chain(comp, s["cfg"], 5, step_args,
+                                          model_params=s["mp"]), 20)
+    fc = [init_fleet(fcfg, B_FLEET, seed=1, device=dev)] * 2
+
+    def tick_eager():
+        fc[0], _ = batch_mod._tick(fc[0], fpath, fdt, fstates, fsp, fcp, None, None, fcfg,
+                                   False)
+
+    def tick_graphed():
+        fc[1], _ = fstep(fc[1], fstates, fpath, fdt, fsp, fcp)
+
+    arms["eager_fleet/op_by_op"], arms["eager_fleet/graphed"] = (tick_eager, 5), (
+        tick_graphed, 20)
+    mp = get_model("full_body").default_params(device=dev)
+    static = (lcfg, loop_mod.Plant(model_name="full_body"),
+              {"use_kernel": False, "lean": False}, True, False)
+
+    def loop_eager():
+        c = ControllerState.initial(0, T_MAIN, 5, device=dev)
+        cuda_graph.scan(loop_mod.cycle, (c, lstart, None), lpath, ldt, lsp, lcp, mp, *static,
+                        length=STEPS)
+
+    def loop_graphed():
+        simulate(lcfg, ControllerState.initial(0, T_MAIN, 5, device=dev), lstart, lpath,
+                 ldt, lsp, lcp, model_params=mp, num_steps=STEPS, use_kernel=False)
+
+    arms["eager_loop200/op_by_op"], arms["eager_loop200/graphed"] = (loop_eager, 1), (
+        loop_graphed, 1)
+    per["eager_loop200"] = STEPS
+    bcfg, bsp, bcp, bcourse, bpath = bicycle.make_problem(device=dev)
+    bsolver = MPPISolver(bcfg, use_kernel="auto", device=dev)
+    bargs = (on_course(bcfg, bcourse), bpath, 0.1, bsp, bcp)
+    arms["bicycle_auto/op_by_op"] = (chain(functools.partial(mppi_step, bcfg), bcfg, 2,
+                                           bargs), 10)
+    arms["bicycle_auto/graphed"] = (chain(bsolver.step, bcfg, 2, bargs), 20)
+    dkey = key_of(SEED_31, STEP_31)
+    dkw = dict(num_samples=K_MAIN, tm1=T_MAIN - 1, u_dim=5)
+    arms["draw/kernel"] = (lambda: draw_fn(dkey, **dkw), 50)
+    arms["draw/plain"] = (lambda: philox_normals(dkey[0], dkey[1], K_MAIN, T_MAIN - 1, 5,
+                                                 device=dev), 3)
+    arms["draw/randn"] = (lambda: torch.randn((T_MAIN - 1, K_MAIN, 5), device=dev), 50)
+    host = {name: [] for name in arms}
+    kl = {name: [0, 0] for name in arms}
+
+    def wrap(name, fn):
+        def call():
+            before = draw_fn.launches
+            t0 = time.perf_counter()
+            fn()
+            host[name].append(time.perf_counter() - t0)
+            kl[name][0] += draw_fn.launches - before
+            kl[name][1] += 1
+        return call
+
+    reps = 5
+    times = time_interleaved({name: (wrap(name, fn), inner)
+                              for name, (fn, inner) in arms.items()}, reps)
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    timing = {}
+    for name, v in times.items():
+        div = per.get(name.split("/")[0], 1)
+        timing[name] = dict(
+            ms=statistics.median(v) / div, ms_min=min(v) / div, ms_max=max(v) / div,
+            host_us=statistics.median(host[name]) * 1e6 / div,
+            draw_launches=kl[name][0] / kl[name][1] / div)
+        times_out[name] = timing[name]["ms"]
+    # the device's busy share and device events a call, each arm but the draw
+    for name, fn in (("eager_update/graphed", arms["eager_update/graphed"][0]),
+                     ("eager_update/op_by_op", arms["eager_update/op_by_op"][0]),
+                     ("eager_fleet/graphed", tick_graphed),
+                     ("eager_fleet/op_by_op", tick_eager),
+                     ("bicycle_auto/graphed", arms["bicycle_auto/graphed"][0]),
+                     ("bicycle_auto/op_by_op", arms["bicycle_auto/op_by_op"][0])):
+        busy, events = busy_share(fn, 10, timing[name]["ms"])
+        timing[name].update(busy=busy, device_events=events)
+    loop_busy, loop_events = busy_share(lambda: simulate(
+        lcfg, ControllerState.initial(0, T_MAIN, 5, device=dev), lstart, lpath, ldt, lsp,
+        lcp, model_params=mp, num_steps=20, use_kernel=False), 1,
+        20 * timing["eager_loop200/graphed"]["ms"])
+    timing["eager_loop200/graphed"].update(busy=loop_busy, device_events=loop_events / 20)
+    record["timing"] = timing
+    record["host_split_us_eager_update"] = host_split(comp.graph, comp._args(
+        ControllerState.initial(0, T_MAIN, 5, device=dev), *step_args, model_params=s["mp"]))
+    # peak device memory of the eager flagship update: op by op, and captured
+    # and replayed (the graph's pool holds the draw and the intermediates)
+    torch.cuda.synchronize()
+    memory = {}
+    for arm in ("op_by_op", "graphed"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn = (functools.partial(mppi_step, s["cfg"], lean=True) if arm == "op_by_op"
+              else compile_step(s["cfg"], use_kernel=False, lean=True))
+        c = ControllerState.initial(0, T_MAIN, 5, device=dev)
+        for _ in range(3):
+            c, _ = fn(c, *step_args, model_params=s["mp"])
+        torch.cuda.synchronize()
+        memory[arm] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        del fn, c
+    record["peak_memory_mib_eager_update"] = memory
+    print(f"[31 timing] median of {reps} rounds in turns, CUDA events (ms a call; the loop "
+          f"a cycle), host us a call, draw-kernel launches a call (replays counted), busy "
+          f"share and device events a call by torch.profiler, on {card} (after: sm clock, "
+          f"draw, limit, temp = {clocks})", flush=True)
+    for name, tm in timing.items():
+        extra = ""
+        if "busy" in tm:
+            busy = "not measured" if tm["busy"] is None else f"{100 * tm['busy']:.1f} %"
+            extra = f", busy {busy}, {tm['device_events']:.1f} device events"
+        print(f"  {name}: {tm['ms']:.4f} ms [{tm['ms_min']:.4f}, {tm['ms_max']:.4f}], host "
+              f"{tm['host_us']:.1f} us, {tm['draw_launches']:.2f} draw launches{extra}",
+              flush=True)
+    print(f"  draw kernel {timing['draw/kernel']['ms']:.4f} ms against its bound "
+          f"{philox_bound()[0]:.4f} ms; torch.randn of the same shape "
+          f"{timing['draw/randn']['ms']:.4f} ms (a different stream: a yardstick only)",
+          flush=True)
+    print("  host us of a graphed eager update: " + ", ".join(
+        f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in record["host_split_us_eager_update"].items()), flush=True)
+    print(f"  peak device memory of the eager full_body update K={K_MAIN} T={T_MAIN} above "
+          f"what was allocated before: op by op {memory['op_by_op']:.1f} MiB, captured and "
+          f"replayed {memory['graphed']:.1f} MiB", flush=True)
+    counters_zero("[31] timing")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[31 eager compiled] done in {record['seconds']:.1f} s", flush=True)
+    return record
+
+
+def philox_bound():
+    """The flagship draw's bound: kernels/rollout_cost.py
+    philox_normals_bound_ms at (T-1, K, U) = (T_MAIN-1, K_MAIN, 5)."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import philox_normals_bound_ms
+
+    return philox_normals_bound_ms(K_MAIN, T_MAIN - 1, 5)
 
 
 def main():
@@ -2465,9 +2981,9 @@ def main():
           f"(RNG mode, same seed and step) max abs err {k_err:.3e} (bound {k_bound:.3e}); "
           f"vs eager mppi_step on philox_normals max rel err {e_rel:.3e} (rtol 1e-5 atol "
           f"1e-6: {e_ok}); a step {exported['exported']:.4f} ms exported, "
-          f"{exported['eager_philox']:.4f} ms eager on the same Philox draw, "
-          f"{exported['eager']:.4f} ms eager on its generator (CUDA events, median of 5, "
-          f"on {card})", flush=True)
+          f"{exported['eager_philox']:.4f} ms eager on the same Philox draw passed in, "
+          f"{exported['eager']:.4f} ms eager drawing it itself (the draw kernel; CUDA "
+          f"events, median of 5, on {card})", flush=True)
     require(ok and e_ok, "the exported step on the card")
 
     # --- 28. profile -------------------------------------------------------
@@ -2538,14 +3054,19 @@ def main():
     compiled = phase_30(dev, card, launches, max_abs_err, med30, counters_zero)
     print(json.dumps({"compiled": compiled}), flush=True)
 
-    def entry(name, path_key, err_key, ms, plain_ms, bound):
+    # --- 31. the eager arm's compiled programs: the keyed draw ------------------
+    med31 = {}
+    eager = phase_31(dev, card, log, launches, max_abs_err, med31, counters_zero)
+    print(json.dumps({"eager_compiled": eager}), flush=True)
+
+    def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
         n = launches[path_key]
         require(n > 0 and n % STEPS == 0,
                 f"{name}: {n} launches in its main path's {STEPS}-cycle run")
         bound_ms, which = bound
-        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+        return {"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                 "launches": n, "launches_per_update": n // STEPS,
                 "max_abs_err": max_abs_err[err_key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes" if which == "bytes"
@@ -2606,6 +3127,16 @@ def main():
     kernels.append(entry("rollout_cost_full_body_device_key", "full_body_graphed",
                          "full_body_key", med30["kernel/device_key"],
                          med30["kernel/plain_key"], bound("full_body")))
+    # the eager arm's draw (phase 31) at the flagship (T-1, K, U) = (29, 102400,
+    # 5); launches: the graphed eager 200-cycle full_body loop's replays. It
+    # ports no Pallas kernel (the JAX package's eager draw is XLA's RBG
+    # normal); torch.randn of the same shape is a different stream, so its
+    # time is a yardstick beside library_ms, not library_ms
+    draw = entry("philox_normals", "philox_eager_loop", "philox_normals",
+                 med31["draw/kernel"], med31["draw/plain"], philox_bound(),
+                 replaces=REPLACES_DRAW)
+    draw["randn_ms_yardstick"] = med31["draw/randn"]
+    kernels.append(draw)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ and its steering-effort cost variant, and drives them through:
      cost (diff/gradients.py rolls a model without a closed form out
      sequentially and differentiates its ``cost_fn``);
   2. ``use_kernel="auto"``, which picks the eager path: the fused kernel
-     implements the four built-in models only;
+     implements the four built-in models only. On the card the eager step
+     replays as a CUDA graph, its normals drawn from the cycle's key by a
+     CUDA kernel (ops/sampling.py draw_standard_normals);
   3. the sample-sharded step (``build_sharded_step`` over a
      ``torch.distributed`` group: the processes of a ``torchrun`` launch, or
      else a group of this one process);
@@ -185,8 +187,9 @@ def main(argv=None):
 
     # 2. auto takes the eager path for a user model, on any device
     solver = MPPISolver(cfg, use_kernel="auto", device=device)
+    replay = ", replayed as a CUDA graph" if device.type == "cuda" else ""
     print(f"solver path: {'fused kernel' if solver.use_kernel else 'eager'} (auto) "
-          f"on {device}")
+          f"on {device}{replay}")
 
     # 3. the sharded step
     _, sharded = build_sharded_step(cfg)(ctrl, state, path, 0.1, sp, cp)

@@ -21,7 +21,9 @@ Modes:
   closed loop; the divisibility error; and the system-identification
   gradient and fits on this rank's share of a batch.
 - ``custom`` (CPU, gloo; tests/test_torch_custom_model.py): the sharded
-  step of examples/custom_model_torch.py's kinematic bicycle.
+  step of examples/custom_model_torch.py's kinematic bicycle, with injected
+  noise and in RNG mode (each shard drawing its samples of the unsharded
+  eager draw).
 - ``card`` (one CUDA card shared by the ranks, gloo; chip_smoke.py phase
   25): the sharded kernel update at the flagship (K=102400, T=30) with its
   per-sample costs, elite 0.1, a 200-cycle sharded closed loop with its
@@ -214,6 +216,9 @@ def run_custom(args, group, device, out):
                             dtype=torch.float32, device=device)
     _, res = build_sharded_step(cfg, group)(ctrl, state, path, DT, sp, cp, noise=noise)
     out["custom/u_opt"] = res.u_opt
+    # RNG mode: each shard draws its samples of the unsharded eager draw
+    _, res = build_sharded_step(cfg, group)(ctrl, state, path, DT, sp, cp)
+    out["custom/rng_u_opt"] = res.u_opt
     out["custom/rmse"] = cm.closed_loop_rmse(steps=30, num_samples=1024, horizon=16,
                                              device=device, group=group)["rmse"]
 

@@ -130,6 +130,21 @@ def test_sharded_step_matches_single_device(sharded):
     assert float(sharded[0]["custom/rmse"]) < 0.15
 
 
+def test_sharded_eager_rng_step_draws_the_unsharded_samples(sharded):
+    # over two gloo processes, each shard draws samples rank*K/2 ... of the
+    # unsharded eager draw (ops/sampling.py draw_standard_normals at its
+    # first_sample), so the sharded step in RNG mode is the unsharded one up
+    # to the order of the final sums (rtol 1e-6 atol 1e-7, as above)
+    cfg, sp, cp, course, path, _, state = _step_inputs()
+    ctrl = ControllerState.initial(0, cfg.horizon, 2, device="cpu")
+    _, res = mppi_step(cfg, ctrl, torch.as_tensor(state), path, 0.1, sp, cp)
+    for r in sharded:
+        np.testing.assert_allclose(r["custom/rng_u_opt"], res.u_opt.numpy(), rtol=1e-6,
+                                   atol=1e-7)
+    np.testing.assert_array_equal(sharded[0]["custom/rng_u_opt"],
+                                  sharded[1]["custom/rng_u_opt"])
+
+
 def test_closed_loop_tracks():
     m = cm.closed_loop_rmse(steps=100, num_samples=1024, horizon=16, device="cpu")
     assert m["rmse"] < 0.15, m

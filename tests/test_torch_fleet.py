@@ -6,7 +6,7 @@
   float32, costs rtol 2e-5, u_opt and u2_num/norm rtol 2e-5 atol 2e-6
   (tests/test_kernel.py's tolerances);
 - the batched plain version equal to a loop of the single-robot one, and
-  each robot's Philox and generator streams;
+  each robot's Philox stream, which both arms draw;
 - the eager fleet step against ``jax.vmap`` of the JAX ``mppi_step`` with
   injected noise at float64 rtol 1e-9 atol 1e-12 (tests/test_solver_parity.py's),
   and the kernel arm against the eager arm at float32;
@@ -37,11 +37,7 @@ from ccv_mppi_path_tracker_tpu.solver import mppi_step as jax_mppi_step
 from ccv_mppi_path_tracker_tpu_torch import cli
 from ccv_mppi_path_tracker_tpu_torch.convert import from_numpy
 from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS, diff_drive_launch
-from ccv_mppi_path_tracker_tpu_torch.core.random import (
-    cycle_generator,
-    cycle_seed,
-    philox_normals,
-)
+from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     NSCAL,
@@ -49,6 +45,7 @@ from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     fused_sample_rollout_cost_reference,
 )
 from ccv_mppi_path_tracker_tpu_torch.models import get_model
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
 from ccv_mppi_path_tracker_tpu_torch.paths import (
     PathBuffer,
     resample_reference,
@@ -173,9 +170,14 @@ def test_fleet_random_streams_are_per_robot_and_robot_zero_is_the_single_stream(
     assert not torch.equal(rob[0], rob[1])
     # independent across robots: uncorrelated draws
     assert abs(float(torch.corrcoef(rob[:, :, :, 0].reshape(4, -1))[0, 1])) < 0.05
-    # the eager arm's generators: robot 0 is the single-robot seed
-    assert cycle_seed(5, 3) == cycle_seed(5, 3, robot=0) != cycle_seed(5, 3, robot=1)
-    assert cycle_seed(5, 3, stream=1, robot=2) != cycle_seed(5, 3, stream=0, robot=2)
+    # the eager arm's draw is the same stream: robot b of a fleet's draw is
+    # the draw of robot b alone, robot 0 the single-robot one
+    fleet = draw_standard_normals(None, 5, 3, (4, 4, 200, 3), device="cpu")
+    assert torch.equal(fleet, rob)
+    one = draw_standard_normals(None, 5, 3, (4, 200, 3), device="cpu")
+    assert torch.equal(one, rob[0])
+    two = draw_standard_normals(None, 5, 3, (4, 200, 3), robot=2, device="cpu")
+    assert torch.equal(two, rob[2])
 
 
 def _jax_fleet_eager(case, noise, u_prev, states, jpath, path_axis=None, **kw):
@@ -251,9 +253,7 @@ def test_eager_fleet_draws_each_robots_own_generator():
     states = torch.as_tensor(np.tile(case.state, (num_robots, 1)))
     step = build_fleet_step(case.cfg)
     _, drawn = step(ctrls, states, case.path, DT, case.sp, case.cp)
-    noise = torch.stack([torch.randn((9, 64, 2), generator=cycle_generator(4, 2, "cpu",
-                                                                           robot=b))
-                         for b in range(num_robots)])
+    noise = philox_normals(4, 2, 64, 9, 2, robot=torch.arange(num_robots))
     _, injected = step(ctrls, states, case.path, DT, case.sp, case.cp, noise=noise)
     assert torch.equal(drawn.u_opt, injected.u_opt)
     # same start, different streams: different commands; robot 0 is the

@@ -30,7 +30,11 @@ from ccv_mppi_path_tracker_tpu_torch.models import full_body as tfb
 from ccv_mppi_path_tracker_tpu_torch.ops import mindist as tmindist
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import full_body_cost
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout, rollout_closed_form
-from ccv_mppi_path_tracker_tpu_torch.ops.sampling import color_noise, sample_controls
+from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
+    color_noise,
+    draw_standard_normals,
+    sample_controls,
+)
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import softmax_weights, weighted_update
 from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer, nearest_index, resample_reference
 from ccv_mppi_path_tracker_tpu_torch.paths.courses import sum_of_cosines_course
@@ -142,13 +146,16 @@ def test_sample_controls(beta, steer_off):
 
 
 def test_sample_controls_generator_is_deterministic():
+    # the eager step's normals come from the keyed draw (the kernel's Philox
+    # stream): the same (seed, step) draws the same samples
     _, jsp, _ = jax_full_body_config(num_samples=K, horizon=T, dtype=np.float64)
     tsp = to_port(sp=jsp)[0]
     u_prev = torch.zeros(T - 1, 5, dtype=torch.float64)
 
     def draw(seed):
-        return sample_controls(u_prev, tsp, K,
-                               generator=torch.Generator().manual_seed(seed))
+        noise = draw_standard_normals(None, seed, 0, (T - 1, K, 5), dtype=torch.float64,
+                                      device="cpu")
+        return sample_controls(u_prev, tsp, K, noise=noise)
 
     assert torch.equal(draw(1), draw(1))
     assert not torch.equal(draw(1), draw(2))
