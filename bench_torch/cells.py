@@ -10,9 +10,10 @@ others. Each cell has a correctness gate, run once a process before the
 timing, and one end-to-end metric:
 
 - ``propagations_per_s`` = K*(T-1) / update time (``bench.py:164-165``),
-  CUDA events around chains of ``mppi_step`` calls, each taking the
-  previous ControllerState; the update time is all the chains' time over
-  all their updates;
+  CUDA events around chains of calls of the arm's ``compile_step`` (on the
+  card a CUDA graph's replay, as ``bench.py:121-127`` times ``jax.jit``),
+  each taking the previous ControllerState; the update time is all the
+  chains' time over all their updates;
 - ``cycles_per_s``: closed-loop cycles over the runs' time, on the host
   clock, each run ending in a device-to-host copy (the loop), or the
   unpaced serving loop's own clock;
@@ -23,7 +24,7 @@ beside the metric as per-layer statistics: a stall every few updates moves
 the metric and may leave the median where it was.
 
 The package is called through its public entry points only: the presets,
-``PathBuffer.from_points``, ``ControllerState.initial``, ``mppi_step``,
+``PathBuffer.from_points``, ``ControllerState.initial``, ``compile_step``,
 ``init_fleet`` / ``build_fleet_step``, ``run_tracking_experiment``,
 ``run_realtime_experiment``, and for the gate the kernel's plain version
 ``fused_sample_rollout_cost_reference`` with the arguments the kernel takes
@@ -231,21 +232,33 @@ def plain_update(x, elite_frac=None):
 
 # --- the cells ------------------------------------------------------------------
 
+def _update_step(cell, x, name):
+    """The compiled step of update arm ``name`` (``compile_step`` with the
+    arm's options and the cell's elite fraction), built once a run of the
+    cell: the arm's chain and the gate step the same one."""
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step
+
+    steps = x.setdefault("compiled", {})
+    if name not in steps:
+        opts = {} if cell.elite_frac is None else {"elite_frac": cell.elite_frac}
+        steps[name] = compile_step(x["cfg"], use_kernel=name.startswith("kernel"),
+                                   lean=name.endswith("lean"), **opts)
+    return steps[name]
+
+
 def _update_arms(cell, x, device):
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
-    from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
 
     cfg, m = x["cfg"], x["model"]
     args = (x["state"], x["path"], x["dt"], x["sp"], x["cp"])
-    opts = {} if cell.elite_frac is None else {"elite_frac": cell.elite_frac}
 
     def start():
         return ControllerState.initial(x["seed"], cfg.horizon, m.num_controls,
                                        device=device)
 
     def arm(name):
-        kw = dict(opts, use_kernel=name.startswith("kernel"), lean=name.endswith("lean"))
-        return timing.Chain(start, lambda c: mppi_step(cfg, c, *args, **kw)[0], cell.chain)
+        step = _update_step(cell, x, name)
+        return timing.Chain(start, lambda c: step(c, *args)[0], cell.chain)
 
     return {name: arm(name) for name in cell.arms}
 
@@ -267,13 +280,11 @@ def _fleet_arms(cell, x, device):
 
 def _gate_update(cell, x, device):
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
-    from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
 
     cfg, m = x["cfg"], x["model"]
-    opts = {} if cell.elite_frac is None else {"elite_frac": cell.elite_frac}
     ctrl = ControllerState.initial(x["seed"], cfg.horizon, m.num_controls, device=device)
-    _, res = mppi_step(cfg, ctrl, x["state"], x["path"], x["dt"], x["sp"], x["cp"],
-                       use_kernel=True, lean=True, **opts)
+    _, res = _update_step(cell, x, "kernel_lean")(ctrl, x["state"], x["path"], x["dt"],
+                                                  x["sp"], x["cp"])
     u_plain, t_plain = plain_update(x, cell.elite_frac)
     gates = [gate_u(res.u_opt, u_plain)]
     if cell.elite_frac is not None:

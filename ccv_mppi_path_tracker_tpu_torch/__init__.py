@@ -13,3 +13,7 @@ repeat it, the sample-sharded solver, export, profiling and the figures.
 Importing the package imports torch and numpy only; the kernel is built with
 ``nvcc`` at its first launch on a CUDA tensor.
 """
+
+from ccv_mppi_path_tracker_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -176,16 +176,30 @@ failure ending the run with a non-zero exit:
      launches, busy share, the draw against its bound and torch.randn's time
      (a different stream: a yardstick), and the eager update's peak memory.
 
+ 32. the reference's evaluations (scripts/torch_quality_matrix.py and
+     scripts/torch_realtime_session.py): the three quick-matrix cells of
+     tests/test_quality_matrix.py on the kernel (K=256) with their gates
+     against pure pursuit and one launch a cycle, the refined arm's cycle
+     captured once over two seeds; pure pursuit's graphed scan bit-equal to
+     its cycle run op by op on the card, one capture; the robustness twins
+     (500 cycles, the course end, the dkan corridor, 50 dt-jittered
+     ControlLoop cycles with one capture); the session's device arm at 500
+     Hz for 2 s (full_body K=102400 T=30: 1000 cycles of one graph, 1000
+     launches), the host loop at 10 Hz and the pipelined loop at 25 Hz for
+     2 s each; the phase's time.
+
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
 
 Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
-...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...}.
+...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
+phase 32 with {"evaluations": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
-its launches per update: the main-path run's count over its cycles), the card's name and power limit
+its launches per update: the main-path run's count over its cycles; where
+phase 32 launched it, ``launches_phase_32``, each of its runs' count), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -1410,6 +1424,255 @@ def philox_bound():
 
     return philox_normals_bound_ms(K_MAIN, T_MAIN - 1, 5)
 
+
+# phase 32: the three cells of tests/test_quality_matrix.py at --quick,
+# (controller, course, v_ref)
+QUICK_CELLS = (("diff_drive", "cosine_A1.0_f0.25", 1.2),
+               ("steering", "filtered_square", 1.2),
+               ("full_body", "cosine_A1.5_f0.127", 2.0))
+
+
+def quick_cell_gate(ctrl_name, cell, pp):
+    """tests/test_quality_matrix.py's gate of the cell: (ok, what it held)."""
+    if ctrl_name == "diff_drive":
+        return (cell["completed"] and cell["rmse_m"] <= pp["rmse_m"] and cell["rmse_m"] < 0.15,
+                "completed, rmse <= pure pursuit's, rmse < 0.15 m")
+    if ctrl_name == "steering":
+        return (cell["rmse_m"] <= pp["rmse_m"] and cell["max_error_m"] < pp["max_error_m"],
+                "rmse <= pure pursuit's, max error < pure pursuit's")
+    return (cell["completed"] and cell["rmse_m"] <= max(pp["rmse_m"], 0.12),
+            "completed, rmse <= max(pure pursuit's, 0.12 m)")
+
+
+def phase_32(dev, card, counters_zero):
+    """Phase 32: the reference's evaluations on the card. (a) the three
+    quick-matrix cells of tests/test_quality_matrix.py through
+    scripts/torch_quality_matrix.py (auto: the fused kernel), with its gates
+    and exact launch counts, and the refined arm's cycle captured once over
+    two seeds; (b) pure pursuit's graphed scan bit-equal to its cycle run op
+    by op on the card, one capture; (c) the robustness twins
+    (tests/test_torch_robustness.py) on the card: 500 cycles, the course
+    end, the dkan corridor, 50 dt-jittered ControlLoop cycles with one
+    capture; (d) scripts/torch_realtime_session.py's three arms, shortened:
+    the device arm at 500 Hz for 2 s (1000 cycles, one fused launch a cycle),
+    the host loop at 10 Hz and the pipelined loop at 25 Hz for 2 s each.
+    Returns (its JSON record, {kernels entry: {run: launches}})."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_quality_matrix as qm
+    import torch_realtime_session as rs
+
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import diff_drive_launch
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        fused_sample_rollout_cost,
+        philox_normals_cuda,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer, sum_of_cosines_course
+    from ccv_mppi_path_tracker_tpu_torch.paths.courses import dkan_course
+    from ccv_mppi_path_tracker_tpu_torch.paths.spline import spline_resample_course
+    from ccv_mppi_path_tracker_tpu_torch.runtime import (
+        ControlLoop,
+        pure_pursuit,
+        run_tracking_experiment,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.runtime import loop as loop_mod
+    from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
+
+    fused, draw = fused_sample_rollout_cost, philox_normals_cuda
+    t_phase = time.perf_counter()
+    record = {"card": card}
+    counts = {}
+
+    def counted(fn):
+        """(fn(), fused launches, draw launches), both counts set to 0 just
+        before fn and read just after."""
+        fused.launches = draw.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, fused.launches, draw.launches
+
+    # (a) the quick-matrix cells ------------------------------------------------
+    courses = qm.courses()
+    cells = {}
+    for ctrl_name, course_name, v in QUICK_CELLS:
+        course = courses[course_name]
+        cfg, sp, cp = qm.controller_configs(v, quick=True, device=dev)[ctrl_name]
+        uk = qm.solver_path(cfg.model, "auto", dev)
+        steps = qm.num_steps_for(course, v, quick=True)
+        t0 = time.perf_counter()
+        cell, nf, nd = counted(lambda: qm.eval_mppi(cfg, sp, cp, course, v, quick=True,
+                                                    use_kernel=uk))
+        sec = time.perf_counter() - t0
+        pp = qm.eval_pure_pursuit(course, v, quick=True, device=dev)
+        ok, what = quick_cell_gate(ctrl_name, cell, pp)
+        tag = f"{ctrl_name}/{course_name}/v={v}"
+        print(f"[32 matrix] {tag} [{'kernel' if uk else 'eager'}] {cell}; pure pursuit "
+              f"{pp}; gate ({what}) {'ok' if ok else 'FAILED'}; {nf} fused launches for "
+              f"{steps} cycles, {sec:.2f} s; {card}", flush=True)
+        require(uk and ok and nf == steps and nd == 0,
+                f"[32] {tag}: kernel {uk}, gate {what}: {cell} vs {pp}; {nf} launches "
+                f"for {steps} cycles, {nd} draws")
+        counts.setdefault(f"rollout_cost_{cfg.model}", {})[f"quick_matrix/{tag}"] = nf
+        cells[tag] = {"mppi": cell, "pure_pursuit": pp, "launches": nf, "seconds": sec}
+        counters_zero(f"[32] {tag}")
+    # the refined arm: one capture of its cycle for the (controller, course)
+    # shape, whatever the seed
+    ctrl_name, course_name, v = QUICK_CELLS[0]
+    course = courses[course_name]
+    cfg, sp, cp = qm.controller_configs(v, quick=True, device=dev)[ctrl_name]
+    before = loop_mod.CYCLE.captures
+    t0 = time.perf_counter()
+    refined, nf, _ = counted(lambda: qm.eval_mppi_seeds(
+        cfg, sp, cp, course, v, seeds=(0, 1), quick=True, use_kernel=True,
+        solver_options=dict(qm.REFINE_OPTS)))
+    sec = time.perf_counter() - t0
+    captured = loop_mod.CYCLE.captures - before
+    steps = qm.num_steps_for(course, v, quick=True)
+    print(f"[32 matrix] refined {ctrl_name}/{course_name}/v={v}, seeds 0 and 1: {refined}; "
+          f"{captured} capture, {nf} fused launches for {2 * steps} cycles, {sec:.2f} s; "
+          f"{card}", flush=True)
+    require(captured == 1 and nf == 2 * steps and refined["rmse_m"] < 0.15,
+            f"[32] refined: {captured} captures over two seeds, {nf} launches, {refined}")
+    cells["refined"] = {"mppi_refined": refined, "captures": captured, "seconds": sec}
+    record["quick_matrix"] = cells
+    counters_zero("[32] refined")
+
+    # (b) pure pursuit's graphed scan against its cycle op by op ----------------
+    course = courses["dkan"]
+    pp_cfg = pure_pursuit.PurePursuitConfig(lookahead=0.85, v_ref=1.1, w_max=2.0)
+    pp_steps = 400
+    before = pure_pursuit.CYCLE.captures
+    graphed = [pure_pursuit.run_pure_pursuit_experiment(course, num_steps=pp_steps,
+                                                        cfg=pp_cfg, device=dev)
+               for _ in range(2)]
+    captured = pure_pursuit.CYCLE.captures - before
+    path = PathBuffer.from_points(course, 0.1, device=dev).with_count_tensor()
+    heading = float(np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0]))
+    state0 = torch.tensor([course[0, 0], course[0, 1], heading], device=dev)
+
+    def op_by_op():
+        return cuda_graph.scan(pure_pursuit.cycle, state0, path, pp_cfg, 0.1,
+                               length=pp_steps)[1]
+
+    ref = {k: t.cpu().numpy() for k, t in op_by_op().items()}
+    same = all(np.array_equal(g["logs"][k], ref[k]) for g in graphed for k in ref)
+    times = {}
+    for name, fn in (("graphed", lambda: pure_pursuit.CYCLE.scan(
+            state0, path, pp_cfg, 0.1, length=pp_steps)[1]["state"].cpu()),
+            ("op_by_op", lambda: op_by_op()["state"].cpu())):
+        t0 = time.perf_counter()
+        fn()
+        times[name] = (time.perf_counter() - t0) / pp_steps * 1e3
+    rmse = graphed[0]["metrics"]["rmse"]
+    print(f"[32 pure pursuit] dkan, {pp_steps} cycles: graphed scan bit-equal to the "
+          f"cycle op by op on the card {same}, {captured} capture over two runs; "
+          f"{times['graphed']:.4f} ms a cycle graphed, {times['op_by_op']:.4f} op by op "
+          f"(host clock, one run each); RMSE {rmse:.4f} m; {card}", flush=True)
+    require(same and captured == 1 and rmse < 0.3,
+            f"[32] pure pursuit: bit-equal {same}, {captured} captures, RMSE {rmse}")
+    record["pure_pursuit"] = {"bit_equal": same, "captures": captured,
+                              "ms_per_cycle": times, "rmse_m": rmse}
+
+    # (c) the robustness twins ---------------------------------------------------
+    cfg, sp, cp, dd_course = diff_drive_launch(num_samples=256, device=dev)
+    rob = {}
+    long_course = sum_of_cosines_course(
+        amplitudes=(1.0, 0, 0), frequencies=(0.25, 0, 0), deltas=(0, 0, 0),
+        resolution=0.1, course_length=60.0, dtype=np.float32)
+    out, nf, nd = counted(lambda: run_tracking_experiment(cfg, sp, cp, long_course,
+                                                          num_steps=500))
+    logs = out["logs"]
+    ok = (np.isfinite(logs["state"]).all() and np.isfinite(logs["u0"]).all()
+          and np.abs(logs["u0"][:, 0]).max() <= float(sp.u_max[0]) + 1e-5
+          and out["metrics"]["rmse"] < 0.15 and logs["state"][-1, 0] > 30.0)
+    rob["long_run_500"] = {"rmse_m": out["metrics"]["rmse"], "x_end_m": float(logs["state"][-1, 0]),
+                           "draws": nd}
+    require(ok and nd == 500 and nf == 0, f"[32] long run: {rob['long_run_500']}, {nf} fused")
+    counts.setdefault("philox_normals", {})["robustness/long_run_500"] = nd
+    out, _, nd = counted(lambda: run_tracking_experiment(cfg, sp, cp, dd_course[:40],
+                                                         num_steps=120))
+    final = float(np.hypot(*(out["logs"]["state"][-1, :2] - dd_course[39])))
+    rob["course_end"] = {"final_distance_m": final, "draws": nd}
+    require(np.isfinite(out["logs"]["state"]).all() and final < 1.0 and nd == 120,
+            f"[32] course end: {rob['course_end']}")
+    raw = dkan_course(resolution=0.1).astype(np.float32)
+    smooth = spline_resample_course(
+        [[0.0, 0.0], [8.0, 0.0], [17.7, 0.0], [17.7, 4.0], [17.7, 8.0],
+         [9.0, 8.0], [0.0, 8.0]], resolution=0.1).astype(np.float32)
+    out = run_tracking_experiment(cfg, sp, cp, raw, num_steps=200)
+    out2 = run_tracking_experiment(cfg, sp, cp, smooth, num_steps=200)
+    rob["dkan"] = {"raw_max_error_m": out["metrics"]["max_error"],
+                   "raw_x_end_m": float(out["logs"]["state"][-1, 0]),
+                   "spline_rmse_m": out2["metrics"]["rmse"]}
+    require(out["metrics"]["max_error"] < 0.6 and out["logs"]["state"][-1, 0] > 15.0
+            and out2["metrics"]["rmse"] < 0.2, f"[32] dkan: {rob['dkan']}")
+    loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=PathBuffer.from_points(dd_course, 0.1,
+                                                                          device=dev))
+    plant = get_model(cfg.model)
+    rng = np.random.RandomState(0)
+    state = torch.tensor([dd_course[0, 0], dd_course[0, 1], 0.0], device=dev)
+
+    def jitter():
+        nonlocal state
+        traj = [state.cpu().numpy()]
+        for _ in range(50):
+            dt = float(rng.uniform(0.08, 0.12))
+            res = loop.step(state, dt=dt)
+            state = plant.step(state, res.u0, torch.tensor(dt, device=dev))
+            traj.append(state.cpu().numpy())
+        return tracking_metrics(np.stack(traj)[:, :2], dd_course)
+
+    m, _, nd = counted(jitter)
+    rob["dt_jitter_50"] = {"rmse_m": m["rmse"], "captures": loop.compiled.captures,
+                           "draws": nd}
+    require(loop.compiled.captures == 1 and m["rmse"] < 0.2 and nd == 50,
+            f"[32] dt jitter: {rob['dt_jitter_50']}")
+    print(f"[32 robustness] on the card, diff_drive K=256 eager (graphed): {rob}; {card}",
+          flush=True)
+    record["robustness"] = rob
+    counters_zero("[32] robustness")
+
+    # (d) the serving session's arms, shortened ---------------------------------
+    session = {}
+    dev_arm, nf, _ = counted(lambda: rs.device_arm(hz=500.0, seconds=2.0, device=dev))
+    session["device_arm"] = dev_arm
+    print(f"[32 session] device arm, full_body K={dev_arm['num_samples']} "
+          f"T={dev_arm['horizon']} at 500 Hz for 2 s: {dev_arm['cycles']} cycles in "
+          f"{dev_arm['wall_seconds']} s = {dev_arm['sustained_hz']} Hz sustained, "
+          f"{dev_arm['per_cycle_ms']} ms a cycle, capture {dev_arm['compile_s']} s, "
+          f"{dev_arm['captures']} capture, {dev_arm['kernel_launches']} launches in the "
+          f"timed run; tracking {dev_arm['tracking']}; {card}", flush=True)
+    require(dev_arm["cycles"] == 1000 and dev_arm["kernel_launches"] == 1000
+            and dev_arm["captures"] == 1 and nf == 1001
+            and dev_arm["tracking"]["rmse"] < 0.15,
+            f"[32] device arm: {dev_arm}, {nf} launches with its capture run")
+    counts.setdefault("rollout_cost_full_body", {})["session/device_arm_500hz_2s"] = (
+        dev_arm["kernel_launches"])
+    # the reference's own rate: the host loop's solver dt is the measured one
+    hosts, nf, _ = counted(lambda: rs.host_arm(rates=(10.0,), seconds=2.0, device=dev))
+    session["host_arm"] = hosts[0]
+    print(f"[32 session] host arm 10 Hz for 2 s: {hosts[0]}; {nf} fused launches; {card}",
+          flush=True)
+    require(hosts[0]["rate_stats"]["cycles"] == 20 and nf == 21
+            and hosts[0]["tracking"]["rmse"] < 0.15, f"[32] host arm: {hosts[0]}, {nf}")
+    counts["rollout_cost_full_body"]["session/host_arm_10hz_2s"] = nf
+    (piped, _), nf, _ = counted(lambda: rs.pipelined_arm(arms=((25.0, 1),), seconds=2.0,
+                                                         device=dev, pairs=()))
+    session["pipelined_arm"] = piped[0]
+    print(f"[32 session] pipelined arm 25 Hz M=1 for 2 s: {piped[0]}; {nf} fused "
+          f"launches; {card}", flush=True)
+    require(piped[0]["rate_stats"]["cycles"] == 50 and nf == 51
+            and piped[0]["tracking"]["rmse"] < 0.15, f"[32] pipelined arm: {piped[0]}, {nf}")
+    counts["rollout_cost_full_body"]["session/pipelined_25hz_2s"] = nf
+    record["session"] = session
+    counters_zero("[32] session")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[32 evaluations] done in {record['seconds']:.1f} s; {card}", flush=True)
+    return record, counts
 
 def main():
     import numpy as np
@@ -3059,6 +3322,10 @@ def main():
     eager = phase_31(dev, card, log, launches, max_abs_err, med31, counters_zero)
     print(json.dumps({"eager_compiled": eager}), flush=True)
 
+    # --- 32. the reference's evaluations: matrix, robustness, session -----------
+    evaluations, launches32 = phase_32(dev, card, counters_zero)
+    print(json.dumps({"evaluations": evaluations}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -3137,6 +3404,10 @@ def main():
                  replaces=REPLACES_DRAW)
     draw["randn_ms_yardstick"] = med31["draw/randn"]
     kernels.append(draw)
+    # phase 32's runs, each counted from 0 just before it
+    for k in kernels:
+        if k["name"] in launches32:
+            k["launches_phase_32"] = launches32[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

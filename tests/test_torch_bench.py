@@ -263,6 +263,49 @@ def test_loop_and_fleet_gates_fail_on_injected_errors(monkeypatch, one_thread):
     assert e.value.gate[0]["rmse_m"] == 0.2
 
 
+@pytest.mark.parametrize("name", [n for n, c in sorted(cells.CELLS.items())
+                                  if c.kind == "update"])
+def test_update_arms_step_the_compiled_step(name, monkeypatch, one_thread):
+    """Each update arm's chain steps a ``compile_step`` of the arm's options
+    (bench.py:121-127 times jax.jit of every arm), the gate steps the
+    kernel-lean arm's, and on the CPU a chain is bit-equal to op-by-op
+    ``mppi_step`` from the same state."""
+    from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.solver.mppi import CompiledStep
+
+    calls = []
+    real_call = CompiledStep.__call__
+
+    def spy(self, *args, **kwargs):
+        calls.append(self)
+        return real_call(self, *args, **kwargs)
+
+    monkeypatch.setattr(CompiledStep, "__call__", spy)
+    cell = tiny(cells.CELLS[name])
+    x = cells.inputs(cell, 0, CPU)
+    arms = cells._update_arms(cell, x, CPU)
+    assert tuple(arms) == cell.arms
+    elite = {} if cell.elite_frac is None else {"elite_frac": cell.elite_frac}
+    for arm_name, chain in arms.items():
+        step = cells._update_step(cell, x, arm_name)
+        assert isinstance(step, CompiledStep) and step.cfg == x["cfg"]
+        assert step.options == dict(elite, use_kernel=arm_name.startswith("kernel"),
+                                    lean=arm_name.endswith("lean"))
+        calls.clear()
+        carry = ref = chain.start()
+        for _ in range(cell.chain):
+            carry = chain.step(carry)
+            ref = mppi_step(x["cfg"], ref, x["state"], x["path"], x["dt"], x["sp"],
+                            x["cp"], **step.options)[0]
+        assert calls == [step] * cell.chain
+        assert carry.step == ref.step == cell.chain
+        assert torch.equal(carry.u_prev, ref.u_prev), arm_name
+        assert torch.equal(carry.with_key().key, ref.with_key().key)
+    calls.clear()
+    assert cells._gate_update(cell, x, CPU)[0]["ok"]
+    assert calls == [cells._update_step(cell, x, "kernel_lean")]
+
+
 # --- the command, on the CPU ---------------------------------------------------------
 
 def test_refuses_to_run_without_a_card(monkeypatch):

@@ -53,7 +53,9 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "scripts").glob("torch_*.py"))
+                         + sorted((ROOT / "bench_torch").glob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_the_jax_package(path):
     for node in ast.walk(ast.parse(path.read_text())):
@@ -65,6 +67,16 @@ def test_sources_import_neither_jax_nor_the_jax_package(path):
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "ccv_mppi_path_tracker_tpu"), (
                 f"{path} imports {name}")
+
+
+def test_version_is_the_jax_package_s():
+    import ccv_mppi_path_tracker_tpu
+    import ccv_mppi_path_tracker_tpu_torch
+    from ccv_mppi_path_tracker_tpu_torch.version import __version__
+
+    assert ccv_mppi_path_tracker_tpu_torch.__version__ == __version__
+    assert __version__ == ccv_mppi_path_tracker_tpu.__version__ == "0.5.0"
+    assert ccv_mppi_path_tracker_tpu_torch.__all__ == ["__version__"]
 
 
 @pytest.mark.parametrize("as_dicts", [False, True])

@@ -187,6 +187,46 @@ def test_pure_pursuit_step_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F64)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pure_pursuit_scan_equals_the_step_by_step_loop(dtype):
+    """The experiment's scanned cycle (utils/cuda_graph.py scan on the CPU,
+    the graph's body on the card) against the loop it replaced: the step,
+    then the unicycle's step, bit for bit."""
+    course = _pp_course()
+    cfg = pure_pursuit.PurePursuitConfig(lookahead=0.9, v_ref=1.0)
+    got = pure_pursuit.run_pure_pursuit_experiment(course, num_steps=80, cfg=cfg,
+                                                   dtype=dtype, device="cpu")
+    path = paths.PathBuffer.from_points(course, 0.1, dtype=torch.float32, device="cpu")
+    plant = get_model("unicycle")
+    heading = float(np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0]))
+    state = torch.tensor([course[0, 0], course[0, 1], heading], dtype=dtype)
+    states, u0s = [], []
+    for _ in range(80):
+        u0 = pure_pursuit.pure_pursuit_step(cfg, state, path)
+        state = plant.step(state, u0, 0.1)
+        states.append(state)
+        u0s.append(u0)
+    np.testing.assert_array_equal(got["logs"]["state"], torch.stack(states).numpy())
+    np.testing.assert_array_equal(got["logs"]["u0"], torch.stack(u0s).numpy())
+    assert got["logs"]["state"].dtype == np.dtype(str(dtype).split(".")[1])
+
+
+def test_pure_pursuit_config_is_a_graph_constant():
+    """The config is frozen and hashable: its floats enter the compiled
+    cycle's cache key, the state and path are inputs."""
+    course = _pp_course()
+    path = paths.PathBuffer.from_points(course, 0.1, device="cpu").with_count_tensor()
+    state = torch.zeros(3)
+    a, b = pure_pursuit.PurePursuitConfig(), pure_pursuit.PurePursuitConfig(lookahead=1.5)
+    key = pure_pursuit.CYCLE.cache_key
+    assert hash(a) != hash(b)
+    assert key(state, path, a, 0.1) == key(state + 1, path, a, 0.1)
+    assert key(state, path, a, 0.1) != key(state, path, b, 0.1)
+    assert key(state, path, a, 0.1) != key(state, path, a, 0.05)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        a.lookahead = 2.0
+
+
 def test_run_pure_pursuit_experiment_matches_jax():
     course = _pp_course()
     got = pure_pursuit.run_pure_pursuit_experiment(course, num_steps=60,
