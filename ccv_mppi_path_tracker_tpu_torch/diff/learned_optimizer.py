@@ -17,23 +17,32 @@ cost after a fixed number of solver iterations:
 At identity initialization the MLP's output layer is zero and the gain 1,
 so ``w`` is the MPPI softmax and the update is ``ops/softmax_update.py``'s.
 
-``torch.func.vmap`` cannot draw from a ``torch.Generator``, so
-:func:`meta_train` and :func:`evaluate_rule` draw a batch's noise up front
-and vmap :func:`solved_cost` over the poses and their noise.
+:func:`meta_train` and :func:`evaluate_rule` vmap :func:`solved_cost` over
+a batch of poses and their noise, drawn before the ``vmap`` (``vmap`` can
+pass neither a ``torch.Generator`` draw nor a batched tensor to the draw
+kernel's launch). Meta-training is one scan of :func:`_meta_step` (the rule's
+parameters and the Adam state carried as plain tensors, diff/optim.py): on
+the card one CUDA graph replayed a step, as the JAX package jits its step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
-from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
+from ccv_mppi_path_tracker_tpu_torch.core.types import (
+    ControllerState,
+    StepResult,
+    advance_key,
+    make_key,
+)
 from ccv_mppi_path_tracker_tpu_torch.diff.gradients import make_trajectory_cost
 from ccv_mppi_path_tracker_tpu_torch.diff.learned_sampler import random_poses
+from ccv_mppi_path_tracker_tpu_torch.diff.optim import Program, adam_init, adam_update
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout
@@ -44,6 +53,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
 )
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import weighted_update
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_reference
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed
 
 
 class UpdateRule(nn.Module):
@@ -82,6 +92,23 @@ class UpdateRule(nn.Module):
         feats = torch.stack([n, torch.exp(-n)], dim=-1)  # (K, F)
         h = torch.tanh(feats @ self.w1 + self.b1)
         return (h @ self.w2 + self.b2)[..., 0]
+
+    def tensors(self) -> tuple:
+        """The parameters as plain tensors, in :class:`RuleTensors`' order."""
+        return tuple(p.detach() for p in self.parameters())
+
+
+class RuleTensors(NamedTuple):
+    """An :class:`UpdateRule`'s parameters as plain tensors, the form that
+    meta-training carries and differentiates with ``torch.func``."""
+
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+    b2: torch.Tensor
+    log_gain: torch.Tensor
+
+    logit_correction = UpdateRule.logit_correction
 
 
 def learned_weights(rule: UpdateRule, costs, lam, eps: float = 1e-6):
@@ -149,8 +176,9 @@ def _identity(cfg, device, dtype):
 def solved_cost(cfg, rule, state, path, dt, sp, cp, seed: int = 0, iterations: int = 2,
                 noise=None):
     """Realized trajectory cost of the update after ``iterations`` solver
-    cycles at a frozen state from a zero (cold) start. ``rule=None`` runs the
-    vanilla update (the identity rule). Differentiable in ``rule``.
+    cycles at a frozen state from a zero (cold) start. ``rule`` is an
+    :class:`UpdateRule` or :class:`RuleTensors`; None runs the vanilla update
+    (the identity rule). Differentiable in ``rule``.
 
     noise: optional standard normals (iterations, T-1, K, U), one draw per
     cycle (the JAX function takes one (T-1, K, U) draw and repeats it every
@@ -180,10 +208,44 @@ def _batch_costs(cfg, rule, sp, cp, path, dt, states, noise, iterations):
         in_dims=(0, 1))(states, noise)
 
 
-def _batch_noise(cfg, generator, iterations, num, dtype):
-    shape = (iterations, num, cfg.horizon - 1, cfg.num_samples,
-             get_model(cfg.model).num_controls)
-    return torch.randn(shape, generator=generator, dtype=dtype, device=generator.device)
+def _step_noise(cfg, key, iterations, num, dtype):
+    """A meta-training step's noise, (iterations, B, T-1, K, U): the Philox
+    stream of ``key`` [seed, step], robot word i * B + b for cycle i of pose
+    b, in one draw (on the card one launch of the draw kernel)."""
+    u_dim = get_model(cfg.model).num_controls
+    noise = draw_standard_normals(key, None, None, (iterations * num, cfg.horizon - 1,
+                                                    cfg.num_samples, u_dim), dtype=dtype)
+    return noise.reshape(iterations, num, *noise.shape[1:])
+
+
+def _meta_step(carry, cfg, sp, cp, path, dt, poses, iterations, learning_rate, noise=None):
+    """One meta-training step, carry (rule parameters, Adam state, key [seed,
+    i]): the mean realized cost over batch i of ``poses`` (num_steps, B, S),
+    picked on the device by the key's step, with the noise of
+    :func:`_step_noise` (or ``noise``), its gradient and the Adam update.
+    Returns (the carry with the key advanced, the loss before the update)."""
+    params, state, key = carry
+    states = poses.index_select(0, key[1:])[0]
+    if noise is None:
+        noise = _step_noise(cfg, key, iterations, states.shape[0], states.dtype)
+    grads, loss = torch.func.grad_and_value(lambda ps: _mean_cost(
+        cfg, ps, sp, cp, path, dt, states, noise, iterations))(params)
+    params, state = adam_update(params, grads, state, learning_rate)
+    return (params, state, advance_key(key)), loss
+
+
+def _mean_cost(cfg, params, sp, cp, path, dt, states, noise, iterations):
+    """The mean realized cost of the rule of tensors ``params`` over the
+    poses ``states`` and their noise: meta-training's loss and
+    :func:`evaluate_rule`'s value."""
+    return torch.mean(_batch_costs(cfg, RuleTensors(*params), sp, cp, path, dt, states,
+                                   noise, iterations))
+
+
+# The compiled programs: on the card one CUDA graph per configuration and
+# shape set a process runs (least recently used dropped first).
+META_TRAIN = Graphed(_meta_step, max_graphs=8)
+EVALUATE = Graphed(_mean_cost, max_graphs=8)
 
 
 def meta_train(
@@ -206,29 +268,42 @@ def meta_train(
     Loss: the mean realized cost over a fresh batch of randomized poses
     after ``iterations`` cold-start cycles. Gradients flow through the
     (reparameterized) sampling, the rollout, the cost and the softmax.
-    ``generator`` (on the solver's device) draws the initial rule, each
-    step's poses and noise. Returns (rule, losses: a NumPy array, each
-    step's loss before its update).
+
+    ``generator`` (on any device) draws, in this order: the initial rule's
+    w1, the poses of all ``num_steps`` batches (num_steps * batch poses, step
+    i's batch the i-th run of ``batch``), and a seed. Step i's noise is the
+    Philox stream of (seed, i) (:func:`_step_noise`), drawn inside the step.
+    So the result is a function of ``generator``'s state: with a generator
+    on the CPU, the same on the CPU and the card up to float rounding. The
+    steps are one scan of :func:`_meta_step`: on the card one CUDA graph
+    replayed ``num_steps`` times, with one launch of the draw kernel a step.
+    Returns (rule, losses: a NumPy array, each step's loss before its
+    update).
     """
+    (params, _, _), losses = _meta_train_program(
+        cfg, sp, cp, course, generator, num_steps, batch, iterations, dt, hidden,
+        learning_rate, lateral_spread, yaw_spread)()
+    return UpdateRule(*params), losses.cpu().numpy()
+
+
+def _meta_train_program(cfg, sp, cp, course, generator, num_steps=120, batch=32,
+                        iterations=2, dt=0.1, hidden=16, learning_rate=3e-3,
+                        lateral_spread=0.5, yaw_spread=0.5) -> Program:
+    """:func:`meta_train`'s scan, not yet run (its draws from ``generator``
+    made)."""
     device, dtype = sp.lam.device, sp.lam.dtype
     path = PathBuffer.from_points(course, 0.1, dtype=dtype, device=device)
     dtt = torch.full((), dt, dtype=dtype, device=device)
     rule = UpdateRule.init_identity(get_model(cfg.model).num_controls, generator, hidden,
-                                    dtype)
-    opt = torch.optim.Adam(rule.parameters(), lr=learning_rate)
-    losses = []
-    for _ in range(num_steps):
-        states = random_poses(cfg, course, generator, batch, lateral_spread, yaw_spread,
-                              dtype)
-        noise = _batch_noise(cfg, generator, iterations, batch, dtype)
-        opt.zero_grad()
-        with torch.enable_grad():
-            loss = torch.mean(_batch_costs(cfg, rule, sp, cp, path, dtt, states, noise,
-                                           iterations))
-            loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    return rule, torch.stack(losses).cpu().numpy()
+                                    dtype).to(device)
+    poses = random_poses(cfg, course, generator, num_steps * batch, lateral_spread,
+                         yaw_spread, dtype).to(device).reshape(num_steps, batch, -1)
+    seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                             device=generator.device))
+    params = rule.tensors()
+    carry = (params, adam_init(params), make_key(seed, 0, device))
+    return Program(META_TRAIN, (carry, cfg, sp, cp, path, dtt, poses, iterations,
+                                learning_rate), num_steps)
 
 
 @torch.no_grad()
@@ -236,14 +311,26 @@ def evaluate_rule(cfg, rule, sp, cp, course, generator: torch.Generator,
                   num_states: int = 32, iterations: int = 2, dt: float = 0.1,
                   lateral_spread: float = 0.5, yaw_spread: float = 0.5):
     """Mean realized cost over held-out randomized poses drawn from
-    ``generator``, with their noise (rule=None: vanilla)."""
+    ``generator`` (on any device), with their noise (rule=None: vanilla). On
+    the card the costs are one CUDA graph's replay."""
+    return float(_evaluate_rule_program(cfg, rule, sp, cp, course, generator, num_states,
+                                        iterations, dt, lateral_spread, yaw_spread)())
+
+
+def _evaluate_rule_program(cfg, rule, sp, cp, course, generator, num_states=32,
+                           iterations=2, dt=0.1, lateral_spread=0.5,
+                           yaw_spread=0.5) -> Program:
+    """:func:`evaluate_rule`'s call, not yet run (its draws made)."""
     device, dtype = sp.lam.device, sp.lam.dtype
     path = PathBuffer.from_points(course, 0.1, dtype=dtype, device=device)
     dtt = torch.full((), dt, dtype=dtype, device=device)
     states = random_poses(cfg, course, generator, num_states, lateral_spread, yaw_spread,
-                          dtype)
-    noise = _batch_noise(cfg, generator, iterations, num_states, dtype)
+                          dtype).to(device)
+    shape = (iterations, num_states, cfg.horizon - 1, cfg.num_samples,
+             get_model(cfg.model).num_controls)
+    noise = torch.randn(shape, generator=generator, dtype=dtype,
+                        device=generator.device).to(device)
     if rule is None:
         rule = _identity(cfg, device, dtype)
-    return float(torch.mean(_batch_costs(cfg, rule, sp, cp, path, dtt, states, noise,
-                                         iterations)))
+    return Program(EVALUATE, (cfg, rule.tensors(), sp, cp, path, dtt, states, noise,
+                              iterations))

@@ -23,7 +23,9 @@ from torch import nn
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import SolverConfig
 from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
+from ccv_mppi_path_tracker_tpu_torch.diff.optim import Program, adam_init, adam_update
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed
 
 
 class SamplerNet(nn.Module):
@@ -51,7 +53,12 @@ class SamplerNet(nn.Module):
         )
 
     def forward(self, feats):
-        return torch.tanh(feats @ self.w1 + self.b1) @ self.w2 + self.b2
+        return _mlp(feats, self.w1, self.b1, self.w2, self.b2)
+
+
+def _mlp(feats, w1, b1, w2, b2):
+    """:class:`SamplerNet`'s function of its weights."""
+    return torch.tanh(feats @ w1 + b1) @ w2 + b2
 
 
 def proposal_features(state, ref: RefWindow):
@@ -129,18 +136,34 @@ def collect_imitation_data(cfg, sp, cp, course, generator: torch.Generator,
 def fit_sampler(feats, targets, generator: torch.Generator, hidden: int = 64,
                 num_steps: int = 500, learning_rate: float = 1e-3):
     """Regress proposal means from features (MSE, Adam), the weights drawn
-    from ``generator``. Returns (net, losses: a NumPy array, each step's loss
-    before its update)."""
+    from ``generator`` before the first step. Returns (net, losses: a NumPy
+    array, each step's loss before its update). The steps are one scan of
+    :func:`_sampler_step` (diff/optim.py): on the card one CUDA graph
+    replayed ``num_steps`` times, as the JAX package jits its step."""
+    (params, _), losses = _fit_sampler_program(feats, targets, generator, hidden,
+                                               num_steps, learning_rate)()
+    return SamplerNet(*params), losses.cpu().numpy()
+
+
+def _sampler_step(carry, feats, y, learning_rate):
+    """:func:`fit_sampler`'s Adam step, carry ((w1, b1, w2, b2), Adam state)."""
+    params, state = carry
+    grads, loss = torch.func.grad_and_value(
+        lambda ps: torch.mean((_mlp(feats, *ps) - y) ** 2))(params)
+    return adam_update(params, grads, state, learning_rate), loss
+
+
+# The compiled program: on the card one CUDA graph per shape set a process
+# runs (least recently used dropped first).
+SAMPLER_FIT = Graphed(_sampler_step, max_graphs=8)
+
+
+def _fit_sampler_program(feats, targets, generator, hidden=64, num_steps=500,
+                         learning_rate=1e-3) -> Program:
+    """:func:`fit_sampler`'s scan, not yet run (the weights drawn)."""
     n, in_dim = feats.shape
     y = targets.reshape(n, -1)
     net = SamplerNet.init(in_dim, hidden, y.shape[1], generator, feats.dtype).to(feats.device)
-    opt = torch.optim.Adam(net.parameters(), lr=learning_rate)
-    losses = []
-    for _ in range(num_steps):
-        opt.zero_grad()
-        with torch.enable_grad():
-            loss = torch.mean((net(feats) - y) ** 2)
-            loss.backward()
-        opt.step()
-        losses.append(loss.detach())
-    return net, torch.stack(losses).cpu().numpy()
+    params = tuple(p.detach() for p in net.parameters())
+    return Program(SAMPLER_FIT, ((params, adam_init(params)), feats, y, learning_rate),
+                   num_steps)

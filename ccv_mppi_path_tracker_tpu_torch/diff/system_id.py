@@ -8,9 +8,11 @@ parameters by Adam on the state prediction error:
   controls (droop or scaling miscalibration of the kinematic models);
 - ``FullBodyParams`` (mass and CoM height) against an observed ZMP trace.
 
-The fits are Python loops over ``torch.optim.Adam`` steps, which is optax's
-``adam`` formula with its defaults. Each step's loss is recorded before its
-update, as the JAX package's scans record it.
+The fits are scans of one Adam step (diff/optim.py: ``optax.adam``'s
+arithmetic, the parameters and the optimizer state carried as plain
+tensors), the JAX package's ``lax.scan`` of its steps: on the card one CUDA
+graph replayed a step, on the CPU the same step eagerly. Each step's loss is
+recorded before its update, as the JAX package's scans record it.
 
 Every function is data-parallel over ``group`` (a ``torch.distributed``
 process group; each rank holds an equal share of the batch), the JAX
@@ -20,6 +22,8 @@ the same Adam step and the fit equals the one-process fit on the whole
 batch. The all-reduce carries values, not gradients: a loss called with a
 group is the global value; its gradient is taken of the local loss and
 all-reduced, as the fits and :func:`rollout_prediction_value_and_grad` do.
+With a group the fits and the chunked gradient run op by op, on the card
+too: a CUDA graph does not hold their collectives.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ccv_mppi_path_tracker_tpu_torch.diff.optim import Program, adam_init, adam_update
 from ccv_mppi_path_tracker_tpu_torch.models.full_body import FullBodyParams, zmp_chain
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed
 
 
 @dataclasses.dataclass
@@ -72,22 +78,45 @@ def prediction_loss(model_name, params, states_t, controls_t, states_t1, dt, gro
     return _mean_over(group, loss)[0]
 
 
-def _adam_fit(loss_fn, leaves, num_steps, learning_rate, group=None):
-    """Adam on the tensors ``leaves`` (copied; the inputs are not changed),
-    each step's local loss and gradient averaged over ``group``. Returns
-    (fitted leaves, the (num_steps,) losses before each update)."""
-    leaves = [t.detach().clone() for t in leaves]
-    opt = torch.optim.Adam(leaves, lr=learning_rate)
-    value_and_grad = torch.func.grad_and_value(lambda ls: loss_fn(*ls))
-    losses = []
-    for _ in range(num_steps):
-        grads, loss = value_and_grad(leaves)
-        loss, *grads = _mean_over(group, loss, *grads)
-        for t, g in zip(leaves, grads):
-            t.grad = g
-        opt.step()
-        losses.append(loss)
-    return leaves, torch.stack(losses)
+def _adam_step(loss_fn, carry, learning_rate, group):
+    """One Adam step of ``loss_fn(*params)`` from ``carry`` (params, Adam
+    state), the local loss and gradient averaged over ``group``: (the next
+    carry, the loss before the update)."""
+    params, state = carry
+    grads, loss = torch.func.grad_and_value(lambda ps: loss_fn(*ps))(params)
+    loss, *grads = _mean_over(group, loss, *grads)
+    return adam_update(params, grads, state, learning_rate), loss
+
+
+def _gains_step(carry, model_name, states_t, controls_t, states_t1, dt, learning_rate,
+                group):
+    """:func:`fit_control_gains`' step, carry ((gains,), Adam state)."""
+    return _adam_step(
+        lambda g: prediction_loss(model_name, ControlGains(g), states_t, controls_t,
+                                  states_t1, dt),
+        carry, learning_rate, group)
+
+
+def _zmp_step(carry, init, states, controls, observed_zmp_y, dt, learning_rate, group):
+    """:func:`fit_full_body_params`' step, carry ((mass, base2com), Adam
+    state); the other fields of ``init`` are held."""
+    return _adam_step(
+        lambda m, c: zmp_loss(dataclasses.replace(init, mass=m, base2com=c), states,
+                              controls, observed_zmp_y, dt),
+        carry, learning_rate, group)
+
+
+# The compiled programs: on the card one CUDA graph per shape set and
+# constants a process runs (least recently used dropped first).
+GAINS_FIT = Graphed(_gains_step, max_graphs=8)
+ZMP_FIT = Graphed(_zmp_step, max_graphs=8)
+
+
+def _fit_program(graphed, leaves, num_steps, *fixed) -> Program:
+    """The scan of ``graphed``'s step over ``num_steps`` from the tensors
+    ``leaves`` (copied: the inputs are not changed) and a fresh Adam state."""
+    leaves = tuple(t.detach().clone() for t in leaves)
+    return Program(graphed, ((leaves, adam_init(leaves)),) + fixed, num_steps)
 
 
 def fit_control_gains(
@@ -103,15 +132,23 @@ def fit_control_gains(
 ):
     """Recover per-channel control gains from observed transitions (this
     rank's share of them with ``group``). Returns (ControlGains, losses
-    (num_steps,))."""
+    (num_steps,)). On the card without a group: one CUDA graph of the Adam
+    step, replayed ``num_steps`` times."""
+    ((gains,), _), losses = _fit_control_gains_program(
+        model_name, states_t, controls_t, states_t1, dt, num_steps, learning_rate, init,
+        group)(graph=group is None)
+    return ControlGains(gains=gains), losses
+
+
+def _fit_control_gains_program(model_name, states_t, controls_t, states_t1, dt,
+                               num_steps=300, learning_rate=0.1, init=None,
+                               group=None) -> Program:
+    """:func:`fit_control_gains`' scan, not yet run."""
     if init is None:
         init = ControlGains(gains=torch.ones(controls_t.shape[-1], dtype=states_t.dtype,
                                              device=states_t.device))
-    (gains,), losses = _adam_fit(
-        lambda g: prediction_loss(model_name, ControlGains(g), states_t, controls_t,
-                                  states_t1, dt),
-        [init.gains], num_steps, learning_rate, group)
-    return ControlGains(gains=gains), losses
+    return _fit_program(GAINS_FIT, [init.gains], num_steps, model_name, states_t,
+                        controls_t, states_t1, dt, learning_rate, group)
 
 
 def rollout_prediction_loss(model_name, params, state0, controls, observed, dt,
@@ -140,13 +177,31 @@ def rollout_prediction_value_and_grad(model_name, params: ControlGains, state0, 
     B of N equal shares), each bucket's loss and gradient are all-reduced
     asynchronously as soon as its backward is done, so the collective
     overlaps the next bucket's backward; all are waited on at the end, and
-    the scale is 1/(T-1)/(N*B). Up to the order of the float additions the
-    result does not depend on ``num_chunks`` or N. Returns (loss,
-    ControlGains of the gradient).
+    the scale is 1/(T-1)/(N*B): op by op, on the card too. Without a group,
+    on the card every bucket's rollout and backward are one CUDA graph's
+    replay. Up to the order of the float additions the result does not
+    depend on ``num_chunks`` or N. Returns (loss, ControlGains of the
+    gradient).
     """
+    loss, grad = _rollout_gradient_program(model_name, params, state0, controls, observed,
+                                           dt, num_chunks, group)(graph=group is None)
+    return loss, ControlGains(gains=grad)
+
+
+def _rollout_gradient_program(model_name, params: ControlGains, state0, controls,
+                              observed, dt, num_chunks=1, group=None) -> Program:
+    """:func:`rollout_prediction_value_and_grad`'s call, not yet run."""
+    if state0.shape[0] % num_chunks:
+        raise ValueError(f"batch {state0.shape[0]} does not split into {num_chunks} equal "
+                         "chunks")
+    return Program(ROLLOUT_GRADIENT, (model_name, params.gains, state0, controls, observed,
+                                      dt, num_chunks, group))
+
+
+def _chunked_value_and_grad(model_name, gains, state0, controls, observed, dt, num_chunks,
+                            group):
+    """(loss, gradient) of :func:`rollout_prediction_value_and_grad`."""
     b = state0.shape[0]
-    if b % num_chunks:
-        raise ValueError(f"batch {b} does not split into {num_chunks} equal chunks")
     csz = b // num_chunks
     step = gained_step(model_name)
 
@@ -161,7 +216,7 @@ def rollout_prediction_value_and_grad(model_name, params: ControlGains, state0, 
     buckets, pending = [], []
     for i in range(num_chunks):
         sl = slice(i * csz, (i + 1) * csz)
-        g_i, l_i = torch.func.grad_and_value(chunk_loss)(params.gains, sl)
+        g_i, l_i = torch.func.grad_and_value(chunk_loss)(gains, sl)
         bucket = torch.cat([l_i.reshape(1), g_i])
         if group is not None:
             pending.append(dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group,
@@ -174,7 +229,10 @@ def rollout_prediction_value_and_grad(model_name, params: ControlGains, state0, 
         total = total + bucket
     shards = 1 if group is None else dist.get_world_size(group)
     scale = 1.0 / (controls.shape[0] * b * shards)
-    return total[0] * scale, ControlGains(gains=total[1:] * scale)
+    return total[0] * scale, total[1:] * scale
+
+
+ROLLOUT_GRADIENT = Graphed(_chunked_value_and_grad, max_graphs=8)
 
 
 def zmp_loss(params: FullBodyParams, states, controls, observed_zmp_y, dt, group=None):
@@ -202,9 +260,18 @@ def fit_full_body_params(
     The JAX package runs Adam over every field with the other gradients
     zeroed; Adam moves nothing on a zero gradient, so optimizing the two
     trained fields alone is the same fit. Returns (FullBodyParams, losses).
+    On the card without a group: one CUDA graph of the Adam step, replayed
+    ``num_steps`` times.
     """
-    (mass, base2com), losses = _adam_fit(
-        lambda m, c: zmp_loss(dataclasses.replace(init, mass=m, base2com=c), states,
-                              controls, observed_zmp_y, dt),
-        [init.mass, init.base2com], num_steps, learning_rate, group)
+    ((mass, base2com), _), losses = _fit_full_body_params_program(
+        states, controls, observed_zmp_y, dt, init, num_steps, learning_rate,
+        group)(graph=group is None)
     return dataclasses.replace(init, mass=mass, base2com=base2com), losses
+
+
+def _fit_full_body_params_program(states, controls, observed_zmp_y, dt,
+                                  init: FullBodyParams, num_steps=300, learning_rate=0.02,
+                                  group=None) -> Program:
+    """:func:`fit_full_body_params`' scan, not yet run."""
+    return _fit_program(ZMP_FIT, [init.mass, init.base2com], num_steps, init, states,
+                        controls, observed_zmp_y, dt, learning_rate, group)

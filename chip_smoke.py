@@ -187,6 +187,21 @@ failure ending the run with a non-zero exit:
      Hz for 2 s (full_body K=102400 T=30: 1000 cycles of one graph, 1000
      launches), the host loop at 10 Hz and the pipelined loop at 25 Hz for
      2 s each; the phase's time.
+ 33. the differentiable side's compiled programs (diff/optim.py: one Adam
+     step scanned as a CUDA graph): fit_control_gains (the sysid data, 300
+     steps), fit_full_body_params (500), the chunked rollout gradient
+     (num_chunks 1, 4, 8), fit_sampler (300), meta_train (120) and
+     evaluate_rule, float32, each run eagerly (utils/cuda_graph.scan) and
+     graphed (Graphed.scan) in turns: wall ms of each, one capture a
+     program, the graphed outputs within rtol 1e-5 of the eager ones (bit
+     equality printed), no host sync in a replay, the draw kernel's launches
+     through meta_train's replays (one a step); phase 23's gates on the
+     graphed results (gains within rtol 1e-3, the sampler loss halved and 5
+     of 6 cold-start wins, meta_train's last 20 steps below its first 20
+     and the learned rule below vanilla); one graphed meta_train step at the
+     fleet width (diff_drive K=1024 T=15, batch 32), its ms and memory; and
+     scripts/torch_learning_eval.py --quick, every claim pointing the JAX
+     artifact's way.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -195,11 +210,12 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
-phase 32 with {"evaluations": ...}.
+phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
-phase 32 launched it, ``launches_phase_32``, each of its runs' count), the card's name and power limit
+phase 32 or 33 launched it, ``launches_phase_32`` or ``launches_phase_33``,
+each of its runs' count), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -1673,6 +1689,268 @@ def phase_32(dev, card, counters_zero):
     record["seconds"] = time.perf_counter() - t_phase
     print(f"[32 evaluations] done in {record['seconds']:.1f} s; {card}", flush=True)
     return record, counts
+
+def _flat(obj):
+    """The tensors of ``obj`` (a program's result), in order."""
+    from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import split_tensors
+
+    leaves = []
+    split_tensors(obj, leaves)
+    return leaves
+
+
+def graphed_against_eager(name, program, card):
+    """One of diff/'s programs on the card, eager (utils/cuda_graph.scan, or
+    its function called) and graphed (Graphed.scan, or a Graphed call) in
+    turns E G G E, after the capturing first graphed call (timed apart). The
+    replays run under sync debug mode "error": no host read inside the loop.
+    Returns (its record: the wall ms of each arm (host clock, synchronized),
+    the captures, the max |delta| between the arms' outputs (gated at rtol
+    1e-5 of each output's scale) and whether they are bit-equal; the graphed
+    output)."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import refuse_host_syncs
+
+    program.graphed.graphs.clear()  # an earlier phase may hold this shape's graph
+    before = program.graphed.captures
+
+    def timed(fn, refuse=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with refuse_host_syncs(f"the replay of {name}") if refuse else contextlib.nullcontext():
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    first_ms, _ = timed(program.replay)
+    times = {"eager": [], "graphed": []}
+    outs = {}
+    for arm in ("eager", "graphed", "graphed", "eager"):
+        ms, outs[arm] = (timed(program.eager) if arm == "eager"
+                         else timed(program.replay, refuse=True))
+        times[arm].append(ms)
+    captures = program.graphed.captures - before
+    eager, graphed = _flat(outs["eager"]), _flat(outs["graphed"])
+    require(len(eager) == len(graphed), f"[33] {name}: the arms' outputs differ in structure")
+    delta = max(float((g - e).abs().max()) for g, e in zip(graphed, eager))
+    within = all(bool(((g - e).abs() <= 1e-5 * e.abs().max()).all())
+                 for g, e in zip(graphed, eager))
+    same = all(torch.equal(g, e) for g, e in zip(graphed, eager))
+    rec = {"steps": program.length, "eager_ms": times["eager"], "graphed_ms": times["graphed"],
+           "first_graphed_ms_with_capture": first_ms, "captures": captures,
+           "max_abs_delta": delta, "bit_equal": same}
+    print(f"[33 {name}] {program.length or 1} step(s): eager "
+          f"{', '.join(f'{t:.2f}' for t in times['eager'])} ms, graphed "
+          f"{', '.join(f'{t:.2f}' for t in times['graphed'])} ms (first with its capture "
+          f"{first_ms:.2f}); {captures} capture; max |delta| {delta:.3e}, bit-equal {same}; "
+          f"{card}", flush=True)
+    require(captures == 1 and within, f"[33] {name}: {captures} captures, graphed against "
+            f"eager max |delta| {delta} beyond rtol 1e-5")
+    return rec, outs["graphed"]
+
+
+def phase_33(dev, card, counters_zero):
+    """Phase 33: the differentiable side's compiled programs (diff/optim.py):
+    fit_control_gains (the sysid data, 300 steps), fit_full_body_params (500),
+    the chunked rollout gradient (num_chunks 1, 4, 8), fit_sampler (300),
+    meta_train (120) and evaluate_rule, each eager and graphed in turns
+    (:func:`graphed_against_eager`), float32, the generators on the CPU; phase
+    23's gates on the graphed results; one graphed meta_train step at the
+    fleet cell's width (diff_drive K=1024 T=15, batch 32), its ms and the
+    memory it holds; scripts/torch_learning_eval.py --quick with each claim
+    pointing the JAX artifact's way. Returns (its JSON record, {kernels entry:
+    {run: launches}})."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_learning_eval as tle
+
+    from ccv_mppi_path_tracker_tpu_torch.core import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import diff_drive_launch
+    from ccv_mppi_path_tracker_tpu_torch.diff import (
+        ControlGains,
+        SamplerNet,
+        UpdateRule,
+        collect_imitation_data,
+        proposal_mean,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.diff.learned_optimizer import (
+        _evaluate_rule_program,
+        _meta_train_program,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.diff.learned_sampler import _fit_sampler_program
+    from ccv_mppi_path_tracker_tpu_torch.diff.system_id import (
+        _fit_control_gains_program,
+        _fit_full_body_params_program,
+        _rollout_gradient_program,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        fused_sample_rollout_cost,
+        philox_normals_cuda,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.models.full_body import default_params, zmp_chain
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer, resample_reference
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step
+
+    t_phase = time.perf_counter()
+    fused, draw = fused_sample_rollout_cost, philox_normals_cuda
+    record = {"card": card}
+    counts = {"philox_normals": {}}
+
+    def gen(seed):
+        g = torch.Generator()
+        g.manual_seed(seed)
+        return g
+
+    def counted(name, program):
+        """graphed_against_eager with the draw launches of the graphed arm's
+        replay-only call (counted from 0 just before it, read just after)."""
+        rec, out = graphed_against_eager(name, program, card)
+        fused.launches = draw.launches = 0
+        program.replay()
+        torch.cuda.synchronize()
+        rec["draw_launches_graphed"] = draw.launches
+        require(fused.launches == 0, f"[33] {name}: {fused.launches} fused launches")
+        record[name] = rec
+        return out
+
+    # the sysid command's data (cli.py cmd_sysid), float32
+    rng = np.random.RandomState(0)
+    true_gains = torch.tensor([0.85, 1.1], device=dev)
+    states = torch.tensor(rng.randn(2048, 3), dtype=torch.float32, device=dev)
+    controls = torch.tensor(rng.randn(2048, 2), dtype=torch.float32, device=dev)
+    nxt = get_model("unicycle").step(states, controls * true_gains, 0.1)
+    ((gains,), _), _ = counted("fit_control_gains", _fit_control_gains_program(
+        "unicycle", states, controls, nxt, 0.1, num_steps=300))
+    gains_rel = float((gains / true_gains - 1).abs().max())
+    record["fit_control_gains"]["gains_rel_err"] = gains_rel
+    require(gains_rel <= 1e-3, f"[33] fit_control_gains: gains {gains.tolist()}")
+
+    # tests/test_diff.py:71-88's data, float32
+    rng = np.random.RandomState(2)
+    f32 = dict(dtype=torch.float32, device=dev)
+    zstates = torch.tensor(rng.randn(12, 64, 5) * 0.2, **f32)
+    zcontrols = torch.tensor(rng.randn(11, 64, 5) * 0.5, **f32)
+    true = default_params(**f32)
+    observed = zmp_chain(zstates, zcontrols, 0.1, true)[..., 1]
+    init = dataclasses.replace(true, base2com=torch.full((), 0.6, **f32))
+    ((_, base2com), _), losses = counted("fit_full_body_params", _fit_full_body_params_program(
+        zstates, zcontrols, observed, 0.1, init, num_steps=500, learning_rate=0.02))
+    com_rel = abs(float(base2com) / float(true.base2com) - 1.0)
+    record["fit_full_body_params"]["base2com_rel_err"] = com_rel
+    require(com_rel <= 0.02, f"[33] fit_full_body_params: base2com {float(base2com)}")
+
+    # tests/test_diff.py:222-228's data, float32
+    rng = np.random.RandomState(3)
+    rargs = (torch.zeros((128, 3), **f32), torch.tensor(rng.randn(16, 128, 2) * 0.5, **f32),
+             torch.tensor(rng.randn(16, 128, 3) * 0.1, **f32))
+    for nc in (1, 4, 8):
+        counted(f"rollout_prediction_value_and_grad/num_chunks={nc}",
+                _rollout_gradient_program("unicycle", ControlGains(
+                    torch.tensor([1.1, 0.9], **f32)), *rargs, 0.1, num_chunks=nc))
+
+    # the learned sampler, scripts/learning_eval.py:44-50's sizes
+    cfg, sp, cp, course = diff_drive_launch(num_samples=256, horizon=10, device=dev)
+    feats, targets = collect_imitation_data(cfg, sp, cp, course, gen(0), num_states=96,
+                                            solve_cycles=6)
+    (params, _), losses = counted("fit_sampler", _fit_sampler_program(
+        feats, targets, gen(1), hidden=32, num_steps=300))
+    net = SamplerNet(*params)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    dt = torch.full((), 0.1, device=dev)
+    step = compile_step(cfg, use_kernel=False)
+    rng = np.random.RandomState(7)
+    wins = 0
+    for i in range(6):
+        j = rng.randint(0, len(course) - 2)
+        yaw0 = np.arctan2(course[j + 1, 1] - course[j, 1], course[j + 1, 0] - course[j, 0])
+        state = torch.tensor([course[j, 0], course[j, 1] + rng.randn() * 0.3,
+                              yaw0 + rng.randn() * 0.3], dtype=torch.float32, device=dev)
+        ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
+        with torch.no_grad():
+            u_net = torch.clamp(proposal_mean(net, cfg, state, ref), sp.u_min, sp.u_max)
+        first = [float(step(ControllerState(u, 100 + i, 0), state, path, dt, sp,
+                            cp)[1].stats["min_cost"]) for u in (u_net, torch.zeros_like(u_net))]
+        wins += first[0] <= first[1]
+    loss0, loss1 = float(losses[0]), float(losses[-1])
+    record["fit_sampler"].update(loss_first=loss0, loss_last=loss1, wins=wins)
+    print(f"[33 fit_sampler] graphed: loss {loss0:.4f} -> {loss1:.4f}; the proposal won "
+          f"{wins} of 6 cold starts", flush=True)
+    require(loss1 < 0.5 * loss0 and wins >= 5, "[33] the learned sampler")
+
+    # the learned update rule, scripts/learning_eval.py:103-106's sizes
+    cfg, sp, cp, course = diff_drive_launch(num_samples=64, horizon=8, device=dev)
+    (params, _, _), losses = counted("meta_train", _meta_train_program(
+        cfg, sp, cp, course, gen(0), num_steps=120, batch=32, iterations=2))
+    n = record["meta_train"]["draw_launches_graphed"]
+    counts["philox_normals"]["meta_train_graphed_120_steps"] = n
+    require(n == 120, f"[33] meta_train: {n} draw launches for 120 replayed steps")
+    rule = UpdateRule(*params)
+    costs = {}
+    for arm, r in (("vanilla", None), ("learned", rule)):
+        costs[arm] = float(counted(f"evaluate_rule/{arm}", _evaluate_rule_program(
+            cfg, r, sp, cp, course, gen(1234), iterations=2)))
+    first20, last20 = float(losses[:20].mean()), float(losses[-20:].mean())
+    record["meta_train"].update(loss_first20=first20, loss_last20=last20, **costs)
+    print(f"[33 meta_train] graphed: mean loss of the first 20 steps {first20:.4f}, of the "
+          f"last 20 {last20:.4f}; held-out realized cost vanilla {costs['vanilla']:.4f}, "
+          f"learned {costs['learned']:.4f}; {n} draw launches in 120 replayed steps",
+          flush=True)
+    require(last20 < first20 and costs["learned"] < costs["vanilla"], "[33] meta_train")
+
+    # one graphed meta_train step at the fleet cell's width
+    cfg, sp, cp, course = diff_drive_launch(num_samples=K_FLEET, horizon=T_FLEET, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    wide = _meta_train_program(cfg, sp, cp, course, gen(0), num_steps=20, batch=32)
+    wide.graphed.graphs.clear()
+    wide.replay()  # the capture
+    held = torch.cuda.memory_allocated() - base
+    fused.launches = draw.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, wide_losses = wide.replay()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / wide.length
+    peak = torch.cuda.max_memory_allocated() - base
+    record["meta_train_fleet_width"] = {
+        "num_samples": K_FLEET, "horizon": T_FLEET, "batch": 32, "ms_per_step": step_ms,
+        "held_mib": held / 2**20, "peak_mib": peak / 2**20, "draw_launches": draw.launches}
+    print(f"[33 meta_train at the fleet width] diff_drive K={K_FLEET} T={T_FLEET}, batch 32, "
+          f"2 iterations: {step_ms:.3f} ms a graphed step over {wide.length} replays, "
+          f"{draw.launches} draw launches; holds {held / 2**20:.1f} MiB after its capture, "
+          f"peak {peak / 2**20:.1f} MiB; {card}", flush=True)
+    require(draw.launches == wide.length and bool(torch.isfinite(wide_losses).all()),
+            "[33] meta_train at the fleet width")
+    counts["philox_normals"]["meta_train_fleet_width_20_steps"] = draw.launches
+    wide.graphed.graphs.clear()
+
+    # the twin of scripts/learning_eval.py, --quick
+    fused.launches = draw.launches = 0
+    t0 = time.perf_counter()
+    out = tle.run(quick=True, device=dev)
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    directions = tle.directions(out)
+    record["learning_eval_quick"] = {"seconds": sec, "draw_launches": draw.launches,
+                                     "directions": {k: v for k, v in directions.items()}}
+    for claim, (held_, numbers) in directions.items():
+        print(f"[33 learning_eval --quick] {claim}: {held_} ({numbers})", flush=True)
+    print(f"[33 learning_eval --quick] {sec:.1f} s, {draw.launches} draw launches, "
+          f"{fused.launches} fused; {card}", flush=True)
+    require(all(h for h, _ in directions.values()) and fused.launches == 0,
+            f"[33] learning_eval --quick: a claim does not point the JAX artifact's way: "
+            f"{directions}")
+    counts["philox_normals"]["learning_eval_quick"] = draw.launches
+    counters_zero("[33]")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[33 training programs] done in {record['seconds']:.1f} s; {card}", flush=True)
+    return record, counts
+
 
 def main():
     import numpy as np
@@ -3326,6 +3604,10 @@ def main():
     evaluations, launches32 = phase_32(dev, card, counters_zero)
     print(json.dumps({"evaluations": evaluations}), flush=True)
 
+    # --- 33. the differentiable side's compiled programs ------------------------
+    programs, launches33 = phase_33(dev, card, counters_zero)
+    print(json.dumps({"training_programs": programs}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -3404,10 +3686,12 @@ def main():
                  replaces=REPLACES_DRAW)
     draw["randn_ms_yardstick"] = med31["draw/randn"]
     kernels.append(draw)
-    # phase 32's runs, each counted from 0 just before it
+    # phase 32's and phase 33's runs, each counted from 0 just before it
     for k in kernels:
         if k["name"] in launches32:
             k["launches_phase_32"] = launches32[k["name"]]
+        if k["name"] in launches33:
+            k["launches_phase_33"] = launches33[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
