@@ -367,12 +367,15 @@ def cmd_sysid(args):
 
 
 def cmd_fleet(args):
-    """Fleet serving demo: B robots per tick, one kernel launch per tick."""
+    """Fleet serving demo: B robots per tick, one kernel launch per tick. On
+    the card a tick is two CUDA graphs' replays, the fleet step's and the
+    plant's (runtime/plant.py step_fleet_plant)."""
     import time
 
     from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.runtime.plant import step_fleet_plant
     from ccv_mppi_path_tracker_tpu_torch.solver.batch import build_fleet_step, init_fleet
 
     device, cfg, sp, cp, course = _resolve(args)
@@ -391,7 +394,7 @@ def cmd_fleet(args):
     t0 = time.perf_counter()
     for _ in range(args.steps):
         ctrls, res = step(ctrls, states, path, dt, sp, cp)
-        states = model.step(states, res.u0, dt)
+        states = step_fleet_plant(cfg.model, states, res.u0, dt)
         traj.append(states)
     traj = torch.stack(traj).cpu().numpy()  # (steps+1, B, S); waits for the card
     wall = time.perf_counter() - t0

@@ -63,9 +63,9 @@ class Program:
     CUDA device (``graphed``, captured by the first call of their structure:
     a host sync in that first run raises, and so does a capture that fails;
     nothing runs op by op in the graph's place), and runs the function
-    eagerly elsewhere or with ``graph=False`` (the sharded fits, whose
-    collectives a graph does not hold). :meth:`eager` and :meth:`replay` are
-    the two arms on their own.
+    eagerly elsewhere or with ``graph=False`` (the fits over a gloo group,
+    whose collectives copy through the host, which a graph cannot hold).
+    :meth:`eager` and :meth:`replay` are the two arms on their own.
     """
 
     graphed: Graphed

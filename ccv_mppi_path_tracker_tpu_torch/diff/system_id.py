@@ -22,8 +22,9 @@ the same Adam step and the fit equals the one-process fit on the whole
 batch. The all-reduce carries values, not gradients: a loss called with a
 group is the global value; its gradient is taken of the local loss and
 all-reduced, as the fits and :func:`rollout_prediction_value_and_grad` do.
-With a group the fits and the chunked gradient run op by op, on the card
-too: a CUDA graph does not hold their collectives.
+With a group whose collectives run over NCCL the fits and the chunked
+gradient replay one graph on the card, the all-reduces inside it; over gloo,
+whose collectives copy through the host, they run op by op.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch.distributed as dist
 from ccv_mppi_path_tracker_tpu_torch.diff.optim import Program, adam_init, adam_update
 from ccv_mppi_path_tracker_tpu_torch.models.full_body import FullBodyParams, zmp_chain
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
-from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed, collectives_capturable
 
 
 @dataclasses.dataclass
@@ -68,6 +69,12 @@ def _mean_over(group, *values):
         out.append(flat[i:i + v.numel()].reshape(v.shape))
         i += v.numel()
     return tuple(out)
+
+
+def _graphable(group) -> bool:
+    """Whether a program with ``group`` replays its graph on the card: no
+    group, or one whose collectives a graph can hold (NCCL)."""
+    return group is None or collectives_capturable(group)
 
 
 def prediction_loss(model_name, params, states_t, controls_t, states_t1, dt, group=None):
@@ -132,11 +139,11 @@ def fit_control_gains(
 ):
     """Recover per-channel control gains from observed transitions (this
     rank's share of them with ``group``). Returns (ControlGains, losses
-    (num_steps,)). On the card without a group: one CUDA graph of the Adam
-    step, replayed ``num_steps`` times."""
+    (num_steps,)). On the card without a group or over NCCL: one CUDA graph
+    of the Adam step, replayed ``num_steps`` times."""
     ((gains,), _), losses = _fit_control_gains_program(
         model_name, states_t, controls_t, states_t1, dt, num_steps, learning_rate, init,
-        group)(graph=group is None)
+        group)(graph=_graphable(group))
     return ControlGains(gains=gains), losses
 
 
@@ -177,14 +184,15 @@ def rollout_prediction_value_and_grad(model_name, params: ControlGains, state0, 
     B of N equal shares), each bucket's loss and gradient are all-reduced
     asynchronously as soon as its backward is done, so the collective
     overlaps the next bucket's backward; all are waited on at the end, and
-    the scale is 1/(T-1)/(N*B): op by op, on the card too. Without a group,
+    the scale is 1/(T-1)/(N*B); the wait is a stream dependency, so over
+    NCCL the all-reduces are held in the graph. Without a group or over NCCL,
     on the card every bucket's rollout and backward are one CUDA graph's
-    replay. Up to the order of the float additions the result does not
-    depend on ``num_chunks`` or N. Returns (loss, ControlGains of the
-    gradient).
+    replay; over gloo they run op by op. Up to the order of the float
+    additions the result does not depend on ``num_chunks`` or N. Returns
+    (loss, ControlGains of the gradient).
     """
     loss, grad = _rollout_gradient_program(model_name, params, state0, controls, observed,
-                                           dt, num_chunks, group)(graph=group is None)
+                                           dt, num_chunks, group)(graph=_graphable(group))
     return loss, ControlGains(gains=grad)
 
 
@@ -260,12 +268,12 @@ def fit_full_body_params(
     The JAX package runs Adam over every field with the other gradients
     zeroed; Adam moves nothing on a zero gradient, so optimizing the two
     trained fields alone is the same fit. Returns (FullBodyParams, losses).
-    On the card without a group: one CUDA graph of the Adam step, replayed
-    ``num_steps`` times.
+    On the card without a group or over NCCL: one CUDA graph of the Adam
+    step, replayed ``num_steps`` times.
     """
     ((mass, base2com), _), losses = _fit_full_body_params_program(
         states, controls, observed_zmp_y, dt, init, num_steps, learning_rate,
-        group)(graph=group is None)
+        group)(graph=_graphable(group))
     return dataclasses.replace(init, mass=mass, base2com=base2com), losses
 
 

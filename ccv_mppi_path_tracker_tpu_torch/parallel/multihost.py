@@ -5,6 +5,12 @@ one group, over NCCL on the card and gloo on the CPU. A solver that quietly
 computed on 1/N of its samples would be the worst failure this controller
 has, so a configured launch that fails to join raises: there is no silent
 drop to one process.
+
+Over NCCL each rank is bound to its card (``cuda:LOCAL_RANK`` under
+``torchrun``, else ``cuda:`` its rank, ``cuda:0`` for a group of one) and
+the communicator is made when the group is, so that the first collective
+of a CUDA graph's first run creates nothing. :func:`shutdown_multihost`
+leaves the group, first forgetting the CUDA graphs that hold it.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import forget_group_graphs
 
 
 def initialize_multihost(
@@ -30,7 +38,8 @@ def initialize_multihost(
     ``MASTER_ADDR``:``MASTER_PORT``, as ``torchrun`` sets them);
     num_processes and process_id default to ``WORLD_SIZE`` and ``RANK``.
     backend: "nccl" where CUDA is available, else "gloo" (pass "gloo" to
-    run several ranks on one card). Returns True once the group is up (or
+    run several ranks on one card). Over NCCL the rank's card becomes the
+    current device. Returns True once the group is up (or
     was already), False when no launch is configured: no argument and none
     of ``MASTER_ADDR``/``WORLD_SIZE`` set. Raises RuntimeError when one is
     configured and the join fails within ``timeout_s``.
@@ -53,9 +62,15 @@ def initialize_multihost(
             raise ValueError("a launch needs the coordinator address, the number of "
                              "processes and this process's id")
         address = coordinator_address.removeprefix("tcp://")
+        device = None
+        if backend == "nccl":
+            device = torch.device("cuda", int(env.get("LOCAL_RANK", process_id)))
+            torch.cuda.set_device(device)
+        # with a device_id, torch makes NCCL's communicator with the group
         dist.init_process_group(
             backend, init_method=f"tcp://{address}", world_size=num_processes,
-            rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
+            rank=process_id, timeout=datetime.timedelta(seconds=timeout_s),
+            device_id=device)
     except Exception as e:
         raise RuntimeError(
             f"distributed launch configured (coordinator={coordinator_address!r}, "
@@ -64,3 +79,16 @@ def initialize_multihost(
             f"to run as one process. Unset MASTER_ADDR and WORLD_SIZE to run "
             f"unsharded") from e
     return True
+
+
+def shutdown_multihost():
+    """Leave the process group, if one is up: forget the CUDA graphs that
+    hold a group (utils/cuda_graph.py :func:`forget_group_graphs`; a graph
+    holds the NCCL communicator, which must outlive it), wait for the card,
+    then destroy the group."""
+    if not dist.is_initialized():
+        return
+    forget_group_graphs()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dist.destroy_process_group()

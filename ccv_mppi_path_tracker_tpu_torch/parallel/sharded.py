@@ -11,10 +11,20 @@ MIN and SUMs. Every output is replicated, so the controller state stays
 identical on every rank, and a sharded step equals the unsharded one, in
 its RNG mode or fed the whole noise tensor, up to the order of the final
 sums.
+
+Over NCCL the step and the loop are compiled, the counterparts of the JAX
+package's ``jax.jit(shard_map(...))``: on the card a step is one CUDA graph's
+replay with the collectives inside (solver/mppi.py ``compile_step``), and a
+closed-loop cycle is one graph replayed a cycle (runtime/loop.py
+``simulate``). Over gloo, which the caller picks explicitly (several ranks
+on one card, or the CPU), they run op by op: gloo's collectives copy through
+the host, which a graph cannot hold. The returned function says which form
+it is (``compiled``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch.distributed as dist
@@ -22,7 +32,8 @@ import torch.distributed as dist
 from ccv_mppi_path_tracker_tpu_torch.core.config import SolverConfig
 from ccv_mppi_path_tracker_tpu_torch.runtime.loop import simulate
 from ccv_mppi_path_tracker_tpu_torch.runtime.plant import Plant
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import compile_step, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import collectives_capturable
 
 
 def _shard(cfg: SolverConfig, group):
@@ -52,17 +63,27 @@ def build_sharded_step(cfg: SolverConfig, group=None, use_kernel: bool = False,
     delay, adapt_sigma, elite_frac, ...); elite_frac ranks the costs of all
     shards (ops/softmax_update.py elite_threshold), so the threshold equals
     the unsharded one. The step reads nothing back to the host.
+
+    Over NCCL the step is ``compile_step``'s (``step.compiled`` True, the
+    CompiledStep in ``step.compiled_step``): on the card each call replays
+    one CUDA graph, the collectives inside it and this rank's slice of
+    ``noise`` one of its inputs. Over gloo each call is ``mppi_step`` op by
+    op (``step.compiled`` False, ``step.compiled_step`` None).
     """
     group, k_local, first = _shard(cfg, group)
     opts = dict(solver_options or {}, group=group, num_samples=k_local,
                 first_sample=first, use_kernel=use_kernel)
+    compiled = collectives_capturable(group)
+    run = (compile_step(cfg, **opts) if compiled
+           else functools.partial(mppi_step, cfg, **opts))
 
     def step(ctrl, state, path, dt, sp, cp, model_params=None, noise=None):
         if noise is not None:
             noise = noise[:, first:first + k_local]
-        return mppi_step(cfg, ctrl, state, path, dt, sp, cp, model_params=model_params,
-                         noise=noise, **opts)
+        return run(ctrl, state, path, dt, sp, cp, model_params=model_params, noise=noise)
 
+    step.compiled = compiled
+    step.compiled_step = run if compiled else None
     return step
 
 
@@ -72,7 +93,11 @@ def build_sharded_simulate(cfg: SolverConfig, group=None, num_steps: int = 100,
     sample-sharded over ``group``. The plant runs replicated: each rank
     steps the same robot with the same process noise (drawn from the key),
     so every rank holds the same state. Returns ``sim(ctrl, state0, path, dt, sp,
-    cp, model_params=None) -> (ctrl, logs)`` as ``simulate`` does."""
+    cp, model_params=None) -> (ctrl, logs)`` as ``simulate`` does. Over NCCL
+    (``sim.compiled`` True) the cycle is one CUDA graph on the card, the
+    collectives inside it, replayed ``num_steps`` times with its carry in
+    the graph's buffers (the counterpart of ``jax.jit`` of the JAX package's
+    ``shard_map`` of ``lax.scan``); over gloo it runs op by op."""
     group, k_local, first = _shard(cfg, group)
     opts = dict(group=group, num_samples=k_local, first_sample=first)
 
@@ -81,4 +106,5 @@ def build_sharded_simulate(cfg: SolverConfig, group=None, num_steps: int = 100,
                         plant=plant, num_steps=num_steps, use_kernel=use_kernel,
                         solver_options=opts)
 
+    sim.compiled = collectives_capturable(group)
     return sim

@@ -31,6 +31,7 @@ from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.runtime.plant import Plant
 from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import collectives_capturable
 
 
 def simulate(
@@ -74,8 +75,9 @@ def simulate(
     times with its carry in the graph's buffers: dt, the parameters and the
     path are its inputs, the key its carry (the kernel and the eager path's
     draw read it there), and the final state's step is set on the host. A
-    sharded cycle (``group`` among the options) runs op by op: its
-    collectives are not captured.
+    sharded cycle (``group`` among the options) is one graph too where the
+    group's collectives run over NCCL (the graph holds them); over gloo,
+    whose collectives copy through the host, it runs op by op.
     """
     if plant is None:
         plant = Plant(model_name=cfg.model)
@@ -93,7 +95,7 @@ def simulate(
     (ctrl, _, _), logs = CYCLE.scan(
         (ctrl.with_key(), state0, thresh), path, dt, sp, cp, model_params, cfg, plant, opts,
         with_stats, with_paths, length=num_steps,
-        graph=opts.get("group") is None)
+        graph=opts.get("group") is None or collectives_capturable(opts["group"]))
     return ctrl, logs
 
 

@@ -18,7 +18,8 @@ integers in ControllerState, and its key their copy on the device). With
 (parallel/sharded.py): the reductions become collectives over the shards.
 
 :func:`compile_step` is the counterpart of ``jax.jit`` of this function: on
-the card it replays either path as a CUDA graph (utils/cuda_graph.py).
+the card it replays either path as a CUDA graph (utils/cuda_graph.py), the
+sharded step's too where its group's collectives run over NCCL.
 """
 
 from __future__ import annotations
@@ -57,7 +58,12 @@ from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import (
     weighted_update,
 )
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_reference
-from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed, capturable, scan
+from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import (
+    Graphed,
+    capturable,
+    collectives_capturable,
+    scan,
+)
 
 
 def mppi_step(
@@ -333,17 +339,21 @@ class CompiledStep:
       op in a graph's place.
     - On the CPU, where the caller asked for it, each call is ``mppi_step``.
 
-    ``group`` (the sample-sharded step) is refused: its collectives are not
-    captured; call ``mppi_step``.
+    ``group`` (one shard of the sample-sharded step, parallel/sharded.py):
+    over NCCL the graph holds the collectives (the all-reduces MIN and SUM
+    of the baseline, the normalizer and the update, the all-gather of the
+    elite threshold), the counterpart of ``jax.jit`` of the JAX package's
+    ``shard_map``; the group is a constant of the graph, by identity. Over
+    gloo, whose collectives copy through the host, a call on the card
+    raises; on the CPU it is ``mppi_step``, as without a group.
     """
 
     def __init__(self, cfg: SolverConfig, **options):
-        if options.get("group") is not None:
-            raise ValueError("compile_step does not take group: the sharded step's "
-                             "collectives are not captured; call mppi_step")
+        group = options.get("group")
         self.cfg = cfg
         self.options = options
         self.graph = KeyedGraph(_graph_step)
+        self._host_collectives = group is not None and not collectives_capturable(group)
 
     @property
     def captures(self) -> int:
@@ -367,7 +377,13 @@ class CompiledStep:
         return self.graph.cache_key(*self._args(*args, **kwargs))
 
     def __call__(self, *args, **kwargs):
-        return self.graph(*self._args(*args, **kwargs))
+        args = self._args(*args, **kwargs)
+        if self._host_collectives and args[0].u_prev.device.type == "cuda":
+            raise ValueError("compile_step over a process group whose collectives copy "
+                             "through the host (gloo) cannot replay on the card: form the "
+                             "group over NCCL (parallel/multihost.py initialize_multihost("
+                             "backend='nccl')), or call mppi_step op by op")
+        return self.graph(*args)
 
 
 def compile_step(cfg: SolverConfig, **options) -> CompiledStep:

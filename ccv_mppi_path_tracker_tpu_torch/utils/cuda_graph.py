@@ -36,17 +36,33 @@ its site in the traceback (:func:`refuse_host_syncs`); no call then runs op
 by op in the graph's place. Under a capture already in progress, or inside
 a graphed function's first run or capture, a graphed function runs inline,
 so the outer graph holds it.
+
+A graph may hold the collectives of a ``torch.distributed`` group whose
+backend is NCCL (:func:`collectives_capturable`; the group is a constant of
+the cache key, by identity): the sample-sharded step, loop and fits. Their
+communicator exists before the capture (parallel/multihost.py makes it with
+the group). The capture keeps torch's default mode, "global": the events
+that ProcessGroupNCCL's watchdog thread queries while a capture runs do not
+invalidate it (chip_smoke.py phase 34 holds a capture open after eager
+collectives to check this). Such a graph must not outlive its group:
+:func:`forget_group_graphs` drops the graphs that hold a group
+(``parallel.multihost.shutdown_multihost`` calls it before it destroys the
+group, and so does the interpreter's exit), and the replay of a graph whose
+group was destroyed raises.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 # Functions whose ``launches`` attribute counts their kernel's launches.
 _COUNTED = []
@@ -169,6 +185,36 @@ def refusal(leaves) -> Optional[str]:
     return None
 
 
+def collectives_capturable(group) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``group``, a
+    ``torch.distributed`` process group: yes where NCCL serves its CUDA
+    tensors (NCCL launches its collectives on the card, and torch captures
+    them); no for gloo, whose collectives copy through the host, and for no
+    group (None)."""
+    if group is None:
+        return False
+    backend = str(dist.get_backend(group)).lower()
+    return backend == "nccl" or "cuda:nccl" in backend
+
+
+def _groups_in(key) -> tuple:
+    """The process groups among the constants of a cache key."""
+    if isinstance(key, dist.ProcessGroup):
+        return (key,)
+    if isinstance(key, tuple):
+        return tuple(g for part in key for g in _groups_in(part))
+    return ()
+
+
+def _destroyed(group) -> bool:
+    """Whether ``group`` was destroyed (torch no longer knows it)."""
+    try:
+        dist.get_backend(group)
+    except (ValueError, RuntimeError):
+        return True
+    return False
+
+
 def capturable(args: tuple) -> bool:
     """Whether a :class:`Graphed` call would capture or replay ``args``:
     :func:`refusal` finds nothing, and no capture is in progress (a nested
@@ -218,7 +264,8 @@ class _Graph:
     the function returns first; the graph ends by copying it into its own
     input buffers, so that the next replay continues from it."""
 
-    def __init__(self, fn, template, leaves, carry=False):
+    def __init__(self, fn, template, leaves, carry=False, groups=()):
+        self.groups = groups
         # plain tensors even under inference mode: a later call outside it
         # writes them
         with torch.inference_mode(False):
@@ -273,6 +320,10 @@ class _Graph:
         self._loaded[:count] = [(None, None)] * count
 
     def replay(self):
+        if any(_destroyed(g) for g in self.groups):
+            raise RuntimeError("this CUDA graph holds the collectives of a process group "
+                               "that was destroyed; forget such graphs before the group "
+                               "goes (utils/cuda_graph.py forget_group_graphs)")
         self.graph.replay()
         for f, n in zip(_COUNTED, self.captured):
             f.launches += n
@@ -340,6 +391,7 @@ class Graphed:
         self.max_graphs = max_graphs
         self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self.captures = 0
+        _GRAPHED.add(self)
 
     def cache_key(self, *args):
         """The key of the graph that ``args`` replay."""
@@ -361,7 +413,7 @@ class Graphed:
             self.graphs.move_to_end(key)
             return graph, leaves, None
         with torch.cuda.device(leaves[0].device):
-            graph = _Graph(self.fn, _template(args, [0]), leaves, carry)
+            graph = _Graph(self.fn, _template(args, [0]), leaves, carry, _groups_in(key))
         self.graphs[key] = graph
         self.captures += 1
         if self.max_graphs is not None and len(self.graphs) > self.max_graphs:
@@ -403,6 +455,28 @@ class Graphed:
             torch._foreach_copy_([y[i] for y in ys], y_leaves)
         carry_out = fill_tensors(graph.out_template[0], _clone_all(graph.outputs))
         return carry_out, fill_tensors(y_template, ys)
+
+
+# every Graphed of the process, for forget_group_graphs
+_GRAPHED = weakref.WeakSet()
+
+
+def forget_group_graphs(group=None) -> int:
+    """Drop, from every :class:`Graphed`, the graphs that hold the
+    collectives of ``group`` (None: of any group), and return how many.
+    Call it before the group is destroyed: a graph holds the group's NCCL
+    communicator, which must outlive it."""
+    dropped = 0
+    for graphed in list(_GRAPHED):
+        for key in [k for k, g in graphed.graphs.items()
+                    if any(group is None or x is group for x in g.groups)]:
+            del graphed.graphs[key]
+            dropped += 1
+    return dropped
+
+
+# at exit, before torch's process groups go with the interpreter
+atexit.register(forget_group_graphs)
 
 
 def _y_parts(graph):

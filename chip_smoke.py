@@ -202,6 +202,22 @@ failure ending the run with a non-zero exit:
      fleet width (diff_drive K=1024 T=15, batch 32), its ms and memory; and
      scripts/torch_learning_eval.py --quick, every claim pointing the JAX
      artifact's way.
+ 34. the sample-sharded programs compiled over NCCL at world size 1 (the
+     counterparts of the JAX package's jax.jit of shard_map): captures of a
+     collective in torch's default mode with eager collectives outstanding;
+     the sharded
+     step, full_body at K=102400 T=30, kernel and eager, vanilla, elite 0.1
+     and adapt_sigma, bit-equal to the op-by-op sharded step and to
+     compile_step without a group, one capture an option set, launches
+     counted a replay, no host sync in a replay, its CUDA-event time in
+     turns against both; the graphed sharded 200-cycle loop (200 launches
+     in 200 replays, bit-equal to op by op, RMSE < 0.15 m) and its cycle's
+     time; the system-ID fits and the chunked gradient (num_chunks 1, 4, 8)
+     with the group, graphed against op by op in turns, bit-equal;
+     scripts/torch_multihost_demo.py --kernel at K=131072 T=30 (RMSE < 0.15
+     m); the fleet command's plant captured once (its RMSE line phase 14's);
+     scripts/torch_make_figures.py's runs (the ten PNGs where matplotlib is
+     installed; the runs are kept in build/figure_runs_torch.npz).
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -210,11 +226,12 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 ({"serving": ...}), phases 22-23 with one of theirs ({"refine": ...,
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
-phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...}.
+phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
+phase 34 with {"sharded_programs": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
-phase 32 or 33 launched it, ``launches_phase_32`` or ``launches_phase_33``,
+phase 32, 33 or 34 launched it, ``launches_phase_32``, ``_33`` or ``_34``,
 each of its runs' count), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
@@ -1699,7 +1716,7 @@ def _flat(obj):
     return leaves
 
 
-def graphed_against_eager(name, program, card):
+def graphed_against_eager(name, program, card, phase=33):
     """One of diff/'s programs on the card, eager (utils/cuda_graph.scan, or
     its function called) and graphed (Graphed.scan, or a Graphed call) in
     turns E G G E, after the capturing first graphed call (timed apart). The
@@ -1732,7 +1749,8 @@ def graphed_against_eager(name, program, card):
         times[arm].append(ms)
     captures = program.graphed.captures - before
     eager, graphed = _flat(outs["eager"]), _flat(outs["graphed"])
-    require(len(eager) == len(graphed), f"[33] {name}: the arms' outputs differ in structure")
+    require(len(eager) == len(graphed), f"[{phase}] {name}: the arms' outputs differ in "
+            "structure")
     delta = max(float((g - e).abs().max()) for g, e in zip(graphed, eager))
     within = all(bool(((g - e).abs() <= 1e-5 * e.abs().max()).all())
                  for g, e in zip(graphed, eager))
@@ -1740,12 +1758,12 @@ def graphed_against_eager(name, program, card):
     rec = {"steps": program.length, "eager_ms": times["eager"], "graphed_ms": times["graphed"],
            "first_graphed_ms_with_capture": first_ms, "captures": captures,
            "max_abs_delta": delta, "bit_equal": same}
-    print(f"[33 {name}] {program.length or 1} step(s): eager "
+    print(f"[{phase} {name}] {program.length or 1} step(s): eager "
           f"{', '.join(f'{t:.2f}' for t in times['eager'])} ms, graphed "
           f"{', '.join(f'{t:.2f}' for t in times['graphed'])} ms (first with its capture "
           f"{first_ms:.2f}); {captures} capture; max |delta| {delta:.3e}, bit-equal {same}; "
           f"{card}", flush=True)
-    require(captures == 1 and within, f"[33] {name}: {captures} captures, graphed against "
+    require(captures == 1 and within, f"[{phase}] {name}: {captures} captures, graphed against "
             f"eager max |delta| {delta} beyond rtol 1e-5")
     return rec, outs["graphed"]
 
@@ -1950,6 +1968,370 @@ def phase_33(dev, card, counters_zero):
     record["seconds"] = time.perf_counter() - t_phase
     print(f"[33 training programs] done in {record['seconds']:.1f} s; {card}", flush=True)
     return record, counts
+
+
+SHARDED_CALLS = 5       # phase 34: chained updates of each compiled sharded option set
+CAPTURE_HOLD_S = 0.3    # phase 34: how long a capture of a collective is held open
+FIGURE_RUNS = ROOT / "build" / "figure_runs_torch.npz"   # phase 34's figure runs
+
+
+def phase_34(dev, card, fleet_lines, counters_zero):
+    """Phase 34: the sample-sharded programs compiled over NCCL, world size
+    1 on the card (parallel/sharded.py, solver/mppi.py compile_step with a
+    group, runtime/loop.py simulate, diff/system_id.py). (0) Five captures of
+    an all-reduce in torch's default capture mode, each right after 20 eager
+    all-reduces and held open CAPTURE_HOLD_S while ProcessGroupNCCL's
+    watchdog polls them, each replayed equal to its first run. (a) The sharded
+    step, full_body at K=102400 T=30, kernel and eager, vanilla, elite 0.1
+    and adapt_sigma: SHARDED_CALLS chained updates bit-equal to the op-by-op
+    sharded step and to compile_step without a group, one capture an option
+    set, the kernel (or the eager arm's draw) counted once a pass a replay,
+    no host sync in a replay; (b) its CUDA-event time in turns against the
+    op-by-op sharded step and the graphed unsharded update; (c) the graphed
+    sharded 200-cycle loop (build_sharded_simulate): one capture, then a
+    second run of 200 replays with 200 kernel launches, bit-equal to the
+    cycle scanned op by op with the group, RMSE < 0.15 m; its cycle's time
+    in turns against op by op and the unsharded graphed loop; (d) the fits
+    and the chunked gradient (num_chunks 1, 4, 8) with the group, graphed
+    against op by op in turns (:func:`graphed_against_eager`), bit-equal;
+    (e) scripts/torch_multihost_demo.py --kernel at its defaults (K=131072,
+    T=30, 50 cycles) in a process of its own: rc 0, RMSE < 0.15 m, compiled;
+    (f) the fleet command: its plant captured once and replayed, the RMSE
+    line equal to phase 14's, the graphed plant bit-equal to the plant op
+    by op for every model; (g) scripts/torch_make_figures.py on the card:
+    every run of the ten figures kept (FIGURE_RUNS) and, where matplotlib
+    is installed, the ten PNGs of examples/figures/ written. Returns (its
+    record, {kernel name: launches of the graphed sharded loop})."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ccv_mppi_path_tracker_tpu_torch import cli
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.diff import ControlGains
+    from ccv_mppi_path_tracker_tpu_torch.diff.system_id import (
+        _fit_control_gains_program,
+        _fit_full_body_params_program,
+        _rollout_gradient_program,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        fused_sample_rollout_cost,
+        philox_normals_cuda,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.models.full_body import default_params, zmp_chain
+    from ccv_mppi_path_tracker_tpu_torch.parallel import (
+        build_sharded_simulate,
+        build_sharded_step,
+        initialize_multihost,
+        samples_group,
+        shutdown_multihost,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.runtime import loop as loop_mod
+    from ccv_mppi_path_tracker_tpu_torch.runtime import plant as plant_mod
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import all_reduce
+    from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import Graphed, refuse_host_syncs
+
+    t_phase = time.perf_counter()
+    fused, draw = fused_sample_rollout_cost, philox_normals_cuda
+    record = {"card": card, "world_size": 1, "backend": "nccl"}
+    require(initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                                 timeout_s=120), "[34] the NCCL group of one process")
+    group, _ = samples_group(device=dev)
+    try:
+        # (0) the capture mode: a graph of a collective captured in torch's
+        # default mode right after eager collectives, the capture held open
+        # while the group's watchdog thread polls their events
+        def held(x, group):   # the group an argument: the graph's key holds it
+            y = all_reduce(x, dist.ReduceOp.SUM, group)
+            time.sleep(CAPTURE_HOLD_S)
+            return y * 2
+
+        ones = torch.ones(1 << 20, device=dev)
+        for _ in range(5):
+            for _ in range(20):
+                dist.all_reduce(ones, group=group)
+            graphed = Graphed(held)
+            first, replayed = graphed(ones, group), graphed(ones, group)
+            require(graphed.captures == 1 and torch.equal(first, replayed),
+                    "[34] a capture of a collective after eager collectives")
+        record["capture_mode"] = {"mode": "global", "captures": 5,
+                                  "eager_collectives_before": 20, "held_s": CAPTURE_HOLD_S}
+        print(f"[34 capture mode] 5 captures of an NCCL all-reduce in torch's default mode "
+              f"\"global\", each right after 20 eager all-reduces and held open "
+              f"{CAPTURE_HOLD_S} s: every one captured and replayed", flush=True)
+
+        # (a) the compiled sharded step ------------------------------------------
+        s = kernel_case("full_body", K_MAIN, T_MAIN, seed=34)
+        cfg, mp = s["cfg"], s["mp"]
+        ctrl0 = ControllerState(u_prev=s["u_prev"], seed=34, step=2).with_key()
+        rest = (s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+        option_sets = {"vanilla": {}, "elite": {"elite_frac": ELITE},
+                       "adapt_sigma": {"adapt_sigma": True}}
+        arms, steps = {}, {}
+        for use_kernel in (True, False):
+            counter = fused if use_kernel else draw
+            for tag, opts in option_sets.items():
+                name = f"{'kernel' if use_kernel else 'eager'}/{tag}"
+                step = build_sharded_step(cfg, group, use_kernel=use_kernel,
+                                          solver_options=opts)
+                require(step.compiled, f"[34] {name}: the sharded step over NCCL is not "
+                        "the compiled form")
+                by_op = functools.partial(mppi_step, cfg, group=group, num_samples=K_MAIN,
+                                          first_sample=0, use_kernel=use_kernel, **opts)
+                unsharded = compile_step(cfg, use_kernel=use_kernel, **opts)
+                outs = {"graphed": [], "op_by_op": [], "unsharded": []}
+                counter.launches = 0
+                for arm, fn in (("graphed", step), ("op_by_op", by_op),
+                                ("unsharded", unsharded)):
+                    ctrl = ctrl0
+                    for _ in range(SHARDED_CALLS):
+                        ctrl, res = fn(ctrl, *rest, model_params=mp)
+                        outs[arm].append((ctrl, res))
+                    if arm == "graphed":
+                        torch.cuda.synchronize()
+                        n = counter.launches
+                passes = 2 if use_kernel and tag == "elite" else 1
+                same = {}
+                for other in ("op_by_op", "unsharded"):
+                    same[other] = all(
+                        (ca.seed, ca.step) == (cb.seed, cb.step) and torch.equal(ca.key, cb.key)
+                        and torch.equal(a.u_opt, b.u_opt)
+                        and a.stats.keys() == b.stats.keys()
+                        and all(torch.equal(a.stats[k], b.stats[k]) for k in a.stats)
+                        for (ca, a), (cb, b) in zip(outs["graphed"], outs[other]))
+                captures = step.compiled_step.captures
+                print(f"[34 sharded step] NCCL world size 1, full_body K={K_MAIN} T={T_MAIN} "
+                      f"{name}: {SHARDED_CALLS} chained updates bit-equal to the op-by-op "
+                      f"sharded step {same['op_by_op']}, to compile_step without a group "
+                      f"{same['unsharded']}; {captures} capture; "
+                      f"{'kernel' if use_kernel else 'draw'} launches {n} "
+                      f"({passes} a pass a replay)", flush=True)
+                require(same["op_by_op"] and same["unsharded"] and captures == 1
+                        and n == passes * SHARDED_CALLS,
+                        f"[34] {name}: bit-equal {same}, captures {captures}, launches {n}")
+                steps[name] = step
+                arms[name] = (step, by_op, unsharded)
+                record[f"step/{name}"] = {"bit_equal_op_by_op": same["op_by_op"],
+                                          "bit_equal_unsharded": same["unsharded"],
+                                          "captures": captures, "launches": n}
+                counters_zero(f"[34] {name}")
+        torch.cuda.synchronize()
+        with refuse_host_syncs("the sharded step's replay"):
+            for step in steps.values():
+                step(ctrl0, *rest, model_params=mp)
+        print("  no host sync in a replay of the sharded step (kernel and eager, vanilla, "
+              "elite and adapt_sigma)", flush=True)
+
+        # (b) the sharded step's time in turns ------------------------------------
+        for name, (step, by_op, unsharded) in arms.items():
+            carry = {}
+
+            def chained(arm, fn):
+                carry[arm] = ctrl0
+
+                def call():
+                    carry[arm], _ = fn(carry[arm], *rest, model_params=mp)
+                return call
+
+            times = time_interleaved({"sharded_graphed": (chained("g", step), 20),
+                                      "sharded_op_by_op": (chained("o", by_op), 20),
+                                      "unsharded_graphed": (chained("u", unsharded), 20)}, 7)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            record[f"step_ms/{name}"] = {k: {"median": med[k], "min": min(v), "max": max(v)}
+                                         for k, v in times.items()}
+            print(f"  {name} update, CUDA events, median of 7 rounds in turns: sharded "
+                  f"graphed {med['sharded_graphed']:.4f} ms, sharded op by op "
+                  f"{med['sharded_op_by_op']:.4f}, unsharded graphed "
+                  f"{med['unsharded_graphed']:.4f} on {card}", flush=True)
+            counters_zero(f"[34] {name} timing")
+
+        # (c) the graphed sharded loop --------------------------------------------
+        lcfg, lsp, lcp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN,
+                                                      device=dev)
+        lpath = PathBuffer.from_points(course, 0.1, device=dev)
+        slope = float(np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0]))
+        start = torch.tensor([course[0, 0], course[0, 1], slope, 0.0, 0.0], device=dev)
+        lctrl = ControllerState.initial(34, T_MAIN, 5, device=dev)
+        dt = torch.full((), 0.1, device=dev)
+        lmp = default_params(device=dev)
+        sim = build_sharded_simulate(lcfg, group, num_steps=STEPS, use_kernel=True)
+        require(sim.compiled, "[34] the sharded loop over NCCL is not the compiled form")
+        captures0 = loop_mod.CYCLE.captures
+        sim(lctrl, start, lpath, dt, lsp, lcp)   # the capture
+        fused.launches = 0
+        last, logs = sim(lctrl, start, lpath, dt, lsp, lcp)
+        torch.cuda.synchronize()
+        n_loop = fused.launches
+        captures = loop_mod.CYCLE.captures - captures0
+        opts = dict(group=group, num_samples=K_MAIN, first_sample=0, use_kernel=True,
+                    lean=False)
+        plant = plant_mod.Plant(model_name="full_body")
+
+        def op_by_op_loop():
+            return loop_mod.CYCLE.scan((lctrl.with_key(), start, None), lpath, dt, lsp, lcp,
+                                       lmp, lcfg, plant, opts, True, False, length=STEPS,
+                                       graph=False)
+
+        (octrl, _, _), ologs = op_by_op_loop()
+        same = ologs.keys() == logs.keys() and all(torch.equal(ologs[k], logs[k])
+                                                   for k in logs) \
+            and torch.equal(octrl.u_prev, last.u_prev)
+        xy = np.concatenate([start[None, :2].cpu().numpy(), logs["state"][:, :2].cpu().numpy()])
+        m = tracking_metrics(xy, course, dt=0.1)
+        print(f"[34 sharded loop] graphed over NCCL, {STEPS} cycles: {captures} capture; "
+              f"{n_loop} kernel launches in {STEPS} replays; bit-equal to the cycle op by op "
+              f"with the group {same}; RMSE {m['rmse']:.4f} m, max error "
+              f"{m['max_error']:.4f} m", flush=True)
+        require(captures == 1 and n_loop == STEPS and same and m["rmse"] < 0.15,
+                f"[34] sharded loop: captures {captures}, launches {n_loop}, bit-equal "
+                f"{same}, RMSE {m['rmse']}")
+        launches = {"rollout_cost_full_body_first_sample": n_loop}
+        counters_zero("[34] sharded loop")
+        unsharded_sim = functools.partial(loop_mod.simulate, lcfg, lctrl, start, lpath, dt,
+                                          lsp, lcp, num_steps=STEPS, use_kernel=True)
+        unsharded_sim()   # its capture
+        times = time_interleaved({"sharded_graphed": (lambda: sim(lctrl, start, lpath, dt,
+                                                                  lsp, lcp), 1),
+                                  "sharded_op_by_op": (op_by_op_loop, 1),
+                                  "unsharded_graphed": (unsharded_sim, 1)}, 3, warm=1)
+        cycle_ms = {k: statistics.median(v) / STEPS for k, v in times.items()}
+        record["loop"] = {"cycles": STEPS, "captures": captures, "launches": n_loop,
+                          "bit_equal_op_by_op": same, "rmse": m["rmse"],
+                          "max_error": m["max_error"], "cycle_ms": cycle_ms}
+        print(f"  a cycle, CUDA events over the {STEPS}-cycle run, median of 3 rounds in "
+              f"turns: sharded graphed {cycle_ms['sharded_graphed']:.4f} ms, sharded op by op "
+              f"{cycle_ms['sharded_op_by_op']:.4f}, unsharded graphed "
+              f"{cycle_ms['unsharded_graphed']:.4f} on {card}", flush=True)
+        counters_zero("[34] loop timing")
+
+        # (d) the fits and the chunked gradient with the group ---------------------
+        f32 = dict(dtype=torch.float32, device=dev)
+        rng = np.random.RandomState(0)   # the sysid command's data, as phase 33
+        true_gains = torch.tensor([0.85, 1.1], device=dev)
+        states = torch.tensor(rng.randn(2048, 3), **f32)
+        controls = torch.tensor(rng.randn(2048, 2), **f32)
+        nxt = get_model("unicycle").step(states, controls * true_gains, 0.1)
+        rng = np.random.RandomState(2)   # tests/test_diff.py:71-88's data
+        zstates = torch.tensor(rng.randn(12, 64, 5) * 0.2, **f32)
+        zcontrols = torch.tensor(rng.randn(11, 64, 5) * 0.5, **f32)
+        true = default_params(**f32)
+        observed = zmp_chain(zstates, zcontrols, 0.1, true)[..., 1]
+        init = dataclasses.replace(true, base2com=torch.full((), 0.6, **f32))
+        rng = np.random.RandomState(3)   # tests/test_diff.py:222-228's data
+        rargs = (torch.zeros((128, 3), **f32), torch.tensor(rng.randn(16, 128, 2) * 0.5, **f32),
+                 torch.tensor(rng.randn(16, 128, 3) * 0.1, **f32))
+        programs = {
+            "fit_control_gains": _fit_control_gains_program(
+                "unicycle", states, controls, nxt, 0.1, num_steps=300, group=group),
+            "fit_full_body_params": _fit_full_body_params_program(
+                zstates, zcontrols, observed, 0.1, init, num_steps=500, learning_rate=0.02,
+                group=group)}
+        for nc in (1, 4, 8):
+            programs[f"rollout_prediction_value_and_grad/num_chunks={nc}"] = \
+                _rollout_gradient_program("unicycle", ControlGains(
+                    torch.tensor([1.1, 0.9], **f32)), *rargs, 0.1, num_chunks=nc, group=group)
+        for name, program in programs.items():
+            rec, _ = graphed_against_eager(f"sharded {name}", program, card, phase=34)
+            require(rec["bit_equal"], f"[34] sharded {name}: graphed differs from op by op")
+            record[f"fit/{name}"] = rec
+    finally:
+        shutdown_multihost()
+    require(not dist.is_initialized(), "[34] the group outlived shutdown_multihost")
+
+    # (e) the demo twin -----------------------------------------------------------
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_multihost_demo.py"),
+                           "--kernel"], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"[34 demo] scripts/torch_multihost_demo.py --kernel: rc {proc.returncode}, "
+          f"{wall:.1f} s; {' | '.join(lines)}", flush=True)
+    require(proc.returncode == 0, f"[34] the demo twin exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+    rmse = float(next(x for x in lines if "RMSE=" in x).split("RMSE=")[1].split()[0])
+    require(rmse < 0.15 and "compiled=True (nccl" in proc.stdout
+            and "kernel launches a rank [50]" in proc.stdout,
+            f"[34] the demo twin: RMSE {rmse}, {lines}")
+    record["demo"] = {"rmse": rmse, "wall_s": wall, "lines": lines}
+
+    # (f) the fleet command's plant -----------------------------------------------
+    argv, phase14 = fleet_lines
+    plant_mod.FLEET_PLANT.graphs.clear()   # phase 14 captured this shape's plant
+    before = plant_mod.FLEET_PLANT.captures
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().splitlines()
+    captures = plant_mod.FLEET_PLANT.captures - before
+    plant_same = []
+    for model in ("full_body", "unicycle", "steering_unicycle", "rate_limited_steering"):
+        mm = get_model(model)
+        g = torch.Generator(device=dev)
+        g.manual_seed(34)
+        st = torch.randn((64, mm.num_states), generator=g, device=dev)
+        u = torch.randn((64, mm.num_controls), generator=g, device=dev)
+        plant_mod.step_fleet_plant(model, st, u, s["dt"])   # the capture
+        plant_same.append(bool(torch.equal(plant_mod.step_fleet_plant(model, st, u, s["dt"]),
+                                           plant_mod.fleet_plant_step(model, st, u, s["dt"]))))
+    print(f"[34 fleet] {' '.join(argv)}: rc {rc}; the plant {captures} capture, then "
+          f"replayed; RMSE line {lines[1]!r} (phase 14: {phase14[1]!r}); the graphed plant "
+          f"bit-equal to op by op for every model {all(plant_same)}", flush=True)
+    require(rc == 0 and captures == 1 and lines[1] == phase14[1] and all(plant_same),
+            f"[34] fleet: rc {rc}, captures {captures}, {lines[1]} vs {phase14[1]}, "
+            f"plant {plant_same}")
+    record["fleet"] = {"plant_captures": captures, "rmse_line": lines[1]}
+    counters_zero("[34] fleet")
+
+    # (g) the figure twin -----------------------------------------------------------
+    FIGURE_RUNS.parent.mkdir(parents=True, exist_ok=True)
+    png_dir = FIGURE_RUNS.parent / "figures_torch"
+    shutil.rmtree(png_dir, ignore_errors=True)
+    script = ROOT / "scripts" / "torch_make_figures.py"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(script), "--runs", str(FIGURE_RUNS),
+                           "--out", str(png_dir)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    print(f"[34 figures] scripts/torch_make_figures.py: rc {proc.returncode}, {wall:.1f} s; "
+          f"{' | '.join(lines)}", flush=True)
+    require(proc.returncode == 0, f"[34] the figure twin exited {proc.returncode}:\n"
+            f"{proc.stderr[-3000:]}")
+    sys.path.insert(0, str(script.parent))
+    import torch_make_figures as twin
+
+    runs = twin.load_runs(FIGURE_RUNS)
+    rmses = {name: run["metrics"]["rmse"] for name, run in runs.items() if "metrics" in run}
+    require(set(runs) == {"diff_drive", "full_body", "full_stack", "steered", "unsteered",
+                          "controlled", "uncontrolled", "solver_debug"}
+            and all(np.isfinite(v) for v in rmses.values()),
+            f"[34] the figure twin's runs: {sorted(runs)}, RMSE {rmses}")
+    expected = sorted(os.listdir(ROOT / "examples" / "figures"))
+    drawn = sorted(os.listdir(png_dir)) if png_dir.exists() else []
+    try:
+        import matplotlib  # noqa: F401
+        has_matplotlib = True
+    except ImportError:
+        has_matplotlib = False
+    print(f"  runs kept in {FIGURE_RUNS.relative_to(ROOT)}; RMSE {rmses}; matplotlib here "
+          f"{has_matplotlib}: {len(drawn)} PNGs written" + (
+              "" if has_matplotlib else " (draw them from the runs with --draw-from where "
+              "matplotlib is installed)"), flush=True)
+    require(drawn == (expected if has_matplotlib else []),
+            f"[34] the figure twin drew {drawn}, not {expected}")
+    record["figures"] = {"rmse": rmses, "wall_s": wall, "pngs": drawn}
+    counters_zero("[34] figures")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[34] {record['seconds']:.1f} s", flush=True)
+    return record, launches
 
 
 def main():
@@ -2551,6 +2933,7 @@ def main():
         counters_zero(f"{preset} fleet")
 
     # --- 14. the fleet command --------------------------------------------
+    fleet_lines = None   # the kernel arm's (argv, printed lines), for phase 34
     for extra in (["--kernel"], ["--no-kernel"]):
         argv = ["fleet", "--preset", "diff_drive", "--robots", "64", "--steps", str(STEPS),
                 *extra]
@@ -2565,6 +2948,8 @@ def main():
               f"launches {n}", flush=True)
         require(rc == 0 and worst < 0.15 and n == (0 if "--no-kernel" in extra else STEPS),
                 f"cli {' '.join(argv)}")
+        if "--kernel" in extra:
+            fleet_lines = (argv, lines)
         counters_zero(f"cli {' '.join(argv)}")
 
     # --- 15. timing of the new modes ----------------------------------------
@@ -3322,6 +3707,7 @@ def main():
         build_sharded_step,
         initialize_multihost,
         samples_group,
+        shutdown_multihost,
     )
 
     sharded = {}
@@ -3371,7 +3757,7 @@ def main():
     print(f"  kernel update, CUDA events, median of 7 reps: sharded at world size 1 "
           f"{sharded['world_size_1']['sharded']:.4f} ms, mppi_step "
           f"{sharded['world_size_1']['unsharded']:.4f} ms on {card}", flush=True)
-    dist.destroy_process_group()
+    shutdown_multihost()   # forgets the graphs that hold the group, then leaves it
     counters_zero("world size 1")
 
     # world size 2: two processes over gloo sharing the card
@@ -3608,6 +3994,10 @@ def main():
     programs, launches33 = phase_33(dev, card, counters_zero)
     print(json.dumps({"training_programs": programs}), flush=True)
 
+    # --- 34. the sharded programs over NCCL, the fleet plant, the figures ----------
+    sharded_programs, launches34 = phase_34(dev, card, fleet_lines, counters_zero)
+    print(json.dumps({"sharded_programs": sharded_programs}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -3686,12 +4076,12 @@ def main():
                  replaces=REPLACES_DRAW)
     draw["randn_ms_yardstick"] = med31["draw/randn"]
     kernels.append(draw)
-    # phase 32's and phase 33's runs, each counted from 0 just before it
+    # phase 32's, 33's and 34's runs, each counted from 0 just before it (phase
+    # 34: the graphed sharded 200-cycle loop over NCCL)
     for k in kernels:
-        if k["name"] in launches32:
-            k["launches_phase_32"] = launches32[k["name"]]
-        if k["name"] in launches33:
-            k["launches_phase_33"] = launches33[k["name"]]
+        for phase, counts in ((32, launches32), (33, launches33), (34, launches34)):
+            if k["name"] in counts:
+                k[f"launches_phase_{phase}"] = counts[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

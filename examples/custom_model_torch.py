@@ -16,7 +16,8 @@ and its steering-effort cost variant, and drives them through:
      CUDA kernel (ops/sampling.py draw_standard_normals);
   3. the sample-sharded step (``build_sharded_step`` over a
      ``torch.distributed`` group: the processes of a ``torchrun`` launch, or
-     else a group of this one process);
+     else a group of this one process; over NCCL on the card a CUDA graph's
+     replay with the collectives inside);
   4. a closed-loop tracking run with the calc_e_rmse-style metrics.
 
 Run:  python examples/custom_model_torch.py [--device cpu]
@@ -153,7 +154,11 @@ def main(argv=None):
     import torch.distributed as dist
 
     from ccv_mppi_path_tracker_tpu_torch.diff.gradients import make_trajectory_cost
-    from ccv_mppi_path_tracker_tpu_torch.parallel import build_sharded_step, samples_group
+    from ccv_mppi_path_tracker_tpu_torch.parallel import (
+        build_sharded_step,
+        samples_group,
+        shutdown_multihost,
+    )
     from ccv_mppi_path_tracker_tpu_torch.solver import MPPISolver, mppi_step
 
     p = argparse.ArgumentParser(description="the kinematic bicycle, end to end")
@@ -195,7 +200,7 @@ def main(argv=None):
     _, sharded = build_sharded_step(cfg)(ctrl, state, path, 0.1, sp, cp)
     print(f"sharded step over {dist.get_world_size()} process(es): u0 "
           f"{sharded.u0.cpu().numpy().round(4).tolist()}")
-    dist.destroy_process_group()
+    shutdown_multihost()   # over NCCL the step is a graph holding the group
 
     # 4. the closed loop
     m = closed_loop_rmse(steps=args.steps, num_samples=args.num_samples,

@@ -24,6 +24,8 @@ runs its plain function, as the caller asked for the CPU. Checked here:
 
 import dataclasses
 import functools
+import socket
+import types
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +44,11 @@ from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     fused_sample_rollout_cost_reference,
 )
 from ccv_mppi_path_tracker_tpu_torch.models import get_model
+from ccv_mppi_path_tracker_tpu_torch.parallel import (
+    initialize_multihost,
+    samples_group,
+    shutdown_multihost,
+)
 from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.runtime import (
     ControlLoop,
@@ -239,9 +246,27 @@ def test_compiled_step_takes_the_options_of_mppi_step(opts):
     assert set(got.stats) == set(ref.stats)
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def test_compiled_step_refuses_the_sharded_step():
-    with pytest.raises(ValueError, match="group"):
-        compile_step(Case(8).cfg, use_kernel=True, group=object())
+    """The sharded step over gloo, whose collectives copy through the host,
+    is refused with its state on the card, naming NCCL: nothing runs op by
+    op in the graph's place (a stand-in state: this machine has no card).
+    Over NCCL it is compiled (tests/test_torch_sharded_programs.py)."""
+    case = Case(8)
+    on_card = types.SimpleNamespace(u_prev=types.SimpleNamespace(device=torch.device("cuda", 0)))
+    assert initialize_multihost(f"localhost:{free_port()}", 1, 0, backend="gloo",
+                                timeout_s=30)
+    try:
+        step = compile_step(case.cfg, use_kernel=True, group=samples_group(device="cpu")[0])
+        with pytest.raises(ValueError, match="NCCL"):
+            step(on_card, None, case.path, 0.1, case.sp, case.cp)
+    finally:
+        shutdown_multihost()
 
 
 # --- the closed loop ---------------------------------------------------------------

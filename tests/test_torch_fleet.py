@@ -12,7 +12,10 @@
   and the kernel arm against the eager arm at float32;
 - the ports of tests/test_fleet.py (independent robots, convergence,
   per-robot paths) on both arms, batched resampling, ``convert.py`` with a
-  batched path, and the ``fleet`` command on the CPU.
+  batched path, and the ``fleet`` command on the CPU;
+- the fleet's plant (runtime/plant.py fleet_plant_step, the function the
+  ``fleet`` command's plant graph holds on the card) against
+  ``jax.vmap(model.step)`` at float64 rtol 1e-12, every model.
 """
 
 import jax
@@ -30,6 +33,7 @@ from ccv_mppi_path_tracker_tpu.kernels.rollout_cost import (
     tile_noise,
     tile_rows,
 )
+from ccv_mppi_path_tracker_tpu.models import get_model as jax_get_model
 from ccv_mppi_path_tracker_tpu.models.full_body import default_params as jax_default_params
 from ccv_mppi_path_tracker_tpu.paths import PathBuffer as JaxPathBuffer
 from ccv_mppi_path_tracker_tpu.paths import resample_reference as jax_resample
@@ -51,6 +55,7 @@ from ccv_mppi_path_tracker_tpu_torch.paths import (
     resample_reference,
     resample_references,
 )
+from ccv_mppi_path_tracker_tpu_torch.runtime import plant as plant_mod
 from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet, mppi_step
 from test_torch_kernel import MODELS
 from test_torch_solver import Case
@@ -414,6 +419,43 @@ def test_fleet_cli_on_cpu(extra, capsys):
     assert float(out[-2].split("worst=")[1]) < 0.15
     assert out[-1].startswith("wall: ") and "robot-updates/s" in out[-1]
     assert fused_sample_rollout_cost.launches == before
+
+
+@pytest.mark.parametrize("model", MODELS)
+def test_fleet_plant_matches_jax_vmapped_step_f64(model):
+    """The fleet's plant against the JAX CLI's ``jax.vmap(model.step)`` (its
+    ``jax.jit``, cli.py:411), B=6 robots at float64 rtol 1e-12; on the CPU
+    ``step_fleet_plant`` runs it op by op, bit-equal."""
+    m = get_model(model)
+    rng = np.random.RandomState(11)
+    states = rng.randn(6, m.num_states)
+    u0 = rng.randn(6, m.num_controls)
+    jstep = jax_get_model(model).step
+    want = jax.vmap(lambda s, u: jstep(s, u, jnp.float64(DT)))(jnp.asarray(states),
+                                                               jnp.asarray(u0))
+    dt = torch.tensor(DT, dtype=torch.float64)
+    got = plant_mod.fleet_plant_step(model, torch.as_tensor(states), torch.as_tensor(u0), dt)
+    close(got, want, dict(rtol=1e-12, atol=1e-14))
+    assert torch.equal(plant_mod.step_fleet_plant(model, torch.as_tensor(states),
+                                                  torch.as_tensor(u0), dt), got)
+
+
+def test_fleet_cli_steps_its_plant_through_the_fleet_plant(monkeypatch, capsys):
+    """The ``fleet`` command steps its plant once a tick through
+    ``step_fleet_plant`` (on the card a graph's replay), on every robot at
+    once."""
+    calls = []
+    real = plant_mod.step_fleet_plant
+
+    def counted(model, states, u0, dt):
+        calls.append((model, tuple(states.shape), tuple(u0.shape)))
+        return real(model, states, u0, dt)
+
+    monkeypatch.setattr(plant_mod, "step_fleet_plant", counted)
+    assert cli.main(["fleet", "--device", "cpu", "--robots", "3", "--steps", "5",
+                     "--num-samples", "64"]) == 0
+    capsys.readouterr()
+    assert calls == [("unicycle", (3, 3), (3, 2))] * 5
 
 
 def test_fleet_cli_refuses_a_missing_cuda_device(capsys):
