@@ -112,6 +112,7 @@
 //             -shared -Xcompiler -fPIC  (kernels/build.py), bound with ctypes.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -757,38 +758,176 @@ int launch(const float* u_prev, const float* sigma, const float* u_min,
 }
 
 // The eager arm's exploration noise: the standard normals that the fused
-// kernel's RNG mode draws, written out as (B, T-1, K, U) float32. It ports no
-// Pallas kernel: the JAX package draws its eager noise with XLA's RBG normal
-// inside the jitted step (ops/sampling.py draw_standard_normals). What
-// bounds it: the stores, (T-1)*K*U*4 bytes a robot, against Philox's 62
-// integer instructions a pair at half the FP32 rate, nearly even at
-// full_body (kernels/rollout_cost.py philox_normals_bound_ms). One thread
-// per (b, t, k) draws the row's ceil(U/2) pairs through philox_pair and
-// stores its U floats, so a warp writes 32*U consecutive floats. Grid
-// (ceil(K / kDrawThreads), T-1, B). The key is read from device memory
-// where the pointer is given (a CUDA graph's replay then draws anew), else
-// (seed, step) come by value, as in rollout_cost_kernel.
-constexpr int kDrawThreads = 256;
+// kernel's RNG mode draws, written out as (B, T-1, K, U) float32; entry
+// (b, t, k, j) is the cosine half (j even) or the sine half (j odd) of
+// philox_pair(first_sample + k, t, j / 2, robot_base + b, seed, step). It
+// ports no Pallas kernel: the JAX package draws its eager noise with XLA's
+// RBG normal inside the jitted step (ops/sampling.py:53-80,
+// draw_standard_normals).
+//
+// What bounds it on this card: the count of kernels/rollout_cost.py
+// philox_normals_bound_ms says the stores, (T-1)*K*U*4 bytes a robot
+// (0.0177 ms at the flagship (29, 102400, 5)), against Philox's 62 integer
+// instructions a pair (0.0165 ms). That count leaves out the precise
+// log1pf, sqrtf, sinf and cosf of Box-Muller, which fix the stream's bits
+// and cannot change here: with them a U = 5 row issues 513 SASS
+// instructions when no slow path is taken (scripts/torch_kernel_ab.py
+// sass), so issue, not the bytes, sets the floor: 0.0455 ms at the
+// flagship, at 4 warp instructions a clock on each of the 132 SMs at
+// 1980 MHz.
+//
+// Design, and what each part does about that:
+// 1. One flat grid over rows. The output is contiguous in row order r =
+//    (b * (T-1) + t) * K + k; block i takes kDrawRows consecutive rows (fewer
+//    for a wide generic U), one thread a row, so every lane has a row
+//    whatever K is (a (64, 7, 64, 2) draw fills 112 blocks with every lane
+//    active). Each thread splits its r into (b, t, k) by two divisions by the
+//    invariant K and T-1, each a multiply-high and a shift (DrawDiv, set up
+//    on the host): no block prologue, no barrier. Past 2^31 rows the split
+//    is a 64-bit division (the kWide instantiations). The grid is 1-D, so
+//    T-1 and B meet no grid limit.
+// 2. U as a template parameter, 1 to 5, the models' U (2 unicycle and the
+//    bicycle, 3 the steered models, 5 full_body), and 0 for any other U (a
+//    runtime loop). In each instantiation the ceil(U/2) philox_pair calls
+//    are unrolled, so their independent chains interleave, and an odd U's
+//    last sine is never computed.
+// 3. Stores: a warp's stores cover whole 128-byte lines. For U = 1, 2 and
+//    4 a row is one 4-, 8- or 16-byte store, so the rows of a warp are
+//    already contiguous lines and each thread stores its own. For U = 3, 5
+//    and the generic U the stores are staged through shared memory: each
+//    thread writes its U floats into the block's tile, and after
+//    __syncthreads() the block writes its rows * U * 4 contiguous bytes with
+//    16-byte stores, the last block's ragged end as floats. Before, each
+//    thread stored its own row float by float, so at U = 5 a warp's store
+//    spanned 640 bytes for 128 useful ones. The tile is rows_per_block * U *
+//    4 bytes, 5 KB at U = 5; kernels/rollout_cost.py philox_draw_geometry
+//    sizes it under 48 KB for any U, with a block's first float 16-byte
+//    aligned. (Staging U = 1, 2 and 4 too, and splitting the block's first
+//    row once in thread 0 behind a barrier, made U = 2 slower than the old
+//    kernel: 1.056x at the fleet's shape, 1.197x at meta_train's, in
+//    scripts/torch_kernel_ab.py ab.)
+// The key is read from device memory where the pointer is given (a CUDA
+// graph's replay then draws anew), else (seed, step) come by value, as in
+// rollout_cost_kernel. The launch allocates nothing.
+//
+// Time on an NVIDIA H100 80GB HBM3 at a 700 W power limit, the old kernel
+// (one thread per (b, t, k) in a (K / 256, T-1, B) grid, storing its row
+// float by float) and this one in turns in one call
+// (scripts/torch_kernel_ab.py ab, a CUDA graph of 50 draws each; PERF.md
+// section 6):
+// the flagship 0.0637 and 0.0634 ms before, 0.0590 and 0.0589 after; U = 3
+// 0.0446, 0.0445 -> 0.0424, 0.0423; the fleet (256, 14, 1024, 2) 0.0316,
+// 0.0314 -> 0.0293, 0.0292; meta_train's (64, 7, 64, 2) 0.0022, 0.0020 ->
+// 0.0022, 0.0022, a launch's floor. So 77 % of the issue floor above and
+// 30 % of the byte bound at the flagship.
+constexpr int kDrawRows = 256;           // the most rows (threads) of a block
+constexpr int kDrawSmem = 48 * 1024;     // the most bytes of a block's tile
 
-__global__ void __launch_bounds__(kDrawThreads)
-philox_normals_kernel(float* __restrict__ out, const long long* __restrict__ key,
-                      uint32_t seed, uint32_t step, int num_samples, int tm1, int u_dim,
-                      uint32_t robot_base, uint32_t first_sample) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= num_samples) return;
-  const int t = blockIdx.y;
-  const int b = blockIdx.z;
-  if (key != nullptr) {
-    seed = static_cast<uint32_t>(key[0]);
-    step = static_cast<uint32_t>(key[1]);
+// n / d for n < 2^31 as (n * mul) >> (32 + shr) (division by an invariant
+// integer: mul = ceil(2^(31 + l) / d), l = ceil(log2 d); exact because the
+// rounding error of mul times n stays under 2^(31 + l)); d = 1 keeps n.
+struct DrawDiv {
+  uint32_t d, mul, shr;
+};
+
+DrawDiv draw_div(uint32_t d) {
+  DrawDiv v{d, 0, 0};
+  if (d > 1) {
+    int l = 0;
+    while ((1ull << l) < d) ++l;
+    v.mul = static_cast<uint32_t>(((1ull << (31 + l)) + d - 1) / d);
+    v.shr = l - 1;
   }
-  float* row = out + (((size_t)b * tm1 + t) * num_samples + k) * u_dim;
-  for (int p = 0; 2 * p < u_dim; ++p) {
-    float z0, z1;
-    philox_pair(first_sample + (uint32_t)k, (uint32_t)t, (uint32_t)p,
-                robot_base + (uint32_t)b, seed, step, z0, z1);
-    row[2 * p] = z0;
-    if (2 * p + 1 < u_dim) row[2 * p + 1] = z1;  // U odd: the last sine dropped
+  return v;
+}
+
+__device__ __forceinline__ uint32_t draw_quot(uint32_t n, const DrawDiv& v) {
+  return v.d > 1 ? __umulhi(n, v.mul) >> v.shr : n;
+}
+
+template <int U> struct DrawVec;
+template <> struct DrawVec<1> { using T = float; };
+template <> struct DrawVec<2> { using T = float2; };
+template <> struct DrawVec<4> { using T = float4; };
+
+template <int U, bool kWide>
+__global__ void __launch_bounds__(kDrawRows, 4)
+philox_normals_kernel(float* __restrict__ out, const long long* __restrict__ key,
+                      uint32_t seed, uint32_t step, long long rows, int u_dim,
+                      DrawDiv by_k, DrawDiv by_t, uint32_t robot_base,
+                      uint32_t first_sample) {
+  constexpr bool kStaged = !(U == 1 || U == 2 || U == 4);
+  extern __shared__ float4 draw_tile4[];
+  float* tile = reinterpret_cast<float*>(draw_tile4);
+  const int u = U > 0 ? U : u_dim;
+  const long long row0 = static_cast<long long>(blockIdx.x) * blockDim.x;
+  const long long r = row0 + threadIdx.x;
+  if (r < rows) {
+    uint32_t b, t, k;
+    if constexpr (kWide) {
+      const long long bt = r / by_k.d;
+      const long long bb = bt / by_t.d;
+      k = static_cast<uint32_t>(r - bt * by_k.d);
+      t = static_cast<uint32_t>(bt - bb * by_t.d);
+      b = static_cast<uint32_t>(bb);
+    } else {
+      const uint32_t bt = draw_quot(static_cast<uint32_t>(r), by_k);
+      k = static_cast<uint32_t>(r) - bt * by_k.d;
+      b = draw_quot(bt, by_t);
+      t = bt - b * by_t.d;
+    }
+    if (key != nullptr) {
+      seed = static_cast<uint32_t>(key[0]);
+      step = static_cast<uint32_t>(key[1]);
+    }
+    if constexpr (kStaged) {
+      float* row = tile + threadIdx.x * u;
+#pragma unroll
+      for (int p = 0; 2 * p < u; ++p) {
+        float z0, z1;
+        philox_pair(first_sample + k, t, static_cast<uint32_t>(p), robot_base + b, seed,
+                    step, z0, z1);
+        row[2 * p] = z0;
+        if (2 * p + 1 < u) row[2 * p + 1] = z1;  // U odd: the last sine dropped
+      }
+    } else {
+      typename DrawVec<U>::T v;
+      float* z = reinterpret_cast<float*>(&v);
+#pragma unroll
+      for (int p = 0; 2 * p < U; ++p) {
+        float z0, z1;
+        philox_pair(first_sample + k, t, static_cast<uint32_t>(p), robot_base + b, seed,
+                    step, z0, z1);
+        z[2 * p] = z0;
+        if (2 * p + 1 < U) z[2 * p + 1] = z1;  // U = 1: the sine dropped
+      }
+      reinterpret_cast<typename DrawVec<U>::T*>(out)[r] = v;
+    }
+  }
+  if constexpr (kStaged) {
+    __syncthreads();
+    const int nrows = rows - row0 < blockDim.x ? static_cast<int>(rows - row0)
+                                               : static_cast<int>(blockDim.x);
+    const long long base = row0 * u;  // a multiple of 4: 16-byte aligned
+    const int n = nrows * u;
+    const int n4 = n >> 2;
+    float4* dst4 = reinterpret_cast<float4*>(out + base);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) dst4[i] = draw_tile4[i];
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) out[base + i] = tile[i];
+  }
+}
+
+template <int U>
+void launch_draw(bool wide, float* out, const long long* key, uint32_t seed,
+                 uint32_t step, long long rows, int u_dim, DrawDiv by_k, DrawDiv by_t,
+                 uint32_t robot_base, uint32_t first_sample, int rows_per_block,
+                 int blocks, int smem_bytes, cudaStream_t stream) {
+  if (wide) {
+    philox_normals_kernel<U, true><<<blocks, rows_per_block, smem_bytes, stream>>>(
+        out, key, seed, step, rows, u_dim, by_k, by_t, robot_base, first_sample);
+  } else {
+    philox_normals_kernel<U, false><<<blocks, rows_per_block, smem_bytes, stream>>>(
+        out, key, seed, step, rows, u_dim, by_k, by_t, robot_base, first_sample);
   }
 }
 
@@ -811,11 +950,11 @@ int rollout_cost_max_threads() { return kMaxThreads; }
 int rollout_cost_num_scalars() { return kNScal; }
 
 // The parameters of each entry point, one letter each: i int, u unsigned
-// int, f float, p pointer (kernels/rollout_cost.py SIGNATURE, which the
+// int, l long long, f float, p pointer (kernels/rollout_cost.py SIGNATURE, which the
 // binding holds equal to this).
 const char* rollout_cost_signature() {
   return "rollout_cost:" "ii" "pppppppppppppppp" "iiiuuuuiiffiiip"
-         ";philox_normals:" "ppuuiiiiuup";
+         ";philox_normals:" "ppuuiiiiuuliiiiip";
 }
 
 // U * 16 + S of model id `model`, or -1 for an unknown id.
@@ -937,21 +1076,52 @@ int rollout_cost(int model, int store, const float* u_prev, const float* sigma,
 
 // Writes the standard normals of robots robot_base ... robot_base+robots-1,
 // samples first_sample ... first_sample+num_samples-1, into out (robots,
-// tm1, num_samples, u_dim) float32 on `stream`: entry (b, t, k, 2p) is the
-// cosine half and (b, t, k, 2p+1) the sine half of counter (first_sample +
-// k, t, p, robot_base + b) under key (seed, step), or under key[0], key[1]
-// (int64, on the device) where key is non-null. Returns the cudaError_t of
-// the launch.
+// tm1, num_samples, u_dim) float32, 16-byte aligned, on `stream`: entry (b,
+// t, k, 2p) is the cosine half and (b, t, k, 2p+1) the sine half of counter
+// (first_sample + k, t, p, robot_base + b) under key (seed, step), or under
+// key[0], key[1] (int64, on the device) where key is non-null. The launch
+// geometry is kernels/rollout_cost.py philox_draw_geometry's: rows =
+// robots * tm1 * num_samples, blocks of rows_per_block rows (a block's
+// floats a multiple of 4), smem_bytes the tile (rows_per_block * u_dim * 4
+// where the stores are staged, else 0), unrolled_u the instantiation (u_dim
+// for 1 ... 5, else 0) and wide its 64-bit split (required past 2^31 - 1
+// rows). Returns the cudaError_t of the launch, cudaErrorInvalidValue where
+// the geometry does not fit the shapes.
 int philox_normals(float* out, const long long* key, unsigned int seed,
                    unsigned int step, int num_samples, int tm1, int u_dim, int robots,
-                   unsigned int robot_base, unsigned int first_sample, void* stream) {
-  if (out == nullptr || num_samples < 1 || tm1 < 1 || tm1 > 65535 || u_dim < 1 ||
-      robots < 1 || robots > 65535) {
+                   unsigned int robot_base, unsigned int first_sample, long long rows,
+                   int rows_per_block, int blocks, int smem_bytes, int unrolled_u, int wide,
+                   void* stream) {
+  const bool staged = !(u_dim == 1 || u_dim == 2 || u_dim == 4);
+  if (out == nullptr || reinterpret_cast<uintptr_t>(out) % 16 != 0 || num_samples < 1 ||
+      tm1 < 1 || u_dim < 1 || robots < 1 || rows_per_block < 1 ||
+      rows_per_block > kDrawRows ||
+      static_cast<long long>(robots) * tm1 > LLONG_MAX / num_samples ||
+      rows != static_cast<long long>(robots) * tm1 * num_samples ||
+      static_cast<long long>(rows_per_block) * u_dim % 4 != 0 ||
+      smem_bytes != (staged ? static_cast<long long>(rows_per_block) * u_dim * 4 : 0) ||
+      smem_bytes > kDrawSmem ||
+      blocks != (rows + rows_per_block - 1) / rows_per_block ||
+      unrolled_u != (u_dim <= 5 ? u_dim : 0) || (wide != 0) != (rows > INT_MAX)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((num_samples + kDrawThreads - 1) / kDrawThreads, tm1, robots);
-  philox_normals_kernel<<<grid, kDrawThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, key, seed, step, num_samples, tm1, u_dim, robot_base, first_sample);
+  const DrawDiv by_k = draw_div(static_cast<uint32_t>(num_samples));
+  const DrawDiv by_t = draw_div(static_cast<uint32_t>(tm1));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PHILOX_DRAW_CASE(U)                                                       \
+  case U:                                                                         \
+    launch_draw<U>(wide != 0, out, key, seed, step, rows, u_dim, by_k, by_t,      \
+                   robot_base, first_sample, rows_per_block, blocks, smem_bytes, s); \
+    break;
+  switch (unrolled_u) {  // 0 ... 5, checked above
+    PHILOX_DRAW_CASE(0)
+    PHILOX_DRAW_CASE(1)
+    PHILOX_DRAW_CASE(2)
+    PHILOX_DRAW_CASE(3)
+    PHILOX_DRAW_CASE(4)
+    PHILOX_DRAW_CASE(5)
+  }
+#undef PHILOX_DRAW_CASE
   return static_cast<int>(cudaGetLastError());
 }
 

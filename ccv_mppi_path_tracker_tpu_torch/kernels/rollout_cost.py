@@ -501,6 +501,18 @@ def instantiations(summary: dict) -> dict:
     return out
 
 
+def draw_instantiations(summary: dict) -> dict:
+    """{(U, wide): ptxas properties} of the draw kernel's instantiations (U 1
+    ... 5 unrolled, 0 the generic loop; wide: the 64-bit row split), from
+    :func:`kernels.build.ptxas_summary`."""
+    out = {}
+    for name, props in summary.items():
+        m = re.search(r"philox_normals_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            out[int(m.group(1)), m.group(2) == "1"] = props
+    return out
+
+
 def _check_key(key, seed, step, device, needed: bool = True):
     """The RNG key comes as ``key``, a contiguous (2,) int64 tensor [seed,
     step] on ``device``, or as the host integers ``seed`` and ``step`` (where
@@ -564,17 +576,20 @@ def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
             raise ValueError(f"{name} must be contiguous")
 
 
-# The C entry points' parameters, one letter each (i int, u unsigned int, f
-# float, p pointer). rollout_cost: model, store; u_prev ... scal, noise,
-# costs_in, costs, partials, counters, key, u_num, norm, u2_num; num_samples,
-# horizon, num_ref4, seed, step, robot, first_sample, steer_off, accumulate,
-# steer_max, rate_max, num_robots, second_moment, threads; the stream.
-# philox_normals: out, key; seed, step, num_samples, tm1, u_dim, robots,
-# robot_base, first_sample; the stream. csrc rollout_cost_signature()
-# returns them as "name:letters;...", checked when bound.
+# The C entry points' parameters, one letter each (i int, u unsigned int, l
+# long long, f float, p pointer). rollout_cost: model, store; u_prev ... scal,
+# noise, costs_in, costs, partials, counters, key, u_num, norm, u2_num;
+# num_samples, horizon, num_ref4, seed, step, robot, first_sample, steer_off,
+# accumulate, steer_max, rate_max, num_robots, second_moment, threads; the
+# stream. philox_normals: out, key; seed, step, num_samples, tm1, u_dim,
+# robots, robot_base, first_sample; rows, rows_per_block, blocks, smem,
+# unrolled_u, wide (:func:`philox_draw_geometry`); the stream. csrc
+# rollout_cost_signature() returns them as "name:letters;...", checked when
+# bound.
 SIGNATURE = {"rollout_cost": "ii" + "p" * 16 + "iiiuuuuiiffiiip",
-             "philox_normals": "ppuuiiiiuup"}
-_CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint, "f": ctypes.c_float, "p": ctypes.c_void_p}
+             "philox_normals": "ppuuiiiiuuliiiiip"}
+_CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint, "l": ctypes.c_longlong,
+           "f": ctypes.c_float, "p": ctypes.c_void_p}
 
 
 def _bind(lib):
@@ -830,6 +845,55 @@ def philox_normals_bound_ms(num_samples: int, tm1: int, u_dim: int, robots: int 
     return _bound_ms(philox_normals_work(num_samples, tm1, u_dim, robots))
 
 
+# The draw kernel's launch geometry (csrc kDrawRows, kDrawSmem): at most 256
+# rows, one thread each, a block; a block's tile at most 48 KB; the U that
+# have an unrolled instantiation (every other U runs the generic one, 0), and
+# of those the U whose row is one 4-, 8- or 16-byte store (no tile).
+DRAW_ROWS = 256
+DRAW_SMEM = 48 * 1024
+DRAW_UNROLLED = (1, 2, 3, 4, 5)
+DRAW_VECTOR_U = (1, 2, 4)
+INT_MAX = 2**31 - 1
+
+
+class DrawGeometry(NamedTuple):
+    """One :func:`philox_normals_cuda` launch: ``rows`` = robots * (T-1) * K
+    output rows of U floats, ``blocks`` blocks of ``rows_per_block`` rows
+    (the last one ragged), ``smem`` bytes of tile a block (0 where each
+    thread stores its row as one vector), and the instantiation:
+    ``unrolled_u`` (U, or 0 for the generic loop) and ``wide`` (a row's
+    split into (b, t, k) in 64 bits, past INT_MAX rows)."""
+    rows: int
+    rows_per_block: int
+    blocks: int
+    smem: int
+    unrolled_u: int
+    wide: int
+
+
+def philox_draw_geometry(robots: int, tm1: int, num_samples: int, u_dim: int) -> DrawGeometry:
+    """The flat grid of the draw kernel over the (robots, T-1, K) rows,
+    from the shapes alone (so a CUDA graph's replay launches the same
+    grid): DRAW_ROWS rows a block, fewer where U * 4 bytes a row would
+    overfill DRAW_SMEM, in multiples of 4 so that every block's first float
+    is 16-byte aligned. Raises ValueError on an empty shape, a U whose 4
+    rows overfill the tile (U > 3072), or a count past the entry point's C
+    int."""
+    if (min(robots, tm1, num_samples, u_dim) < 1
+            or max(robots, tm1, num_samples, u_dim) > INT_MAX):
+        raise ValueError(f"no draw of robots={robots} T-1={tm1} K={num_samples} U={u_dim}")
+    per = min(DRAW_ROWS, DRAW_SMEM // (4 * u_dim)) // 4 * 4
+    if per < 4:
+        raise ValueError(f"no draw of U={u_dim}: 4 rows overfill the {DRAW_SMEM} B tile")
+    rows = robots * tm1 * num_samples
+    blocks = -(-rows // per)
+    if blocks > INT_MAX:
+        raise ValueError(f"no draw of {rows} rows: {blocks} blocks")
+    smem = 0 if u_dim in DRAW_VECTOR_U else 4 * per * u_dim
+    return DrawGeometry(rows, per, blocks, smem, u_dim if u_dim in DRAW_UNROLLED else 0,
+                        int(rows > INT_MAX))
+
+
 def philox_normals_cuda(key: Optional[torch.Tensor] = None, seed: Optional[int] = None,
                         step: Optional[int] = None, *, num_samples: int, tm1: int,
                         u_dim: int, robots: int = 1, robot_base: int = 0,
@@ -847,23 +911,26 @@ def philox_normals_cuda(key: Optional[torch.Tensor] = None, seed: Optional[int] 
     ``seed`` and ``step`` by value on ``device``. Launches on the current
     stream, counted in ``philox_normals_cuda.launches`` (a launch captured
     into a CUDA graph counts once a replay, utils/cuda_graph.py); raises on
-    a launch error. It runs on a CUDA device only: ops/sampling.py
-    draw_standard_normals takes the plain version for the CPU."""
+    a launch error. The launch geometry is :func:`philox_draw_geometry`'s,
+    which raises ValueError on a shape the kernel cannot draw. It runs on a
+    CUDA device only: ops/sampling.py draw_standard_normals takes the plain
+    version for the CPU."""
     from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
     device = key.device if key is not None else torch.device(device or "cuda")
     _check_key(key, seed, step, device)
     if device.type != "cuda":
         raise ValueError(f"philox_normals_cuda runs on a CUDA device, not {device}")
-    if num_samples < 1 or tm1 < 1 or u_dim < 1 or not 1 <= robots <= MAX_ROBOTS:
+    if not 1 <= robots <= MAX_ROBOTS:
         raise ValueError(f"no draw of robots={robots} T-1={tm1} K={num_samples} U={u_dim}")
+    geo = philox_draw_geometry(robots, tm1, num_samples, u_dim)
     lib = _bind(load_library("rollout_cost"))
     out = torch.empty((robots, tm1, num_samples, u_dim), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.philox_normals(
             out.data_ptr(), None if key is None else key.data_ptr(),
             (seed or 0) & 0xFFFFFFFF, (step or 0) & 0xFFFFFFFF, num_samples, tm1, u_dim,
-            robots, robot_base & 0xFFFFFFFF, first_sample & 0xFFFFFFFF,
+            robots, robot_base & 0xFFFFFFFF, first_sample & 0xFFFFFFFF, *geo,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = lib.rollout_cost_error_string(err).decode()

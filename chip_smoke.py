@@ -162,8 +162,10 @@ failure ending the run with a non-zero exit:
      (kernels/rollout_cost.py philox_normals_cuda, the eager step's keyed
      normals) against its plain version core/random.py philox_normals on the
      card (max abs err <= 1e-5; the flagship, U=3, the fleet, first_sample
-     K/2, by value and by the device key bit-equal), the fused kernel fed the
-     draw bit-equal to its own RNG mode, the draw's ptxas report and the
+     K/2, meta_train's (64, 7, 64, 2), U=1, U=4, the generic U=7, K=1000,
+     T-1 = 70001, and 2^31 + 2 rows on slices; by value and by the device key
+     bit-equal), the fused kernel fed the draw bit-equal to its own RNG mode
+     for every preset model, each draw instantiation's ptxas report and the
      fused kernel's registers unchanged; the eager RNG-mode update against
      the kernel's, every model, within the kernel gate; compile_step(
      use_kernel=False) over 50 chained updates against op by op (full_body,
@@ -174,7 +176,8 @@ failure ending the run with a non-zero exit:
      (every robot within 0.3 m) and pipelined M=8 window (0 misses), exact
      draw launches; op-by-op and graphed eager timings in turns, host us,
      launches, busy share, the draw against its bound and torch.randn's time
-     (a different stream: a yardstick), and the eager update's peak memory.
+     (a different stream: a yardstick), the draw at meta_train's (64, 7, 64,
+     2) as a graph's replay, and the eager update's peak memory.
 
  32. the reference's evaluations (scripts/torch_quality_matrix.py and
      scripts/torch_realtime_session.py): the three quick-matrix cells of
@@ -321,6 +324,23 @@ def time_interleaved(arms, reps, warm=2):
             fn, inner = arms[name]
             times[name].append(event_ms(fn, inner))
     return times
+
+
+def graph_replay(fn, n):
+    """A function that replays one CUDA graph of n calls of fn, captured here
+    after a warm call: its time over n is a launch's device time where the
+    host takes longer to enqueue a launch than the card to run it (a small
+    draw). A plain torch.cuda.CUDAGraph: a wrapper's launch count sees the
+    capture, not the replays."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return graph.replay
 
 
 def kernel_case(preset, k, t, robots=None, roll_off=False, seed=0, device="cuda:0"):
@@ -952,6 +972,173 @@ EAGER_UPDATES = 50          # phase 31: chained updates, graphed eager against o
 DRAW_TOL = 1e-5             # phase 31: the draw kernel against its plain version, max |diff|
 SEED_31, STEP_31 = 2 ** 33 + 7, 11  # phase 31's key: a seed past 32 bits
 REPLACES_DRAW = "ccv_mppi_path_tracker_tpu/ops/sampling.py:53"  # XLA's RBG normal
+# meta_train's step draw (diff/learned_optimizer.py), (B, T-1, K, U): 64 robot rows
+META_DRAW = (64, 7, 64, 2)
+
+
+# phase 31 (a)'s draws: name, robots, T-1, K, U, first_sample. The flagship
+# and its U=3 (steered models), the fleet, the sample offset, meta_train's
+# step (diff/learned_optimizer.py, 64 robot rows), the other unrolled U (1,
+# 4), the generic loop (U=7, with a ragged float tail), a K that is not a
+# multiple of the block's rows, and T-1 past the old grid's 65535.
+DRAW_SHAPES = (
+    ("flagship", 1, T_MAIN - 1, K_MAIN, 5, 0), ("u3", 1, T_MAIN - 1, K_MAIN, 3, 0),
+    ("fleet", B_FLEET, T_FLEET - 1, K_FLEET, 2, 0),
+    ("first_sample", 1, T_MAIN - 1, K_MAIN, 5, K_MAIN // 2),
+    ("meta_train", *META_DRAW, 0), ("u1", 1, T_MAIN - 1, K_MAIN, 1, 0),
+    ("u4", 1, T_MAIN - 1, K_MAIN, 4, 0), ("generic_u7", 2, 9, 999, 7, 0),
+    ("ragged_k1000", 1, T_MAIN - 1, 1000, 5, 0), ("tm1_70001", 2, 70_001, 3, 5, 0),
+)
+
+
+WIDE_DRAW = (2, 1, 2**30 + 1, 1)  # 2^31 + 2 rows, 8.6 GB: the 64-bit row split
+WIDE_SLICE = 4096                  # samples held against the plain version at each end
+
+
+def wide_draw_check(dev):
+    """A draw past 2^31 - 1 rows (WIDE_DRAW, the wide instantiation): by the
+    device key bit-equal to by value, finite, and the first WIDE_SLICE
+    samples of robot 0 and the last of robot 1 (rows past 2^31) against the
+    plain version within DRAW_TOL. Returns its record."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        philox_draw_geometry,
+        philox_normals_cuda,
+    )
+
+    robots, tm1, k, u_dim = WIDE_DRAW
+    geo = philox_draw_geometry(*WIDE_DRAW)
+    kw = dict(num_samples=k, tm1=tm1, u_dim=u_dim, robots=robots)
+    key = torch.tensor([SEED_31, STEP_31], dtype=torch.int64, device=dev)
+    by_key = philox_normals_cuda(key, **kw)
+    by_value = philox_normals_cuda(None, SEED_31, STEP_31, device=dev, **kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(by_key, by_value))
+    del by_value
+    finite = bool(torch.isfinite(by_key).all())
+    err = 0.0
+    for rob, first in ((0, 0), (1, k - WIDE_SLICE)):
+        plain = philox_normals(SEED_31, STEP_31, WIDE_SLICE, tm1, u_dim, robot=rob,
+                               device=dev, first_sample=first)
+        err = max(err, float((by_key[rob, :, first:first + WIDE_SLICE] - plain).abs().max()))
+    del by_key
+    torch.cuda.empty_cache()
+    print(f"[31 draw] wide (B, T-1, K, U) = {WIDE_DRAW}: {geo.rows} rows, the 64-bit row "
+          f"split; device key bit-equal to the by-value key {same}; finite {finite}; the "
+          f"first {WIDE_SLICE} samples of robot 0 and the last of robot 1 vs philox_normals "
+          f"max abs err {err:.3e} (tol {DRAW_TOL}); {geo}", flush=True)
+    require(geo.wide and same and finite and err <= DRAW_TOL,
+            f"[31] wide draw: key {same}, finite {finite}, err {err}")
+    return dict(shape=list(WIDE_DRAW), key_bit_equal_value=same, max_abs_err=err,
+                geometry=geo._asdict())
+
+
+def draw_checks(dev, build_log, max_abs_err, counters_zero):
+    """Phase 31 (a): the draw kernel (kernels/rollout_cost.py
+    philox_normals_cuda) at every DRAW_SHAPES shape, by value and by the
+    device key (bit-equal), against its plain version (core/random.py
+    philox_normals) within DRAW_TOL; the draw at first_sample K/2 is samples
+    K/2... of the draw at 0; the draw past 2^31 rows (wide_draw_check); the
+    fused kernel fed the draw bit-equal to its own RNG mode, every preset
+    model; the ptxas report of each draw instantiation and the fused
+    kernel's registers unchanged. Fills
+    ``max_abs_err["philox_normals"]`` (the largest over the shapes); returns
+    its record."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        REGISTERS,
+        draw_instantiations,
+        fused_sample_rollout_cost,
+        instantiations,
+        philox_draw_geometry,
+        philox_normals_cuda,
+    )
+
+    def key_of(seed, step):
+        return torch.tensor([seed, step], dtype=torch.int64, device=dev)
+
+    draw_fn = philox_normals_cuda
+    draws = {}
+    for name, robots, tm1, k, u_dim, first in DRAW_SHAPES:
+        kw = dict(num_samples=k, tm1=tm1, u_dim=u_dim, robots=robots, first_sample=first)
+        by_value = draw_fn(None, SEED_31, STEP_31, device=dev, **kw)
+        by_key = draw_fn(key_of(SEED_31, STEP_31), **kw)
+        rob = torch.arange(robots, device=dev) if robots > 1 else 0
+        plain = philox_normals(SEED_31, STEP_31, k, tm1, u_dim, robot=rob, device=dev,
+                               first_sample=first)
+        plain = plain if robots > 1 else plain[None]
+        torch.cuda.synchronize()
+        same = bool(torch.equal(by_value, by_key))
+        err = float((by_key - plain).abs().max())
+        bit = bool(torch.equal(by_key, plain))
+        finite = bool(torch.isfinite(by_key).all())
+        geo = philox_draw_geometry(robots, tm1, k, u_dim)
+        draws[name] = dict(shape=list(by_key.shape), key_bit_equal_value=same,
+                           max_abs_err=err, bit_equal_plain=bit, geometry=geo._asdict())
+        print(f"[31 draw] {name} (B, T-1, K, U) = {tuple(by_key.shape)} first_sample {first}: "
+              f"device key bit-equal to the by-value key {same}; vs philox_normals on the "
+              f"card max abs err {err:.3e} (tol {DRAW_TOL}), bit-equal {bit}; finite "
+              f"{finite}; {geo}", flush=True)
+        require(same and finite and err <= DRAW_TOL,
+                f"[31] draw {name}: key {same}, finite {finite}, err {err}")
+        if name == "flagship":
+            whole = by_key
+        if name == "first_sample":
+            half = K_MAIN // 2
+            overlap = bool(torch.equal(by_key[:, :, :half], whole[:, :, half:]))
+            require(overlap, "[31] the draw at first_sample K/2 is not samples K/2... of the "
+                             "draw at 0")
+            print(f"  the draw at first_sample {half} is samples {half}... of the draw at 0, "
+                  f"bit for bit: {overlap}", flush=True)
+        del by_value, by_key, plain
+    draws["wide"] = wide_draw_check(dev)
+    max_abs_err["philox_normals"] = max(d["max_abs_err"] for d in draws.values())
+    # the fused kernel fed the eager draw is its own RNG mode, bit for bit
+    fed = {}
+    for preset in PRESET_MODELS:
+        s = kernel_case(preset, K_MAIN, T_MAIN, seed=31)
+        u_dim = s["u_prev"].shape[1]
+        mkw = dict(num_samples=K_MAIN, model=s["model"])
+        own = fused_sample_rollout_cost(*s["kargs"], seed=SEED_31, step=STEP_31, **mkw)
+        noise = draw_fn(key_of(SEED_31, STEP_31), num_samples=K_MAIN, tm1=T_MAIN - 1,
+                        u_dim=u_dim)[0]
+        given = fused_sample_rollout_cost(*s["kargs"], seed=None, step=None, noise=noise,
+                                          **mkw)
+        torch.cuda.synchronize()
+        bit = all(bool(torch.equal(a, b)) for a, b in zip(own, given))
+        fed[s["model"]] = bit
+        print(f"[31 fused] {s['model']} K={K_MAIN} T={T_MAIN}: the fused kernel fed the "
+              f"eager draw bit-equal to its RNG mode (costs, u_num, norm) {bit}", flush=True)
+        require(bit, f"[31] {s['model']}: the eager draw is not the fused kernel's own")
+        counters_zero(f"[31] fused {s['model']}")
+    summary = build.ptxas_summary(build_log or "")
+    fused_regs = {f"{m} m2={int(m2)} {f}": p["registers"]
+                  for (m, m2, f), p in instantiations(summary).items()}
+    unchanged = all(p["registers"] == REGISTERS[m, f]
+                    for (m, _, f), p in instantiations(summary).items())
+    draw_ptx = draw_instantiations(summary)
+    require(not build_log or (len(fused_regs) == 16 and unchanged and len(draw_ptx) == 12),
+            f"[31] ptxas: fused {fused_regs}, draw {draw_ptx}")
+    for (u_dim, wide), p in sorted(draw_ptx.items()):
+        tile = philox_draw_geometry(1, 1, 1, u_dim or 7).smem
+        print(f"[31 ptxas] philox_normals_kernel<{u_dim}, {str(wide).lower()}> "
+              f"({'U = %d, unrolled' % u_dim if u_dim else 'generic U'}, "
+              f"{'64-bit' if wide else '32-bit'} row split): "
+              f"{p['registers']} registers, {p['spill_stores']} B spill stores, "
+              f"{p['spill_loads']} B spill loads, {p['stack']} B stack, {p['smem']} B static "
+              f"smem, {tile} B dynamic tile at {'U = %d' % (u_dim or 7)}", flush=True)
+    print(f"[31 ptxas] the fused kernel's {len(fused_regs)} instantiations' registers equal "
+          f"REGISTERS (unchanged): {unchanged if build_log else 'not rebuilt here'}",
+          flush=True)
+    return {"draws": draws, "fused_fed_draw_bit_equal": fed,
+            "ptxas": {"draw": {f"{u},{int(w)}": p for (u, w), p in draw_ptx.items()},
+                      "fused_registers": fused_regs,
+                      "fused_unchanged": unchanged if build_log else "library reused"}}
 
 
 def busy_share(fn, calls, ms_per_call):
@@ -977,12 +1164,11 @@ def busy_share(fn, calls, ms_per_call):
 
 
 def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_zero):
-    """Phase 31: the eager arm's compiled programs. (a) the draw kernel
-    (kernels/rollout_cost.py philox_normals_cuda) against its plain version
-    (core/random.py philox_normals) on the card at the flagship, U=3, the
-    fleet and first_sample K/2, by value and by the device key (bit-equal);
-    the fused kernel fed the draw bit-equal to its own RNG mode; the draw's
-    ptxas report and the fused kernel's registers; (b) the eager RNG-mode
+    """Phase 31: the eager arm's compiled programs. (a) :func:`draw_checks`:
+    the draw kernel against its plain version at every DRAW_SHAPES shape, by
+    value and by the device key; the fused kernel fed the draw bit-equal to
+    its own RNG mode; the draw's ptxas report and the fused kernel's
+    registers; (b) the eager RNG-mode
     update against the kernel RNG-mode update, every model, within the
     kernel gate; (c) compile_step(use_kernel=False) against op by op over
     EAGER_UPDATES chained updates (full_body, unicycle, elite, adapt_sigma,
@@ -1000,11 +1186,8 @@ def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_ze
     from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
     from ccv_mppi_path_tracker_tpu_torch.core.random import philox_normals
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
-    from ccv_mppi_path_tracker_tpu_torch.kernels import build
     from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
-        REGISTERS,
         fused_sample_rollout_cost,
-        instantiations,
         philox_normals_cuda,
     )
     from ccv_mppi_path_tracker_tpu_torch.models import Model, get_model, register_model
@@ -1037,74 +1220,7 @@ def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_ze
         return st
 
     # (a) the draw kernel against its plain version ----------------------------
-    draws = {}
-    for name, robots, tm1, k, u_dim, first in (
-            ("flagship", 1, T_MAIN - 1, K_MAIN, 5, 0), ("u3", 1, T_MAIN - 1, K_MAIN, 3, 0),
-            ("fleet", B_FLEET, T_FLEET - 1, K_FLEET, 2, 0),
-            ("first_sample", 1, T_MAIN - 1, K_MAIN, 5, K_MAIN // 2)):
-        kw = dict(num_samples=k, tm1=tm1, u_dim=u_dim, robots=robots, first_sample=first)
-        by_value = draw_fn(None, SEED_31, STEP_31, device=dev, **kw)
-        by_key = draw_fn(key_of(SEED_31, STEP_31), **kw)
-        rob = torch.arange(robots, device=dev) if robots > 1 else 0
-        plain = philox_normals(SEED_31, STEP_31, k, tm1, u_dim, robot=rob, device=dev,
-                               first_sample=first)
-        plain = plain if robots > 1 else plain[None]
-        torch.cuda.synchronize()
-        same = bool(torch.equal(by_value, by_key))
-        err = float((by_key - plain).abs().max())
-        bit = bool(torch.equal(by_key, plain))
-        finite = bool(torch.isfinite(by_key).all())
-        draws[name] = dict(shape=list(by_key.shape), key_bit_equal_value=same,
-                           max_abs_err=err, bit_equal_plain=bit)
-        print(f"[31 draw] {name} (B, T-1, K, U) = {tuple(by_key.shape)} first_sample {first}: "
-              f"device key bit-equal to the by-value key {same}; vs philox_normals on the "
-              f"card max abs err {err:.3e} (tol {DRAW_TOL}), bit-equal {bit}; finite "
-              f"{finite}", flush=True)
-        require(same and finite and err <= DRAW_TOL,
-                f"[31] draw {name}: key {same}, finite {finite}, err {err}")
-        if name == "flagship":
-            whole = by_key
-        if name == "first_sample":
-            half = K_MAIN // 2
-            overlap = bool(torch.equal(by_key[:, :, :half], whole[:, :, half:]))
-            require(overlap, "[31] the draw at first_sample K/2 is not samples K/2... of the "
-                             "draw at 0")
-            print(f"  the draw at first_sample {half} is samples {half}... of the draw at 0, "
-                  f"bit for bit: {overlap}", flush=True)
-    max_abs_err["philox_normals"] = draws["flagship"]["max_abs_err"]
-    record["draws"] = draws
-    # the fused kernel fed the eager draw is its own RNG mode, bit for bit
-    fed = {}
-    for preset in PRESET_MODELS:
-        s = kernel_case(preset, K_MAIN, T_MAIN, seed=31)
-        u_dim = s["u_prev"].shape[1]
-        mkw = dict(num_samples=K_MAIN, model=s["model"])
-        own = fused_sample_rollout_cost(*s["kargs"], seed=SEED_31, step=STEP_31, **mkw)
-        noise = draw_fn(key_of(SEED_31, STEP_31), num_samples=K_MAIN, tm1=T_MAIN - 1,
-                        u_dim=u_dim)[0]
-        given = fused_sample_rollout_cost(*s["kargs"], seed=None, step=None, noise=noise,
-                                          **mkw)
-        torch.cuda.synchronize()
-        bit = all(bool(torch.equal(a, b)) for a, b in zip(own, given))
-        fed[s["model"]] = bit
-        print(f"[31 fused] {s['model']} K={K_MAIN} T={T_MAIN}: the fused kernel fed the "
-              f"eager draw bit-equal to its RNG mode (costs, u_num, norm) {bit}", flush=True)
-        require(bit, f"[31] {s['model']}: the eager draw is not the fused kernel's own")
-        counters_zero(f"[31] fused {s['model']}")
-    record["fused_fed_draw_bit_equal"] = fed
-    summary = build.ptxas_summary(build_log or "")
-    fused_regs = {f"{m} m2={int(m2)} {f}": p["registers"]
-                  for (m, m2, f), p in instantiations(summary).items()}
-    unchanged = all(p["registers"] == REGISTERS[m, f]
-                    for (m, _, f), p in instantiations(summary).items())
-    draw_ptx = next((p for n, p in summary.items() if "philox_normals_kernel" in n), None)
-    require(not build_log or (len(fused_regs) == 16 and unchanged and draw_ptx is not None),
-            f"[31] ptxas: fused {fused_regs}, draw {draw_ptx}")
-    record["ptxas"] = {"draw": draw_ptx, "fused_registers": fused_regs,
-                       "fused_unchanged": unchanged if build_log else "library reused"}
-    print(f"[31 ptxas] philox_normals_kernel: {draw_ptx}; the fused kernel's "
-          f"{len(fused_regs)} instantiations' registers equal REGISTERS (unchanged): "
-          f"{unchanged if build_log else 'not rebuilt here'}", flush=True)
+    record.update(draw_checks(dev, build_log, max_abs_err, counters_zero))
 
     # (b) eager RNG mode against kernel RNG mode -------------------------------
     arms_err = {}
@@ -1363,6 +1479,12 @@ def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_ze
     arms["draw/plain"] = (lambda: philox_normals(dkey[0], dkey[1], K_MAIN, T_MAIN - 1, 5,
                                                  device=dev), 3)
     arms["draw/randn"] = (lambda: torch.randn((T_MAIN - 1, K_MAIN, 5), device=dev), 50)
+    # meta_train's step draw: a replay of one graph of 50 launches (the
+    # host's enqueue of one launch takes longer than the kernel)
+    mb, mtm1, mk, mu = META_DRAW
+    arms["draw_graph50/meta_train"] = (graph_replay(functools.partial(
+        draw_fn, dkey, num_samples=mk, tm1=mtm1, u_dim=mu, robots=mb), 50), 1)
+    per["draw_graph50"] = 50
     host = {name: [] for name in arms}
     kl = {name: [0, 0] for name in arms}
 
@@ -1436,8 +1558,10 @@ def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_ze
               flush=True)
     print(f"  draw kernel {timing['draw/kernel']['ms']:.4f} ms against its bound "
           f"{philox_bound()[0]:.4f} ms; torch.randn of the same shape "
-          f"{timing['draw/randn']['ms']:.4f} ms (a different stream: a yardstick only)",
-          flush=True)
+          f"{timing['draw/randn']['ms']:.4f} ms (a different stream: a yardstick only); at "
+          f"meta_train's (64, 7, 64, 2) {timing['draw_graph50/meta_train']['ms']:.4f} ms "
+          f"(a graph's replay of 50 launches) against "
+          f"{philox_bound(*META_DRAW)[0]:.4f} ms", flush=True)
     print("  host us of a graphed eager update: " + ", ".join(
         f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in record["host_split_us_eager_update"].items()), flush=True)
@@ -1450,12 +1574,12 @@ def phase_31(dev, card, build_log, launches, max_abs_err, times_out, counters_ze
     return record
 
 
-def philox_bound():
-    """The flagship draw's bound: kernels/rollout_cost.py
-    philox_normals_bound_ms at (T-1, K, U) = (T_MAIN-1, K_MAIN, 5)."""
+def philox_bound(robots=1, tm1=T_MAIN - 1, k=K_MAIN, u_dim=5):
+    """A draw's bound: kernels/rollout_cost.py philox_normals_bound_ms, by
+    default at the flagship (B, T-1, K, U) = (1, T_MAIN-1, K_MAIN, 5)."""
     from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import philox_normals_bound_ms
 
-    return philox_normals_bound_ms(K_MAIN, T_MAIN - 1, 5)
+    return philox_normals_bound_ms(k, tm1, u_dim, robots)
 
 
 # phase 32: the three cells of tests/test_quality_matrix.py at --quick,
@@ -4075,6 +4199,9 @@ def main():
                  med31["draw/kernel"], med31["draw/plain"], philox_bound(),
                  replaces=REPLACES_DRAW)
     draw["randn_ms_yardstick"] = med31["draw/randn"]
+    # meta_train's step draw, (B, T-1, K, U) = (64, 7, 64, 2)
+    draw["meta_train_ms"] = med31["draw_graph50/meta_train"]
+    draw["meta_train_bound_ms"] = philox_bound(*META_DRAW)[0]
     kernels.append(draw)
     # phase 32's, 33's and 34's runs, each counted from 0 just before it (phase
     # 34: the graphed sharded 200-cycle loop over NCCL)

@@ -8,10 +8,15 @@ finish runs as PyTorch ops and one whose kernel finishes the update itself
 time the same work. Four arms time whole updates instead, full_body and
 diff_drive at the flagship: the eager-lean ``mppi_step`` (no kernel, 10
 calls a repetition), and for full_body the kernel-lean one (20 calls) and
-the kernel-lean one refined by three Gauss-Newton steps (3 calls). CUDA
-events over 50 calls unless stated, median of 9 repetitions. The
-operands and the timing loop are chip_smoke.py's (kernel_case,
-time_interleaved).
+the kernel-lean one refined by three Gauss-Newton steps (3 calls). The
+draw arms time the eager arm's draw kernel (``philox_normals_cuda``, the
+key on the card), a replay of a CUDA graph of 50 draws each, at (B, T-1,
+K, U) = (1, 29, 102400, 5) (the flagship), (1, 29, 102400, 3), (256, 14,
+1024, 2) (the fleet) and (64, 7, 64, 2) (meta_train's step), and
+``torch.randn`` of the flagship's shape the same way, a different stream:
+a yardstick only. An arm a checkout cannot run is reported absent. CUDA
+events over 50 calls unless stated, median of 9 repetitions. The operands
+and the timing loop are chip_smoke.py's (kernel_case, time_interleaved).
 
     python3 scripts/torch_kernel_ab.py sweep [--out FILE]
         every form and block size of the launch shape at each shape, each
@@ -24,12 +29,17 @@ time_interleaved).
     python3 scripts/torch_kernel_ab.py ab PARENT CHANGE
         the arms of two checkouts in turns (parent, change, change, parent),
         one process each, on one card
+    python3 scripts/torch_kernel_ab.py sass
+        each draw instantiation's SASS hot path (cuobjdump) and the issue
+        floor it sets at the draw arms' shapes
 
 Prints the card's name and power limit beside the numbers.
 """
 
 import argparse
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +94,42 @@ def update_arm(preset, use_kernel, **opts):
                                 c["cp"], model_params=c["mp"], use_kernel=use_kernel,
                                 lean=True, **opts)
     return c["model"], fn
+
+
+# the draw arms: name -> (B, T-1, K, U)
+DRAW_ARMS = {
+    "draw/flagship": (1, smoke.T_MAIN - 1, smoke.K_MAIN, 5),
+    "draw/u3": (1, smoke.T_MAIN - 1, smoke.K_MAIN, 3),
+    "draw/fleet": (smoke.B_FLEET, smoke.T_FLEET - 1, smoke.K_FLEET, 2),
+    "draw/meta_train": smoke.META_DRAW,
+}
+
+
+def draw_arms():
+    """({name: replay}, {name: why absent}): a replay of one CUDA graph of
+    INNER draws (chip_smoke.graph_replay: device time, no host enqueue) at
+    each DRAW_ARMS shape, the key on the card (an arm whose capture raises
+    is absent), and ``draw/randn``, INNER torch.randn of the flagship's
+    shape."""
+    import torch
+
+    arms, absent = {}, {}
+    try:
+        from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import philox_normals_cuda
+    except ImportError as e:
+        return arms, {name: f"ImportError: {e}" for name in DRAW_ARMS}
+    key = torch.tensor([1, 2], dtype=torch.int64, device="cuda")
+    for name, (b, tm1, k, u_dim) in DRAW_ARMS.items():
+        fn = functools.partial(philox_normals_cuda, key, num_samples=k, tm1=tm1,
+                               u_dim=u_dim, robots=b)
+        try:
+            arms[name] = smoke.graph_replay(fn, INNER)
+        except (RuntimeError, ValueError, TypeError) as e:
+            absent[name] = f"{type(e).__name__}: {e}"
+    b, tm1, k, u_dim = DRAW_ARMS["draw/flagship"]
+    arms["draw/randn"] = smoke.graph_replay(
+        lambda: torch.randn((tm1, k, u_dim), device="cuda"), INNER)
+    return arms, absent
 
 
 def build_arms():
@@ -157,10 +203,14 @@ def cmd_arms(repo):
 
     import ccv_mppi_path_tracker_tpu_torch as port
 
-    res = time_arms(build_arms())
+    arms = build_arms()
+    draws, absent = draw_arms()
+    res = time_arms({**arms, **{name: (replay, 1) for name, replay in draws.items()}})
+    for name in draws:  # a replay is INNER draws
+        res[name] = tuple(v / INNER for v in res[name])
     print(json.dumps({"repo": str(Path(port.__file__).resolve().parents[1]),
                       "device": torch.cuda.get_device_name(0), "card": card(),
-                      "ms": res, "host_us": host_us()}), flush=True)
+                      "ms": res, "absent": absent, "host_us": host_us()}), flush=True)
 
 
 def cmd_ab(parent, change):
@@ -176,17 +226,85 @@ def cmd_ab(parent, change):
         runs.append((label, json.loads(line)))
         print(f"[{label}] {line}", flush=True)
     print(f"parent, change, change, parent on {runs[0][1]['card']}; median ms of "
-          f"{REPS} reps of {INNER} calls (a kernel and its finish) or of 3-20 updates:")
-    for name in runs[0][1]["ms"]:
-        cells = [f"{r['ms'][name][0]:.4f}" for _, r in runs]
-        p = (runs[0][1]["ms"][name][0] + runs[3][1]["ms"][name][0]) / 2
-        c = (runs[1][1]["ms"][name][0] + runs[2][1]["ms"][name][0]) / 2
-        print(f"  {name}: {', '.join(cells)}; change/parent {c / p:.4f}")
+          f"{REPS} reps of {INNER} calls (a kernel and its finish, a draw) or of 3-20 "
+          f"updates:")
+    names = list(dict.fromkeys(n for _, r in runs for n in r["ms"]))
+    for name in names:
+        cells = [f"{r['ms'][name][0]:.4f}" if name in r["ms"] else "absent"
+                 for _, r in runs]
+        ratio = "no ratio: an arm is absent"
+        if all(name in r["ms"] for _, r in runs):
+            p = (runs[0][1]["ms"][name][0] + runs[3][1]["ms"][name][0]) / 2
+            c = (runs[1][1]["ms"][name][0] + runs[2][1]["ms"][name][0]) / 2
+            ratio = f"change/parent {c / p:.4f}"
+        print(f"  {name}: {', '.join(cells)}; {ratio}")
+    for label, r in runs:
+        for name, why in r.get("absent", {}).items():
+            print(f"  absent in the {label} run: {name} ({why})")
     print(f"host clock per fused_sample_rollout_cost call, median us of {REPS} reps x "
           f"{INNER} calls:")
     for name in runs[0][1]["host_us"]:
         cells = [f"{r['host_us'][name]:.1f}" for _, r in runs]
         print(f"  {name}: {', '.join(cells)}")
+
+
+def hot_path(sass_fn):
+    """The SASS instructions of one kernel (cuobjdump -sass text) that a
+    thread runs when no slow path is taken: those up to the last EXIT, less
+    each span that a forward predicated branch skips where the span is short
+    (under 120) and holds local memory, a double or a call (the libm slow
+    paths: sinf/cosf's Payne-Hanek reduction, sqrtf's rare case). An
+    estimate: a loop's body counts once."""
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for line in sass_fn.splitlines()
+           for m in [re.search(r"/\*([0-9a-f]{4})\*/\s+(.*?);", line)] if m]
+    skip = set()
+    for addr, op in ins:
+        m = re.match(r"@!?P\d\s*BRA\s+(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) > addr:
+            span = [(a, o) for a, o in ins if addr < a < int(m.group(1), 16)]
+            if len(span) < 120 and any(re.search(r"\b(LDL|STL|DMUL|CALL)\b", o)
+                                       for _, o in span):
+                skip.update(a for a, _ in span)
+    last = max(a for a, o in ins if re.search(r"\bEXIT\b", o))
+    return len(ins), sum(1 for a, _ in ins if a <= last and a not in skip)
+
+
+def cmd_sass():
+    """Each draw instantiation's SASS count and hot path (:func:`hot_path`),
+    and at each DRAW_ARMS shape the issue floor, ceil(rows / 32) warps times
+    the hot path over 4 warp instructions a clock on every SM at the card's
+    maximum SM clock, beside the bound of philox_normals_bound_ms."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        philox_draw_geometry,
+        philox_normals_bound_ms,
+    )
+
+    path, _, _ = build.build("rollout_cost")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    hot = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*philox_normals_kernelILi(\d+)ELb([01])E", chunk)
+        if m:
+            key = (int(m.group(1)), m.group(2) == "1")
+            hot[key] = hot_path(chunk)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smoke.nvidia_smi("clocks.max.sm").split()[0])
+    print(f"{card()}; {sms} SMs, maximum SM clock {mhz:.0f} MHz")
+    for (u_dim, wide), (n, h) in sorted(hot.items()):
+        print(f"  philox_normals_kernel<{u_dim}, {str(wide).lower()}>: {n} SASS "
+              f"instructions, {h} on the hot path")
+    for name, (b, tm1, k, u_dim) in DRAW_ARMS.items():
+        geo = philox_draw_geometry(b, tm1, k, u_dim)
+        warps = -(-geo.rows // 32)
+        floor = warps * hot[geo.unrolled_u, bool(geo.wide)][1] / (4 * sms * mhz * 1e6) * 1e3
+        bound, which = philox_normals_bound_ms(k, tm1, u_dim, b)
+        print(f"  {name} (B, T-1, K, U) = {(b, tm1, k, u_dim)}: issue floor {floor:.4f} ms; "
+              f"bound {bound:.4f} ms ({which})")
 
 
 def cmd_sweep(out):
@@ -297,6 +415,7 @@ def main():
     b = sub.add_parser("ab")
     b.add_argument("parent")
     b.add_argument("change")
+    sub.add_parser("sass")
     args = ap.parse_args()
     import torch
 
@@ -308,6 +427,8 @@ def main():
         cmd_sweep(args.out)
     elif args.cmd == "arms":
         cmd_arms(args.repo)
+    elif args.cmd == "sass":
+        cmd_sass()
     else:
         cmd_ab(args.parent, args.change)
     return 0
