@@ -75,7 +75,8 @@ def should_use_kernel(model: str, device) -> bool:
 # Izz, gravity_z, noise_beta, lam, cost_thresh]
 NSCAL = 18
 
-# gridDim.y of the fleet grid
+# gridDim.y of one launch's fleet grid: a larger fleet is split into launches
+# of at most this many robots (fleet_chunks)
 MAX_ROBOTS = 65535
 
 # --- the H100 SXM (sm_90), for the launch-shape model ---
@@ -541,8 +542,8 @@ def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
         raise ValueError(f"u_prev must be (T-1, {u_dim}) or (B, T-1, {u_dim}), got "
                          f"{tuple(u_prev.shape)}")
     lead = tuple(u_prev.shape[:-2])  # () or (B,): the fleet's robot axis
-    if lead and not 1 <= lead[0] <= MAX_ROBOTS:
-        raise ValueError(f"a fleet has 1 to {MAX_ROBOTS} robots, got {lead[0]}")
+    if lead and lead[0] < 1:
+        raise ValueError(f"a fleet has at least 1 robot, got {lead[0]}")
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     if costs_in is not None and not accumulate:
@@ -657,14 +658,30 @@ def _counters(device, stream: int, length: int):
     return buf
 
 
+def fleet_chunks(num_robots: int):
+    """[(start, count)]: the launches a fleet of ``num_robots`` robots takes,
+    in robot order, each of at most MAX_ROBOTS robots (gridDim.y). The
+    launch of robots start ... start+count-1 passes ``robot + start`` as the
+    kernel's first robot, so robot b draws the stream of robot index
+    ``robot + b`` whichever launch holds it, as a launch of robot b alone
+    does."""
+    if num_robots < 1:
+        raise ValueError(f"a fleet has at least 1 robot, got {num_robots}")
+    return [(s, min(MAX_ROBOTS, num_robots - s)) for s in range(0, num_robots, MAX_ROBOTS)]
+
+
 class KernelLaunch:
     """One kernel launch with its operands prepared on the device: the
     padded centered reference rows (:func:`pad_ref_rows`), the start state
     translated by -c (per robot in a fleet, in one batched pass), the noise
     transposed to a contiguous (..., T-1, U, K), the launch shape
     (:func:`launch_shape`; ``form`` and ``threads`` override it), and the
-    outputs. :meth:`run` launches on the current stream and raises on a
-    launch error; :meth:`finish` returns the update the kernel finished."""
+    outputs. A fleet of more than MAX_ROBOTS robots is launched in the
+    chunks of :func:`fleet_chunks`, each on its robots' contiguous rows of
+    the same operands, outputs and tickets (``calls``: the launches one
+    :meth:`run` makes). :meth:`run` launches on the current stream and
+    raises on a launch error; :meth:`finish` returns the update the kernel
+    finished."""
 
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
                  step, num_samples, model, steer_off=False, noise=None,
@@ -714,42 +731,57 @@ class KernelLaunch:
         self.key = key
         self.device = dev
 
-        def ptr(t):
-            return None if t is None else t.data_ptr()
+        def ptr(t, start, count):
+            """The address of robots start ... start+count-1 of a fleet
+            operand (of the whole tensor for one robot)."""
+            if t is None:
+                return None
+            return (t[start:start + count] if self.lead else t).data_ptr()
 
-        self._head = (
-            KERNEL_MODELS.index(model), int(self.shape.form == "store"),
-            u_prev.data_ptr(), sigma.data_ptr(), u_min.data_ptr(), u_max.data_ptr(),
-            refc.data_ptr(), s0.data_ptr(), scal.data_ptr(), ptr(noise_t),
-            ptr(costs_in), None if costs_in is not None else self.costs.data_ptr(),
-            ptr(rows),
-        )
-        self._tail = (
-            ptr(self.u_num), ptr(self.norm), ptr(self.u2_num), num_samples,
-            self.tm1 + 1, refc.shape[-2], (seed or 0) & 0xFFFFFFFF,
-            (step or 0) & 0xFFFFFFFF,
-            robot & 0xFFFFFFFF, first_sample & 0xFFFFFFFF, int(steer_off),
-            int(accumulate), steer_max, rate_max,
-            self.num_robots, int(m2), self.shape.threads,
-        )
+        model_id, store = KERNEL_MODELS.index(model), int(self.shape.form == "store")
+        per_robot = groups + 1
+        # one C call a chunk of the fleet: (head, tail, its first ticket)
+        self._calls = []
+        for start, count in fleet_chunks(self.num_robots) if self.lead else [(0, 1)]:
+            at = (start, count)
+            head = (
+                model_id, store, ptr(u_prev, *at), sigma.data_ptr(), u_min.data_ptr(),
+                u_max.data_ptr(), ptr(refc, *at), ptr(s0, *at), ptr(scal, *at),
+                ptr(noise_t, *at), ptr(costs_in, *at),
+                None if costs_in is not None else ptr(self.costs, *at), ptr(rows, *at),
+            )
+            tail = (
+                ptr(self.u_num, *at), ptr(self.norm, *at), ptr(self.u2_num, *at),
+                num_samples, self.tm1 + 1, refc.shape[-2], (seed or 0) & 0xFFFFFFFF,
+                (step or 0) & 0xFFFFFFFF, (robot + start) & 0xFFFFFFFF,
+                first_sample & 0xFFFFFFFF, int(steer_off), int(accumulate), steer_max,
+                rate_max, count, int(m2), self.shape.threads,
+            )
+            self._calls.append((head, tail, start * per_robot))
+
+    @property
+    def calls(self) -> int:
+        """The kernel launches one :meth:`run` makes."""
+        return len(self._calls)
 
     def run(self):
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            counters = None
+            tickets = None
             if self.accumulate:
                 if torch.cuda.is_current_stream_capturing():
                     tickets = torch.zeros(self.num_counters, dtype=torch.int32,
                                           device=self.device)
                 else:
                     tickets = _counters(self.device, stream, self.num_counters)
-                counters = tickets.data_ptr()
-            err = self.lib.rollout_cost(*self._head, counters,
-                                        None if self.key is None else self.key.data_ptr(),
-                                        *self._tail, stream)
-        if err != 0:
-            msg = self.lib.rollout_cost_error_string(err).decode()
-            raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
+            key = None if self.key is None else self.key.data_ptr()
+            for head, tail, first_ticket in self._calls:
+                # each chunk takes its robots' own tickets of the one buffer
+                counters = None if tickets is None else tickets[first_ticket:].data_ptr()
+                err = self.lib.rollout_cost(*head, counters, key, *tail, stream)
+                if err != 0:
+                    msg = self.lib.rollout_cost_error_string(err).decode()
+                    raise RuntimeError(f"rollout_cost kernel launch failed: {msg} ({err})")
 
     def finish(self):
         """(u_num, norm[, u2_num]) per robot, as the kernel's last block of
@@ -787,7 +819,9 @@ def fused_sample_rollout_cost(
     (T-1, K, U), the layout of ``sample_controls``. All float32 on one
     device; U and S are the registered model's.
 
-    Fleet: a 3-D u_prev (B, T-1, U) runs B robots in one launch. Then ref_xy
+    Fleet: a 3-D u_prev (B, T-1, U) runs B robots in one launch, or in
+    ceil(B / MAX_ROBOTS) launches of at most MAX_ROBOTS robots each
+    (:func:`fleet_chunks`), each launch counted. Then ref_xy
     is (B, R, 2), state0 (B, S), scal (B, NSCAL), noise (B, T-1, K, U) and
     costs_in (B, K); sigma, u_min and u_max are shared. Robot b draws the
     RNG stream of robot index ``robot + b``, and each robot's update is
@@ -817,7 +851,7 @@ def fused_sample_rollout_cost(
         raise ValueError(f"no fused kernel for device {u_prev.device}")
     launch = KernelLaunch(*args)
     launch.run()
-    fused_sample_rollout_cost.launches += 1
+    fused_sample_rollout_cost.launches += launch.calls
     return (launch.costs,) + launch.finish()
 
 
@@ -921,8 +955,6 @@ def philox_normals_cuda(key: Optional[torch.Tensor] = None, seed: Optional[int] 
     _check_key(key, seed, step, device)
     if device.type != "cuda":
         raise ValueError(f"philox_normals_cuda runs on a CUDA device, not {device}")
-    if not 1 <= robots <= MAX_ROBOTS:
-        raise ValueError(f"no draw of robots={robots} T-1={tm1} K={num_samples} U={u_dim}")
     geo = philox_draw_geometry(robots, tm1, num_samples, u_dim)
     lib = _bind(load_library("rollout_cost"))
     out = torch.empty((robots, tm1, num_samples, u_dim), dtype=torch.float32, device=device)

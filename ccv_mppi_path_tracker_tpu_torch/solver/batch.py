@@ -13,7 +13,8 @@ card, the JAX package's production serving shape.
   cannot run inside ``vmap``): robot b's are the kernel's Philox stream at
   counter word 3 = b, robot 0's the single-robot stream.
 - Kernel arm: one launch of the fused kernel for all B robots (grid B x K
-  blocks) between batched glue: the references (``resample_references``),
+  blocks; past 65535 robots, one launch a chunk of at most 65535 at its
+  robot offset) between batched glue: the references (``resample_references``),
   the scalars (``pack_scalars``) and the per-robot finish, with no loop over
   robots. Robot b draws the same Philox stream as on the eager arm.
 
@@ -138,7 +139,9 @@ def _eager_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
 
 
 def _kernel_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
-    """The kernel branch of mppi_step for B robots in one launch."""
+    """The kernel branch of mppi_step for B robots in one launch (a chunk
+    of at most 65535 robots a launch: kernels/rollout_cost.py
+    fleet_chunks)."""
     ref = resample_references(path, states[:, :2], cp.v_ref, dt, cfg.horizon)
     scal = pack_scalars(dt, cp, ref.yaw[:, 0], model_params, sp.noise_beta, sp.lam)
     costs, u_num, norm = fused_sample_rollout_cost(

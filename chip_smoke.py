@@ -221,6 +221,16 @@ failure ending the run with a non-zero exit:
      m); the fleet command's plant captured once (its RMSE line phase 14's);
      scripts/torch_make_figures.py's runs (the ten PNGs where matplotlib is
      installed; the runs are kept in build/figure_runs_torch.npz).
+ 35. fleets past 65535 robots (kernels/rollout_cost.py fleet_chunks): the
+     kernel arm at B = 131071 (unicycle K=64 T=10, RNG mode) in three
+     launches at their robot offsets, called eagerly and as the fleet tick's
+     replay: robots 0, 65534, 65535, 65536, 131070 bit-equal to their own
+     launches at robot=b, the fleet within the kernel gate of the plain
+     version, three launches a tick, the tick's ms beside the B = 65535
+     tick's; the eager arm at B = 65536 (its draw's robot 65535 bit-equal to
+     the draw of robot 65535 alone); scripts/torch_eager_breakdown.py
+     --quick and scripts/torch_kernel_ab.py sass (both kernels' issue
+     floors), each in a process of its own.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -230,12 +240,13 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
 phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
-phase 34 with {"sharded_programs": ...}.
+phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
-phase 32, 33 or 34 launched it, ``launches_phase_32``, ``_33`` or ``_34``,
-each of its runs' count), the card's name and power limit
+phase 32, 33, 34 or 35 launched it, ``launches_phase_32``, ``_33``, ``_34``
+or ``_35``, each of its runs' count; the unicycle fleet's entry also the
+split tick's ms), the card's name and power limit
 as nvidia-smi prints them, and {"ok": true, "device": {...}}. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -2458,6 +2469,185 @@ def phase_34(dev, card, fleet_lines, counters_zero):
     return record, launches
 
 
+B_SPLIT = 2 * 65535 + 1          # phase 35: a fleet of three launches
+B_SPLIT_ONE = 65535              # ... against the largest fleet of one launch
+K_SPLIT, T_SPLIT = 64, 10
+SPLIT_ROBOTS = (0, 65534, 65535, 65536, 131070)   # robots held against their own launches
+B_EAGER_SPLIT = 65536            # phase 35: the eager arm past one launch's robots
+SPLIT_TICKS = 10                 # phase 35: ticks a repetition of the timing
+
+
+def phase_35(dev, card, counters_zero):
+    """Phase 35: fleets past 65535 robots, and the two measuring twins'
+    quick forms. (a) The kernel arm's fleet tick at B = 131071 (unicycle,
+    K=64, T=10, RNG mode, the key on the card), split into three launches
+    at their robot offsets (kernels/rollout_cost.py fleet_chunks): the
+    wrapper called eagerly, and build_fleet_step's tick as a graph's
+    replay; robots SPLIT_ROBOTS bit-equal to launches of each robot alone
+    at robot=b, the whole fleet against the plain version at the kernel
+    gate, three launches a tick, the replay bit-equal to the tick's eager
+    run, and the replayed tick's ms beside the B = 65535 tick's (one
+    launch). (b) The eager arm at B = 65536 (K=64, T=10): its fleet tick
+    finite with one draw, the draw's robot 65535 bit-equal to
+    philox_normals_cuda(robot_base=65535) alone. (c) scripts/
+    torch_eager_breakdown.py --quick and scripts/torch_kernel_ab.py sass,
+    each in a process of its own. Returns (its record, {kernel name:
+    launches of the replayed B = 131071 tick})."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core.types import make_key
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        MAX_ROBOTS,
+        fleet_chunks,
+        fused_sample_rollout_cost,
+        fused_sample_rollout_cost_reference,
+        pack_scalars,
+        philox_normals_cuda,
+    )
+    from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
+    from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, init_fleet
+
+    record = {}
+    t_phase = time.perf_counter()
+    kernel_fn = fused_sample_rollout_cost
+    require(len(fleet_chunks(B_SPLIT)) == 3 and MAX_ROBOTS == B_SPLIT_ONE,
+            f"[35] {B_SPLIT} robots are {fleet_chunks(B_SPLIT)}")
+
+    # (a) the kernel arm's split launch, called eagerly ---------------------------
+    c = kernel_case("diff_drive", K_SPLIT, T_SPLIT, robots=B_SPLIT, seed=35, device=dev)
+    model, kargs = c["model"], c["kargs"]
+    key = make_key(35, 4, dev)
+    kw = dict(seed=None, step=None, num_samples=K_SPLIT, model=model, key=key)
+    kernel_fn.launches = 0
+    costs, u_num, norm = kernel_fn(*kargs, **kw)
+    torch.cuda.synchronize()
+    eager_launches = kernel_fn.launches
+    require(eager_launches == 3, f"[35] a {B_SPLIT}-robot launch made {eager_launches} "
+            f"kernel launches, not 3")
+    counters_zero("[35] split launch")
+    u_prev, sigma, u_min, u_max, ref_xy, state0, scal = kargs
+    for b in SPLIT_ROBOTS:
+        one = kernel_fn(u_prev[b], sigma, u_min, u_max, ref_xy[b], state0[b], scal[b],
+                        robot=b, **kw)
+        same = all(torch.equal(x[b], y) for x, y in zip((costs, u_num, norm), one))
+        require(same, f"[35] robot {b} of the {B_SPLIT}-robot launch differs from its "
+                f"own launch at robot={b}")
+    kernel_fn.launches = 0
+    plain = fused_sample_rollout_cost_reference(*kargs, **kw)
+    torch.cuda.synchronize()
+    cost_rel = float(((costs - plain[0]).abs() / plain[0].abs()).max())
+    u_k, u_r = u_num / norm[:, None, None], plain[1] / plain[2][:, None, None]
+    u_err, bound = float((u_k - u_r).abs().max()), u_bound(u_r)
+    require(bool(torch.isfinite(u_k).all()) and cost_rel <= COST_RTOL and u_err <= bound,
+            f"[35] the split launch against the plain version: costs {cost_rel}, u_opt "
+            f"{u_err} (bound {bound})")
+    print(f"[35 split] unicycle fleet B={B_SPLIT} K={K_SPLIT} T={T_SPLIT} RNG mode, key on "
+          f"the card: {eager_launches} launches of {[n for _, n in fleet_chunks(B_SPLIT)]} "
+          f"robots; robots {SPLIT_ROBOTS} bit-equal to their own launches at robot=b; "
+          f"against the plain version costs max rel err {cost_rel:.3e} (rtol {COST_RTOL}), "
+          f"u_opt max abs err {u_err:.3e} (bound {bound:.3e})", flush=True)
+    record["split_launch"] = dict(robots=B_SPLIT, launches=eager_launches,
+                                  cost_rel_err=cost_rel, u_opt_err=u_err,
+                                  bit_equal_robots=list(SPLIT_ROBOTS))
+    del plain
+
+    # (a) the graphed fleet tick --------------------------------------------------
+    cfg, sp, cp, path, dt = c["cfg"], c["sp"], c["cp"], c["path"], c["dt"]
+    ticks, ctrls0 = {}, {}
+    for b_fleet in (B_SPLIT, B_SPLIT_ONE):
+        ticks[b_fleet] = build_fleet_step(cfg, use_kernel=True)
+        ctrls0[b_fleet] = init_fleet(cfg, b_fleet, seed=35, device=dev)
+    states = c["state"]
+    _, first = ticks[B_SPLIT](ctrls0[B_SPLIT], states, path, dt, sp, cp)
+    first_u = first.u_opt.clone()
+    counters_zero("[35] tick capture")
+    kernel_fn.launches = 0
+    _, res = ticks[B_SPLIT](ctrls0[B_SPLIT], states, path, dt, sp, cp)
+    torch.cuda.synchronize()
+    tick_launches = kernel_fn.launches
+    require(tick_launches == 3 and ticks[B_SPLIT].graphed.captures == 1,
+            f"[35] the replayed {B_SPLIT}-robot tick made {tick_launches} launches, "
+            f"{ticks[B_SPLIT].graphed.captures} captures")
+    require(torch.equal(res.u_opt, first_u), "[35] the replayed tick differs from its "
+            "eager run")
+    counters_zero("[35] tick replay")
+    tick_key = ctrls0[B_SPLIT].key
+    for b in SPLIT_ROBOTS:
+        sc = pack_scalars(dt, cp, res.ref.yaw[b, 0], None, sp.noise_beta, sp.lam)
+        _, un, nm = kernel_fn(ctrls0[B_SPLIT].u_prev[b], sigma, u_min, u_max,
+                              res.ref.xy[b], states[b], sc, None, None, K_SPLIT, model,
+                              robot=b, key=tick_key)
+        require(torch.equal(res.u_opt[b], un / nm), f"[35] robot {b} of the replayed "
+                f"tick differs from its own launch at robot={b}")
+    print(f"[35 split tick] build_fleet_step(use_kernel=True) B={B_SPLIT}: one capture, "
+          f"{tick_launches} launches a replayed tick, the replay bit-equal to the tick's "
+          f"eager run, robots {SPLIT_ROBOTS} bit-equal to their own launches", flush=True)
+    ticks[B_SPLIT_ONE](ctrls0[B_SPLIT_ONE], states[:B_SPLIT_ONE], path, dt, sp, cp)
+    arms = {f"tick/B{b_fleet}": (functools.partial(
+        ticks[b_fleet], ctrls0[b_fleet], states[:b_fleet], path, dt, sp, cp), SPLIT_TICKS)
+        for b_fleet in (B_SPLIT, B_SPLIT_ONE)}
+    times = time_interleaved(arms, 5)
+    tick_ms = {name: statistics.median(v) for name, v in times.items()}
+    print(f"[35 split tick] graphed tick ms (median of 5 x {SPLIT_TICKS}, in turns) on "
+          f"{card}: B={B_SPLIT} (3 launches) {tick_ms[f'tick/B{B_SPLIT}']:.4f}, "
+          f"B={B_SPLIT_ONE} (1 launch) {tick_ms[f'tick/B{B_SPLIT_ONE}']:.4f}", flush=True)
+    record["tick"] = dict(launches=tick_launches, ms=tick_ms)
+    counters_zero("[35] tick timing")
+    del ticks, arms, c, costs, u_num, norm, res, first
+    torch.cuda.empty_cache()
+
+    # (b) the eager arm past one launch's robots ------------------------------------
+    e = kernel_case("diff_drive", K_SPLIT, T_SPLIT, robots=B_EAGER_SPLIT, seed=36, device=dev)
+    etick = build_fleet_step(e["cfg"], use_kernel=False)
+    ectrls = init_fleet(e["cfg"], B_EAGER_SPLIT, seed=36, device=dev)
+    eargs = (ectrls, e["state"], e["path"], e["dt"], e["sp"], e["cp"])
+    etick(*eargs)
+    philox_normals_cuda.launches = kernel_fn.launches = 0
+    _, eres = etick(*eargs)
+    torch.cuda.synchronize()
+    draws = philox_normals_cuda.launches
+    require(bool(torch.isfinite(eres.u_opt).all()) and kernel_fn.launches == 0
+            and draws == 1 and etick.graphed.captures == 1,
+            f"[35] the replayed eager tick at B={B_EAGER_SPLIT}: {draws} draws, "
+            f"{etick.graphed.captures} captures")
+    shape = (B_EAGER_SPLIT, T_SPLIT - 1, K_SPLIT, 2)
+    fleet_draw = draw_standard_normals(ectrls.key, None, None, shape, device=dev)
+    alone = philox_normals_cuda(ectrls.key, num_samples=K_SPLIT, tm1=T_SPLIT - 1, u_dim=2,
+                                robot_base=B_EAGER_SPLIT - 1)
+    require(torch.equal(fleet_draw[-1], alone[0]), f"[35] robot {B_EAGER_SPLIT - 1} of the "
+            f"eager draw differs from its draw alone")
+    print(f"[35 eager] build_fleet_step(use_kernel=False) B={B_EAGER_SPLIT} K={K_SPLIT} "
+          f"T={T_SPLIT}: one capture, a replay u_opt finite with {draws} draw launch and "
+          f"no fused launch; the draw's robot {B_EAGER_SPLIT - 1} bit-equal to "
+          f"philox_normals_cuda(robot_base={B_EAGER_SPLIT - 1}) alone "
+          f"({fleet_draw.numel() * 4 / 2**30:.2f} GiB of normals)", flush=True)
+    record["eager"] = dict(robots=B_EAGER_SPLIT, draws=draws)
+    del e, etick, eres, fleet_draw
+    torch.cuda.empty_cache()
+
+    # (c) the measuring twins' quick forms --------------------------------------------
+    for name, argv in (("eager_breakdown", ["scripts/torch_eager_breakdown.py", "--quick",
+                                            "--out", "build/eager_breakdown_quick.json"]),
+                       ("kernel_floor", ["scripts/torch_kernel_ab.py", "sass", "--out",
+                                         "build/kernel_floor_quick.json"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if not ln.startswith("{")]
+        print(f"[35 {name}] {' '.join(argv)}: rc {proc.returncode}, {wall:.1f} s", flush=True)
+        for ln in lines:
+            print(f"  {ln}", flush=True)
+        require(proc.returncode == 0, f"[35] {argv[0]} exited {proc.returncode}:\n"
+                f"{proc.stderr[-3000:]}")
+        record[name] = json.loads((ROOT / argv[-1]).read_text())
+        record[name + "_wall_s"] = wall
+    counters_zero("[35] twins")
+    record["seconds"] = time.perf_counter() - t_phase
+    print(f"[35] {record['seconds']:.1f} s", flush=True)
+    return record, {"rollout_cost_unicycle_fleet": tick_launches}
+
+
 def main():
     import numpy as np
     import torch
@@ -4122,6 +4312,10 @@ def main():
     sharded_programs, launches34 = phase_34(dev, card, fleet_lines, counters_zero)
     print(json.dumps({"sharded_programs": sharded_programs}), flush=True)
 
+    # --- 35. fleets past 65535 robots, the measuring twins' quick forms -----------
+    big_fleets, launches35 = phase_35(dev, card, counters_zero)
+    print(json.dumps({"big_fleets": big_fleets}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -4203,12 +4397,19 @@ def main():
     draw["meta_train_ms"] = med31["draw_graph50/meta_train"]
     draw["meta_train_bound_ms"] = philox_bound(*META_DRAW)[0]
     kernels.append(draw)
-    # phase 32's, 33's and 34's runs, each counted from 0 just before it (phase
-    # 34: the graphed sharded 200-cycle loop over NCCL)
+    # phase 32's, 33's, 34's and 35's runs, each counted from 0 just before it
+    # (phase 34: the graphed sharded 200-cycle loop over NCCL; phase 35: one
+    # replayed tick of a fleet of B_SPLIT robots, three launches)
     for k in kernels:
-        for phase, counts in ((32, launches32), (33, launches33), (34, launches34)):
+        for phase, counts in ((32, launches32), (33, launches33), (34, launches34),
+                              (35, launches35)):
             if k["name"] in counts:
                 k[f"launches_phase_{phase}"] = counts[k["name"]]
+    split = next(k for k in kernels if k["name"] == "rollout_cost_unicycle_fleet")
+    split.update(split_tick_robots=B_SPLIT,
+                 split_tick_ms=big_fleets["tick"]["ms"][f"tick/B{B_SPLIT}"],
+                 one_launch_tick_robots=B_SPLIT_ONE,
+                 one_launch_tick_ms=big_fleets["tick"]["ms"][f"tick/B{B_SPLIT_ONE}"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

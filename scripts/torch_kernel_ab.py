@@ -29,14 +29,26 @@ and the timing loop are chip_smoke.py's (kernel_case, time_interleaved).
     python3 scripts/torch_kernel_ab.py ab PARENT CHANGE
         the arms of two checkouts in turns (parent, change, change, parent),
         one process each, on one card
-    python3 scripts/torch_kernel_ab.py sass
-        each draw instantiation's SASS hot path (cuobjdump) and the issue
-        floor it sets at the draw arms' shapes
+    python3 scripts/torch_kernel_ab.py sass [--out FILE]
+        each kernel's SASS hot path (cuobjdump): the draw's instantiations
+        and the issue floor at the draw arms' shapes; the fused kernel's 16
+        instantiations with each loop weighted by its trips at the shape of
+        each of PERF.md section 6's rows, and the issue floor there beside
+        rollout_cost_bound_ms (the twin of scripts/roofline.py and
+        scripts/kernel_floor.py)
+    python3 scripts/torch_kernel_ab.py ablate [--out FILE]
+        the fused kernel ablated with its own modes, full_body at K=102400
+        T=30: RNG mode, noise input, no update, costs in, a short reference
+        window (the twin of scripts/kernel_ablation.py)
+
+sass and ablate write into FILE (default artifacts/kernel_floor_torch.json),
+each under its own key.
 
 Prints the card's name and power limit beside the numbers.
 """
 
 import argparse
+import bisect
 import functools
 import json
 import re
@@ -45,6 +57,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -248,63 +261,410 @@ def cmd_ab(parent, change):
         print(f"  {name}: {', '.join(cells)}")
 
 
-def hot_path(sass_fn):
-    """The SASS instructions of one kernel (cuobjdump -sass text) that a
-    thread runs when no slow path is taken: those up to the last EXIT, less
-    each span that a forward predicated branch skips where the span is short
-    (under 120) and holds local memory, a double or a call (the libm slow
-    paths: sinf/cosf's Payne-Hanek reduction, sqrtf's rare case). An
-    estimate: a loop's body counts once."""
-    ins = [(int(m.group(1), 16), m.group(2).strip()) for line in sass_fn.splitlines()
-           for m in [re.search(r"/\*([0-9a-f]{4})\*/\s+(.*?);", line)] if m]
+SLOW_PATH = re.compile(r"\b(LDL|STL|DMUL|CALL)\b")
+# the Philox multipliers 0xD2511F53 and 0xCD9E8D57 as SASS prints them
+PHILOX = re.compile(r"-0x(2daee0ad|326172a9)\b")
+# what an unrolled block of the reference scan holds (csrc path_d2: four
+# float4 rows loaded, two FMAs and a min each)
+SCAN_BLOCK = re.compile(r"^(@!?U?P\d+\s+)?(LDS\.128|FFMA|FMNMX|ISETP|BRA|ULEA|UIADD3|IADD3|"
+                        r"VIADD|MOV|IMAD\.MOV|UMOV|NOP)\b")
+
+
+def sass_instructions(sass_fn):
+    """[(address, instruction)] of one function's cuobjdump -sass text."""
+    return [(int(m.group(1), 16), m.group(2).strip()) for line in sass_fn.splitlines()
+            for m in [re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)] if m]
+
+
+def branch_target(op):
+    m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", op)
+    return int(m.group(1), 16) if m else None
+
+
+def skipped_spans(ins, also=None):
+    """The addresses that a forward predicated branch skips, where the span
+    is short (under 120) and holds local memory, a double or a call (the
+    libm slow paths: sinf/cosf's Payne-Hanek reduction, sqrtf's rare case),
+    or where ``also(span)`` says the measured arm does not run it."""
+    addrs = [a for a, _ in ins]
     skip = set()
-    for addr, op in ins:
-        m = re.match(r"@!?P\d\s*BRA\s+(0x[0-9a-f]+)", op)
-        if m and int(m.group(1), 16) > addr:
-            span = [(a, o) for a, o in ins if addr < a < int(m.group(1), 16)]
-            if len(span) < 120 and any(re.search(r"\b(LDL|STL|DMUL|CALL)\b", o)
-                                       for _, o in span):
-                skip.update(a for a, _ in span)
-    last = max(a for a, o in ins if re.search(r"\bEXIT\b", o))
-    return len(ins), sum(1 for a, _ in ins if a <= last and a not in skip)
+    for i, (addr, op) in enumerate(ins):
+        target = branch_target(op)
+        if target is None or target <= addr or not re.match(r"@!?P\d", op):
+            continue
+        span = ins[i + 1:bisect.bisect_left(addrs, target)]
+        ops = [o for _, o in span]
+        if (len(span) < 120 and any(SLOW_PATH.search(o) for o in ops)) or (
+                also is not None and also(ops)):
+            skip.update(a for a, _ in span)
+    return skip
 
 
-def cmd_sass():
-    """Each draw instantiation's SASS count and hot path (:func:`hot_path`),
-    and at each DRAW_ARMS shape the issue floor, ceil(rows / 32) warps times
-    the hot path over 4 warp instructions a clock on every SM at the card's
-    maximum SM clock, beside the bound of philox_normals_bound_ms."""
+class Loop(NamedTuple):
+    """A loop of the SASS: from a backward branch's target to the branch."""
+
+    start: int
+    end: int
+    own: tuple      # its instructions outside its nested loops and skipped spans
+    nested: tuple   # every loop inside it (Loop), outermost first
+    parent: Optional[int]  # the start of the loop directly around it, or None
+
+
+def sass_loops(ins, skip=frozenset()):
+    """[Loop] of a function, one for each backward branch, outermost first."""
+    spans = sorted({(t, a) for a, o in ins for t in [branch_target(o)]
+                    if t is not None and t < a}, key=lambda se: (se[0], -se[1]))
+
+    def inside(inner, outer):
+        return outer[0] <= inner[0] and inner[1] <= outer[1] and inner != outer
+
+    loops = {}
+    for span in reversed(spans):  # innermost first
+        nested = [loops[o] for o in spans if inside(o, span) and o in loops]
+        own = tuple(o for a, o in ins if span[0] <= a <= span[1] and a not in skip
+                    and not any(n.start <= a <= n.end for n in nested))
+        around = [o for o in spans if inside(span, o)]
+        parent = max(around, key=lambda o: (o[0], -o[1]))[0] if around else None
+        loops[span] = Loop(span[0], span[1], own,
+                           tuple(sorted(nested, key=lambda lp: (lp.start, -lp.end))), parent)
+    return [loops[s] for s in spans]
+
+
+def hot_path(sass_fn, trips=None, also_skip=None, until=None):
+    """(SASS instructions, instructions on the hot path) of one kernel
+    (cuobjdump -sass text): a thread's instructions when no slow path is
+    taken (:func:`skipped_spans`), up to the last EXIT, or up to the first
+    instruction that matches ``until`` (the fused kernel's finish, which one
+    block a group runs). Without ``trips`` a loop's body counts once (the
+    draw kernel, whose loops are its slow paths). With ``trips`` each
+    instruction counts the product of ``trips(loop)`` over the loops around
+    it (:func:`sass_loops`; ``trips(loop, loops)``, every loop given), which
+    weights each loop body by its trip count at the measured shape."""
+    ins = sass_instructions(sass_fn)
+    skip = skipped_spans(ins, also_skip)
+    if until is None:
+        last = max(a for a, o in ins if re.search(r"\bEXIT\b", o)) + 1
+    else:
+        last = min(a for a, o in ins if re.search(until, o))
+    weight = {a: 1 for a, _ in ins if a < last and a not in skip}
+    if trips is not None:
+        loops = sass_loops(ins, skip)
+        for loop in loops:
+            t = trips(loop, loops)
+            for a in weight:
+                if loop.start <= a <= loop.end:
+                    weight[a] *= t
+    return len(ins), sum(weight.values())
+
+
+def _count(ops, pattern):
+    return sum(1 for o in ops if re.search(pattern, o))
+
+
+def is_scan(loop):
+    """The reference scan's loop (csrc path_d2), unrolled: float4 rows
+    loaded from shared memory and a running min, no draw."""
+    return (_count(loop.own, r"\bLDS\.128\b") > 0 and _count(loop.own, r"\bFMNMX\b") > 0
+            and not _count(loop.own, PHILOX.pattern))
+
+
+def fused_trips(model, horizon, num_ref, threads, accumulate=True, costs_in=False):
+    """(trips, also_skip) of the fused kernel at one arm's shape, RNG mode,
+    for :func:`hot_path`, by what each loop of the SASS holds:
+
+    - the reference scan (:func:`is_scan`): the padded reference rows over
+      the rows an iteration loads (one LDS.128 a row), shared greedily among
+      the scan loops beside it (the unrolled loop, then its remainder loop);
+      its unrolled remainder blocks (forward spans of scan instructions
+      only) skipped where the rows are a multiple of the unrolled loop's;
+    - the step loop (a loop around a scan): T-1 steps (T-2 for full_body);
+    - a loop that draws (the Philox multipliers) with warp shuffles: the
+      regenerate form's update over T-1 rows; one that draws without them:
+      the store form's costs-in pass over T-1 rows (0 in other passes);
+    - the store form's update columns (LDS.128 and scalar LDS, no min): the
+      threads over the samples an iteration reads (4 a float4 of weights),
+      inside a column loop of (nu + 1) / threads columns a thread; the
+      normalizer's column (float4 loads only) runs in one thread a block: 0;
+    - every other loop (shared-memory copies, the block minimum over its
+      warps) once.
+    The costs-in pass runs no rollout: its step and scan loops 0.
+    ``also_skip`` skips the noise-input loads (RNG mode) and the scan's
+    remainder blocks as above."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import pad_ref_count
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+
+    tm1 = horizon - 1
+    steps = horizon - 2 if model == "full_body" else tm1
+    rows = pad_ref_count(num_ref)
+    nu = tm1 * get_model(model).num_controls
+
+    def scan_trips(loop, loops):
+        group = sorted((lp for lp in loops if is_scan(lp) and lp.parent == loop.parent),
+                       key=lambda lp: -_count(lp.own, r"\bLDS\.128\b"))
+        left = rows
+        for lp in group:
+            per = _count(lp.own, r"\bLDS\.128\b")
+            n = left // per
+            if lp == loop:
+                return n
+            left -= n * per
+        return 0
+
+    def trips(loop, loops):
+        if is_scan(loop):
+            return 0 if costs_in else scan_trips(loop, loops)
+        if any(is_scan(lp) for lp in loop.nested):
+            return 0 if costs_in else steps
+        if _count(loop.own, PHILOX.pattern):
+            if _count(loop.own, r"\bSHFL\b"):
+                return tm1 if accumulate else 0
+            return tm1 if costs_in else 0
+        lds128 = _count(loop.own, r"\bLDS\.128\b")
+        if lds128 and loop.nested:
+            return -(-(nu + 1) // threads)
+        if lds128 and loop.parent is not None:
+            scalar = _count(loop.own, r"\bLDS\b(?!\.128)")
+            return threads // (4 * lds128) if scalar else 0
+        return 1
+
+    def also_skip(ops):
+        if all(SCAN_BLOCK.match(o) for o in ops):
+            return _count(ops, r"\bLDS\.128\b") > 0 and (rows // 4) % 4 == 0
+        return bool(len(ops) < 120 and _count(ops, r"\bLDG\b")
+                    and not _count(ops, PHILOX.pattern) and not _count(ops, r"\bMUFU\b"))
+
+    return trips, also_skip
+
+
+# the fused kernel's rows of PERF.md section 6, RNG mode, R = T reference
+# points: name -> (model, K, T, B, second moment, passes); a pass is
+# (accumulate, costs_in), two-pass elite the costs-only pass then the
+# costs-in pass. The cost threshold, first_sample and device-key rows run
+# the flagship full_body launch.
+FUSED_ROWS = {
+    "full_body": ("full_body", smoke.K_MAIN, smoke.T_MAIN, 1, False, ((True, False),)),
+    "unicycle": ("unicycle", smoke.K_MAIN, smoke.T_MAIN, 1, False, ((True, False),)),
+    "steering_unicycle": ("steering_unicycle", smoke.K_MAIN, smoke.T_MAIN, 1, False,
+                          ((True, False),)),
+    "rate_limited_steering": ("rate_limited_steering", smoke.K_MAIN, smoke.T_MAIN, 1, False,
+                              ((True, False),)),
+    "full_body_elite_two_pass": ("full_body", smoke.K_MAIN, smoke.T_MAIN, 1, False,
+                                 ((False, False), (True, True))),
+    "full_body_second_moment": ("full_body", smoke.K_MAIN, smoke.T_MAIN, 1, True,
+                                ((True, False),)),
+    "unicycle_second_moment": ("unicycle", smoke.K_MAIN, smoke.T_MAIN, 1, True,
+                               ((True, False),)),
+    "full_body_second_moment_elite_two_pass": ("full_body", smoke.K_MAIN, smoke.T_MAIN, 1,
+                                               True, ((False, False), (True, True))),
+    "full_body_fleet": ("full_body", smoke.K_FLEET, smoke.T_FLEET, smoke.B_FLEET, False,
+                        ((True, False),)),
+    "unicycle_fleet": ("unicycle", smoke.K_FLEET, smoke.T_FLEET, smoke.B_FLEET, False,
+                       ((True, False),)),
+}
+ISSUE_RATE = 4  # warp instructions a clock an SM (four schedulers)
+
+
+def fused_floor(fns, model, k, t, b, m2, accumulate, costs_in, num_ref=None, sms=132,
+                mhz=1980.0):
+    """One launch's loop-weighted SASS count and issue floor: (instructions
+    a sample, floor ms, the launch shape), the instantiation's SASS in
+    ``fns`` {(model, second_moment, store form): text}; the count stops at
+    the finish's first ticket (the costs-only pass: at its early EXIT)."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import launch_shape
+
+    num_ref = num_ref or t
+    m2 = m2 and accumulate
+    shape = launch_shape(model, k, t, num_ref, m2, accumulate, costs_in)
+    trips, also_skip = fused_trips(model, t, num_ref, shape.threads, accumulate, costs_in)
+    until = r"\bATOM" if accumulate else r"@!?P\d+\s+EXIT"
+    _, per_sample = hot_path(fns[model, m2, shape.form == "store"], trips, also_skip, until)
+    warps = b * shape.blocks * shape.threads // 32
+    return per_sample, warps * per_sample / (ISSUE_RATE * sms * mhz * 1e6) * 1e3, shape
+
+
+def write_record(out, key, value):
+    """Sets ``key`` of the JSON object in ``out`` (both subcommands write one
+    file)."""
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    record = json.loads(out.read_text()) if out.exists() else {}
+    record[key] = value
+    out.write_text(json.dumps(record, indent=1))
+
+
+def cmd_sass(out):
+    """Each kernel's SASS count and hot path (:func:`hot_path`): the draw's
+    instantiations with a loop body once, at each DRAW_ARMS shape the issue
+    floor, ceil(rows / 32) warps times the hot path over ISSUE_RATE warp
+    instructions a clock on every SM at the card's maximum SM clock, beside
+    philox_normals_bound_ms; the fused kernel's instantiations with each
+    loop weighted by its trips (:func:`fused_trips`), at each FUSED_ROWS
+    shape the instructions a sample and the issue floor, warps (B x blocks x
+    threads / 32) times those, beside rollout_cost_bound_ms. Writes both
+    into ``out`` under "sass"."""
     import torch
 
     from ccv_mppi_path_tracker_tpu_torch.kernels import build
     from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        KERNEL_MODELS,
         philox_draw_geometry,
         philox_normals_bound_ms,
+        rollout_cost_bound_ms,
     )
 
     path, _, _ = build.build("rollout_cost")
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    hot = {}
+    draw, fused = {}, {}
     for chunk in sass.split("Function : ")[1:]:
         m = re.match(r"\S*philox_normals_kernelILi(\d+)ELb([01])E", chunk)
         if m:
-            key = (int(m.group(1)), m.group(2) == "1")
-            hot[key] = hot_path(chunk)
+            draw[int(m.group(1)), m.group(2) == "1"] = hot_path(chunk)
+        m = re.match(r"\S*rollout_cost_kernelILi(\d)ELb([01])ELb([01])E", chunk)
+        if m:
+            fused[KERNEL_MODELS[int(m.group(1))], m.group(2) == "1",
+                  m.group(3) == "1"] = chunk
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(smoke.nvidia_smi("clocks.max.sm").split()[0])
+    rec = {"card": card(), "sms": sms, "max_sm_mhz": mhz, "issue_rate": ISSUE_RATE,
+           "draw": [], "fused": []}
     print(f"{card()}; {sms} SMs, maximum SM clock {mhz:.0f} MHz")
-    for (u_dim, wide), (n, h) in sorted(hot.items()):
+    for (u_dim, wide), (n, h) in sorted(draw.items()):
         print(f"  philox_normals_kernel<{u_dim}, {str(wide).lower()}>: {n} SASS "
               f"instructions, {h} on the hot path")
     for name, (b, tm1, k, u_dim) in DRAW_ARMS.items():
         geo = philox_draw_geometry(b, tm1, k, u_dim)
         warps = -(-geo.rows // 32)
-        floor = warps * hot[geo.unrolled_u, bool(geo.wide)][1] / (4 * sms * mhz * 1e6) * 1e3
+        hot = draw[geo.unrolled_u, bool(geo.wide)][1]
+        floor = warps * hot / (ISSUE_RATE * sms * mhz * 1e6) * 1e3
         bound, which = philox_normals_bound_ms(k, tm1, u_dim, b)
         print(f"  {name} (B, T-1, K, U) = {(b, tm1, k, u_dim)}: issue floor {floor:.4f} ms; "
               f"bound {bound:.4f} ms ({which})")
+        rec["draw"].append(dict(name=name, shape=[b, tm1, k, u_dim], hot_per_row=hot,
+                                issue_floor_ms=floor, bound_ms=bound, bound_by=which))
+    for (model, m2, store), chunk in sorted(fused.items()):
+        print(f"  rollout_cost_kernel<{model}, second_moment={m2}, "
+              f"{'store' if store else 'regen'}>: {len(sass_instructions(chunk))} SASS "
+              f"instructions")
+    for name, (model, k, t, b, m2, passes) in FUSED_ROWS.items():
+        per, floor, bound, shapes = [], 0.0, 0.0, []
+        for accumulate, costs_in in passes:
+            n, ms, shape = fused_floor(fused, model, k, t, b, m2, accumulate, costs_in,
+                                       sms=sms, mhz=mhz)
+            per.append(n)
+            floor += ms
+            bound += rollout_cost_bound_ms(model, k, t, t, m2 and accumulate, num_robots=b,
+                                           accumulate=accumulate, costs_in=costs_in)[0]
+            shapes.append(f"{shape.form}/{shape.threads}")
+        which = rollout_cost_bound_ms(model, k, t, t, m2, num_robots=b)[1]
+        print(f"  {name} K={k} T={t} B={b} ({' + '.join(shapes)}): "
+              f"{' + '.join(str(n) for n in per)} instructions a sample, issue floor "
+              f"{floor:.4f} ms; rollout_cost_bound_ms {bound:.4f} ms ({which}), "
+              f"floor/bound {floor / bound:.2f}", flush=True)
+        rec["fused"].append(dict(name=name, model=model, k=k, t=t, b=b, second_moment=m2,
+                                 passes=[list(pa) for pa in passes], shapes=shapes,
+                                 instructions_per_sample=per, issue_floor_ms=floor,
+                                 bound_ms=bound, bound_by=which))
+    write_record(out, "sass", rec)
+
+
+# the ablation's arms: name -> the launch's options against the flagship
+# full_body launch in RNG mode
+ABLATE_ARMS = ("base", "noise_in", "no_update", "costs_in", "short_ref")
+SHORT_REF = 4
+
+
+def cmd_ablate(out):
+    """The fused kernel ablated with its own modes, full_body at K=102400,
+    T=30: each arm a replayed CUDA graph of INNER launches
+    (chip_smoke.graph_replay), the arms in turns, median of REPS: ``base``
+    (RNG mode), ``noise_in`` (the normals read instead of drawn: the gap to
+    base is the draw less that read, whose bytes over the HBM rate are
+    printed beside it), ``no_update`` (the costs-only pass: accumulate=False),
+    ``costs_in`` (the draw and the update, no rollout or cost), ``short_ref``
+    (a window of SHORT_REF reference points against the flagship's T: the
+    scan's share). Each arm beside its loop-weighted issue floor and its
+    rollout_cost_bound_ms. Writes into ``out`` under "ablate"."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        HBM_BYTES_PER_S,
+        KERNEL_MODELS,
+        KernelLaunch,
+        rollout_cost_bound_ms,
+    )
+
+    k, t = smoke.K_MAIN, smoke.T_MAIN
+    c = smoke.kernel_case("full_body", k, t, roll_off=True, seed=5)
+    kargs, scal = c["kargs"][:6], c["scal"]
+    kw = dict(seed=1, step=2, num_samples=k, model="full_body")
+    costs = KernelLaunch(*kargs, scal(), accumulate=False, **kw)
+    costs.run()
+    ref4 = kargs[4][:SHORT_REF].contiguous()
+    launches = {
+        "base": KernelLaunch(*kargs, scal(), **kw),
+        "noise_in": KernelLaunch(*kargs, scal(), noise=c["noise"],
+                                 **dict(kw, seed=None, step=None)),
+        "no_update": KernelLaunch(*kargs, scal(), accumulate=False, **kw),
+        "costs_in": KernelLaunch(*kargs, scal(), costs_in=costs.costs.clone(), **kw),
+        "short_ref": KernelLaunch(*kargs[:4], ref4, kargs[5], scal(), **kw),
+    }
+    arms = {name: smoke.graph_replay(launch_arm(launch), INNER)
+            for name, launch in launches.items()}
+    res = time_arms({name: (replay, 1) for name, replay in arms.items()})
+    ms = {name: res[name][0] / INNER for name in ABLATE_ARMS}
+
+    path, _, _ = build.build("rollout_cost")
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    fused = {}
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*rollout_cost_kernelILi(\d)ELb([01])ELb([01])E", chunk)
+        if m:
+            fused[KERNEL_MODELS[int(m.group(1))], m.group(2) == "1",
+                  m.group(3) == "1"] = chunk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smoke.nvidia_smi("clocks.max.sm").split()[0])
+    opts = {"base": {}, "noise_in": {"rng": False}, "no_update": {"accumulate": False},
+            "costs_in": {"costs_in": True}, "short_ref": {"num_ref": SHORT_REF}}
+    rows = {}
+    print(f"{card()}; full_body K={k} T={t}, a replayed graph of {INNER} launches, median "
+          f"of {REPS} in turns:")
+    for name in ABLATE_ARMS:
+        o = opts[name]
+        acc, cin = o.get("accumulate", True), o.get("costs_in", False)
+        floor = None
+        if o.get("rng", True):  # the loop weighting counts the RNG mode's path
+            _, floor, _ = fused_floor(fused, "full_body", k, t, 1, False, acc, cin,
+                                      num_ref=o.get("num_ref"), sms=sms, mhz=mhz)
+        bound, which = rollout_cost_bound_ms("full_body", k, t, o.get("num_ref", t),
+                                             rng=o.get("rng", True), accumulate=acc,
+                                             costs_in=cin)
+        shape = launches[name].shape
+        rows[name] = dict(ms=ms[name], ms_min=res[name][1] / INNER,
+                          ms_max=res[name][2] / INNER, issue_floor_ms=floor,
+                          bound_ms=bound, bound_by=which,
+                          shape=f"{shape.form}/{shape.threads}")
+        fl = "not counted (noise-input path)" if floor is None else f"{floor:.4f} ms"
+        print(f"  {name} ({shape.form}/{shape.threads}): {ms[name]:.4f} ms "
+              f"[{rows[name]['ms_min']:.4f}, {rows[name]['ms_max']:.4f}]; issue floor {fl}; "
+              f"bound {bound:.4f} ms ({which})", flush=True)
+    noise_read_ms = c["noise"].numel() * 4 / HBM_BYTES_PER_S * 1e3
+    derived = {
+        "draw_less_noise_read": ms["base"] - ms["noise_in"],
+        "noise_read_at_hbm_rate": noise_read_ms,
+        "update": ms["base"] - ms["no_update"],
+        "rollout_and_cost": ms["base"] - ms["costs_in"],
+        "scan_of_the_rows_past_4": ms["base"] - ms["short_ref"],
+    }
+    for name, v in derived.items():
+        print(f"  {name}: {v:.4f} ms ({100 * v / ms['base']:.1f} % of base)")
+    write_record(out, "ablate", {"card": card(), "model": "full_body", "k": k, "t": t,
+                                 "short_ref": SHORT_REF, "inner": INNER, "reps": REPS,
+                                 "arms": rows, "derived_ms": derived})
 
 
 def cmd_sweep(out):
@@ -415,7 +775,9 @@ def main():
     b = sub.add_parser("ab")
     b.add_argument("parent")
     b.add_argument("change")
-    sub.add_parser("sass")
+    for name in ("sass", "ablate"):
+        c = sub.add_parser(name)
+        c.add_argument("--out", default=str(ROOT / "artifacts" / "kernel_floor_torch.json"))
     args = ap.parse_args()
     import torch
 
@@ -428,7 +790,9 @@ def main():
     elif args.cmd == "arms":
         cmd_arms(args.repo)
     elif args.cmd == "sass":
-        cmd_sass()
+        cmd_sass(args.out)
+    elif args.cmd == "ablate":
+        cmd_ablate(args.out)
     else:
         cmd_ab(args.parent, args.change)
     return 0
