@@ -427,10 +427,13 @@ def cmd_export(args):
 def cmd_profile(args):
     """A torch.profiler trace of control cycles (a Chrome trace) and a
     host-side phase-time summary: one warm step, then --steps steps inside
-    the trace."""
+    the trace. The summary's line also carries the spans and counters the
+    program recorded in this command (utils/profiling.py), under "spans"
+    and "counters"; inside the trace the compiled call's own spans record."""
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
     from ccv_mppi_path_tracker_tpu_torch.solver import MPPISolver
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
     from ccv_mppi_path_tracker_tpu_torch.utils.profiling import PhaseTimer, device_trace
 
     device, cfg, sp, cp, course = _resolve(args)
@@ -445,6 +448,7 @@ def cmd_profile(args):
     _print_path(use_kernel, auto, device)
     solver = MPPISolver(cfg, use_kernel=use_kernel)
     ctrl = solver.init(args.seed, device=device)
+    profiling.reset()
     timer = PhaseTimer()
     with timer.phase("warm_step"):
         ctrl, res = solver.step(ctrl, state, path, dt, sp, cp)
@@ -456,7 +460,8 @@ def cmd_profile(args):
                 ctrl, res = solver.step(ctrl, state, path, dt, sp, cp)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-    print(json.dumps(timer.summary()))
+    print(json.dumps(dict(timer.summary(), spans=profiling.spans(),
+                          counters=profiling.counters())))
     print(f"trace: {os.path.join(args.out, 'trace.json')} (open in Perfetto or "
           f"chrome://tracing)")
     return 0

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ccv_mppi_path_tracker_tpu_torch.utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
@@ -103,7 +105,8 @@ def load_library(name: str) -> ctypes.CDLL:
     process)."""
     lib = _LOADED.get(name)
     if lib is None:
-        path, _, _ = build(name)
-        lib = ctypes.CDLL(str(path))
+        with span("kernel.load"):
+            path, _, _ = build(name)
+            lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib

@@ -51,6 +51,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import softmax_weights
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_references
 from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, _opt_rollout, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.utils.profiling import tracing
 
 
 def init_fleet(cfg: SolverConfig, num_robots: int, seed: int = 0,
@@ -97,7 +98,8 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
             raise ValueError(f"shared_path={shared_path} needs a path xy of "
                              f"{'(N, 2)' if shared_path else '(B, N, 2)'}, got "
                              f"{tuple(path.xy.shape)}")
-        return tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel)
+        return tick.call(ctrls, path, dt, (states, sp, cp, model_params, noise, cfg, use_kernel),
+                         1, True, tracing())
 
     step.graphed = tick
     return step

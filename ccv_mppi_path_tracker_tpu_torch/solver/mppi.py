@@ -64,6 +64,7 @@ from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import (
     collectives_capturable,
     scan,
 )
+from ccv_mppi_path_tracker_tpu_torch.utils.profiling import span, tracing
 
 
 def mppi_step(
@@ -292,10 +293,26 @@ class KeyedGraph:
         return self.graphed.cache_key(bare, path, dt, *args)
 
     def __call__(self, ctrl, path, dt, *args, steps: int = 1, graph: bool = True):
-        if not self._graphed(ctrl, graph):
+        return self.call(ctrl, path, dt, args, steps, graph, tracing())
+
+    def call(self, ctrl, path, dt, args: tuple, steps: int, graph: bool, traced: bool):
+        """``self(ctrl, path, dt, *args, steps=steps, graph=graph)``, where the
+        caller asked :func:`utils.profiling.tracing` at its own entry
+        (``traced``): then the graph's arguments built (``compiled.wrap_in``)
+        and the caller's seed and step put back (``compiled.wrap_out``) are
+        spans, beside :meth:`utils.cuda_graph.Graphed.call`'s."""
+        if not traced:
+            if not self._graphed(ctrl, graph):
+                return self.fn(ctrl, path, dt, *args)
+            out_ctrl, out = self.graphed.call(self._inputs(ctrl, path, dt) + args, False)
+            return _restored(ctrl, out_ctrl, steps), out
+        with span("compiled.wrap_in", True):
+            inputs = self._inputs(ctrl, path, dt) if self._graphed(ctrl, graph) else None
+        if inputs is None:
             return self.fn(ctrl, path, dt, *args)
-        out_ctrl, out = self.graphed(*self._inputs(ctrl, path, dt), *args)
-        return _restored(ctrl, out_ctrl, steps), out
+        out_ctrl, out = self.graphed.call(inputs + args, True)
+        with span("compiled.wrap_out", True):
+            return _restored(ctrl, out_ctrl, steps), out
 
     def scan(self, carry, path, dt, *args, length: int, graph: bool = True):
         ctrl = carry[0]
@@ -377,13 +394,18 @@ class CompiledStep:
         return self.graph.cache_key(*self._args(*args, **kwargs))
 
     def __call__(self, *args, **kwargs):
-        args = self._args(*args, **kwargs)
+        traced = tracing()
+        if traced:
+            with span("compiled.wrap_in", True):
+                args = self._args(*args, **kwargs)
+        else:
+            args = self._args(*args, **kwargs)
         if self._host_collectives and args[0].u_prev.device.type == "cuda":
             raise ValueError("compile_step over a process group whose collectives copy "
                              "through the host (gloo) cannot replay on the card: form the "
                              "group over NCCL (parallel/multihost.py initialize_multihost("
                              "backend='nccl')), or call mppi_step op by op")
-        return self.graph(*args)
+        return self.graph.call(args[0], args[1], args[2], args[3:], 1, True, traced)
 
 
 def compile_step(cfg: SolverConfig, **options) -> CompiledStep:

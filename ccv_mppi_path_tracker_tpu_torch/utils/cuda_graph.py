@@ -29,6 +29,11 @@ which launches nothing. Replays run on the caller's current stream. A launch
 counter registered with :func:`count_launches` counts a captured launch once
 a replay: the capture's own increments are undone.
 
+While a ``torch.profiler`` runs, a call's parts are spans of
+utils/profiling.py (``graphed.walk``, ``graphed.load``, ``graphed.replay``,
+``graphed.outputs``) and its copied inputs a counter
+(``graphed.inputs_copied``); a capture is always the span ``graphed.capture``.
+
 The function must be free of host syncs: its first run is made under
 torch's sync debug mode "error", so a host sync (``.item()``, a Python branch
 on a tensor, a data-dependent shape) raises there, before any capture, with
@@ -63,6 +68,9 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+from ccv_mppi_path_tracker_tpu_torch.utils.profiling import span, tracing
 
 # Functions whose ``launches`` attribute counts their kernel's launches.
 _COUNTED = []
@@ -274,7 +282,7 @@ class _Graph:
         current = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(current)
-        with _tracing(), torch.cuda.stream(side):
+        with span("graphed.capture"), _tracing(), torch.cuda.stream(side):
             with refuse_host_syncs(getattr(fn, "__qualname__", repr(fn))):
                 first = fn(*fill_tensors(template, leaves))
             before = [f.launches for f in _COUNTED]
@@ -328,19 +336,31 @@ class _Graph:
         for f, n in zip(_COUNTED, self.captured):
             f.launches += n
 
-    def load(self, leaves):
+    def load(self, leaves) -> int:
         """Copy ``leaves`` into the input buffers, in one grouped copy, but
-        for each tensor whose buffer already holds it (:func:`stale`)."""
+        for each tensor whose buffer already holds it (:func:`stale`);
+        returns how many were copied."""
         changed = stale(leaves, self._loaded)
         if changed:
             torch._foreach_copy_([self.inputs[i] for i in changed],
                                  [leaves[i] for i in changed])
         self._loaded = _marks(leaves)
+        return len(changed)
 
-    def __call__(self, leaves):
-        self.load(leaves)
-        self.replay()
-        return fill_tensors(self.out_template, _clone_all(self.outputs))
+    def __call__(self, leaves, traced: bool = False):
+        """Load, replay and copy the outputs out; ``traced`` (a profiler
+        runs, utils/profiling.py): each step a span, and the inputs copied
+        counted."""
+        if not traced:
+            self.load(leaves)
+            self.replay()
+            return fill_tensors(self.out_template, _clone_all(self.outputs))
+        with span("graphed.load", True):
+            profiling.count("graphed.inputs_copied", self.load(leaves))
+        with span("graphed.replay", True):
+            self.replay()
+        with span("graphed.outputs", True):
+            return fill_tensors(self.out_template, _clone_all(self.outputs))
 
 
 def _leaves(obj):
@@ -397,10 +417,10 @@ class Graphed:
         """The key of the graph that ``args`` replay."""
         return _flatten(args, [])
 
-    def _graph(self, args, carry):
-        """(graph, leaves, first): the graph of ``args``' structure, and the
-        first run's result where this call captured it (else None); (None,
-        leaves, None) where the call runs inline (:func:`_inline`)."""
+    def _find(self, args):
+        """(key, leaves, graph): the cache key and tensors of ``args`` and
+        the graph cached under that key, None where there is none yet;
+        (None, leaves, None) where the call runs inline (:func:`_inline`)."""
         leaves = []
         key = _flatten(args, leaves)
         why = refusal(leaves)
@@ -411,7 +431,11 @@ class Graphed:
         graph = self.graphs.get(key)
         if graph is not None:
             self.graphs.move_to_end(key)
-            return graph, leaves, None
+        return key, leaves, graph
+
+    def _capture(self, key, args, leaves, carry):
+        """(graph, first): the graph of ``args``' structure, captured and
+        cached under ``key``, and its first run's result."""
         with torch.cuda.device(leaves[0].device):
             graph = _Graph(self.fn, _template(args, [0]), leaves, carry, _groups_in(key))
         self.graphs[key] = graph
@@ -419,13 +443,25 @@ class Graphed:
         if self.max_graphs is not None and len(self.graphs) > self.max_graphs:
             self.graphs.popitem(last=False)
         first, graph.first = graph.first, None
-        return graph, leaves, first
+        return graph, first
 
     def __call__(self, *args):
-        graph, leaves, first = self._graph(args, carry=False)
-        if graph is None:
+        return self.call(args, tracing())
+
+    def call(self, args: tuple, traced: bool):
+        """``self(*args)``, where the caller asked :func:`tracing` at its
+        own entry (``traced``: the walk is a span, and so are the replay's
+        parts)."""
+        if traced:
+            with span("graphed.walk", True):
+                key, leaves, graph = self._find(args)
+        else:
+            key, leaves, graph = self._find(args)
+        if graph is not None:
+            return graph(leaves, traced)
+        if key is None:
             return self.fn(*args)
-        return first if first is not None else graph(leaves)
+        return self._capture(key, args, leaves, False)[1]
 
     def scan(self, carry, *args, length: int):
         """``lax.scan`` of ``fn(carry, *args) -> (carry, y)`` over ``length``
@@ -435,9 +471,12 @@ class Graphed:
         :func:`scan` is the same loop run eagerly."""
         if length < 1:
             raise ValueError(f"length must be >= 1, got {length}")
-        graph, leaves, first = self._graph((carry,) + args, carry=True)
+        key, leaves, graph = self._find((carry,) + args)
+        first = None
         if graph is None:
-            return scan(self.fn, carry, *args, length=length)
+            if key is None:
+                return scan(self.fn, carry, *args, length=length)
+            graph, first = self._capture(key, (carry,) + args, leaves, True)
         y_template, y_leaves = _y_parts(graph)
         ys = [torch.empty((length,) + tuple(t.shape), dtype=t.dtype, device=t.device)
               for t in y_leaves]

@@ -47,6 +47,14 @@ def test_profile_command_on_cpu(tmp_path, capsys):
     assert lines[0] == "solver path: fused kernel on cpu"
     summary = json.loads(lines[-2])
     assert summary["control_cycle"]["count"] == 5 and summary["warm_step"]["count"] == 1
+    # the registry's spans: the phases, and the compiled call's wrap-in (the
+    # caller's and the graph's), recorded inside the trace only; the CPU
+    # replays no graph, so it copies nothing in
+    spans = summary["spans"]
+    assert spans["control_cycle"] == {k: summary["control_cycle"][k]
+                                      for k in ("count", "total_s")}
+    assert spans["warm_step"]["count"] == 1 and spans["compiled.wrap_in"]["count"] == 10
+    assert summary["counters"] == {}
     assert lines[-1].startswith(f"trace: {os.path.join(out, 'trace.json')}")
     assert os.path.isfile(os.path.join(out, "trace.json"))
     assert fused_sample_rollout_cost.launches == before  # the CPU runs the plain version
