@@ -30,9 +30,11 @@ counter registered with :func:`count_launches` counts a captured launch once
 a replay: the capture's own increments are undone.
 
 While a ``torch.profiler`` runs, a call's parts are spans of
-utils/profiling.py (``graphed.walk``, ``graphed.load``, ``graphed.replay``,
-``graphed.outputs``) and its copied inputs a counter
-(``graphed.inputs_copied``); a capture is always the span ``graphed.capture``.
+utils/profiling.py (``graphed.walk``: the guard, or the full path where it
+refuses; ``graphed.load``, ``graphed.replay``, ``graphed.outputs``), and its
+copied inputs and the guard's hits and misses counters
+(``graphed.inputs_copied``, ``graphed.guard_hits``, ``graphed.guard_misses``);
+a capture is always the span ``graphed.capture``.
 
 The function must be free of host syncs: its first run is made under
 torch's sync debug mode "error", so a host sync (``.item()``, a Python branch
@@ -61,6 +63,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import functools
 import threading
 import weakref
 from collections import OrderedDict
@@ -266,11 +269,133 @@ def _clone_all(tensors):
     return [copies[id(t)] for t in tensors]
 
 
+def _same_const(captured, obj) -> bool:
+    """Whether :func:`_flatten` keys ``obj`` as it keys the constant
+    ``captured``: ``obj`` is a constant (no tensor, container or dataclass)
+    equal to it, compared as a tuple compares its items (the identity
+    first, which the caller tried)."""
+    cls = type(obj)
+    if (isinstance(obj, torch.Tensor) or cls is tuple or cls is list or cls is dict
+            or hasattr(cls, "__dataclass_fields__")):
+        return False
+    return bool(captured == obj)
+
+
+def _const(names: dict, value) -> str:
+    """The global name under which generated code reads ``value``."""
+    name = f"k{len(names)}"
+    names[name] = value
+    return name
+
+
+def _generated(name: str, lines: list, names: dict):
+    """The function ``name`` defined by the source ``lines``, whose globals
+    are ``names``."""
+    exec(compile("\n".join(lines), f"<{name}>", "exec"), names)
+    return names[name]
+
+
+def _guard(args):
+    """The guard of the graph cached under ``_flatten(args)``: ``guard(call_args,
+    marks)`` is ``(leaves, changed)`` where ``_flatten(call_args, leaves)``
+    would equal ``_flatten(args, [])`` and no tensor requires grad, else
+    None. ``changed``: the indices that ``stale(leaves, marks)`` gives,
+    found in the same pass.
+
+    Straight-line code generated from ``args`` as :func:`_flatten` walks
+    it: each container's type and length, each dict's keys, each
+    dataclass's type, each constant by identity or else as the key compares
+    it (:func:`_same_const`), and each tensor's shape, dtype, device and
+    ``requires_grad``, read from the tensor at every call."""
+    names = {"Tensor": torch.Tensor, "_same_const": _same_const}
+    body, leaves = [], []
+    const = functools.partial(_const, names)
+
+    def visit(obj, var):
+        if isinstance(obj, torch.Tensor):
+            i = len(leaves)
+            leaves.append(var)
+            # a 0-d tensor's shape by its dimension count: no Size object made
+            shape = f"{tuple(obj.shape)!r} != {var}.shape" if obj.dim() else f"{var}.dim()"
+            body.append(f"if not isinstance({var}, Tensor) or {var}.requires_grad or "
+                        f"{var}.dtype is not {const(obj.dtype)} or {shape} or "
+                        f"{const(obj.device)} != {var}.device: return None")
+            body.append(f"m, v = marks[{i}]")
+            body.append(f"if {var} is not m or v is None or {var}._version != v: "
+                        f"changed.append({i})")
+            return
+        cls = type(obj)
+        if cls is tuple or cls is list:
+            check, items, source = f" or len({var}) != {len(obj)}", list(obj), var
+        elif cls is dict:
+            check, items = f" or tuple({var}) != {const(tuple(obj))}", list(obj.values())
+            source = f"{var}.values()"
+        elif hasattr(cls, "__dataclass_fields__"):
+            check, items, source = "", [getattr(obj, n) for n in _field_names(cls)], None
+        else:
+            k = const(obj)
+            body.append(f"if {var} is not {k} and not _same_const({k}, {var}): return None")
+            return
+        body.append(f"if type({var}) is not {const(cls)}{check}: return None")
+        parts = [f"x{len(body)}_{j}" for j in range(len(items))]
+        if source is None:
+            body.extend(f"{p} = {var}.{n}" for p, n in zip(parts, _field_names(cls)))
+        elif parts:
+            body.append(f"{', '.join(parts)}, = {source}")
+        for p, item in zip(parts, items):
+            visit(item, p)
+
+    visit(args, "args")
+    lines = ["def guard(args, marks):", "    changed = []"]
+    lines += [f"    {line}" for line in body]
+    lines.append(f"    return [{', '.join(leaves)}], changed")
+    return _generated("guard", lines, names)
+
+
+def _rebuilder(template, outputs):
+    """``rebuild(outputs)``, equal to ``fill_tensors(template,
+    _clone_all(outputs))`` for the graph's output buffers ``outputs``: a
+    constructor generated from ``template``, which clones each buffer once
+    (one that appears twice shares its clone, as :func:`_clone_all` does)
+    and builds each container and dataclass directly."""
+    names = {}
+    lines = ["def rebuild(outputs):"]
+    first = {}
+    for i, t in enumerate(outputs):
+        j = first.setdefault(id(t), i)
+        lines.append(f"    o{i} = outputs[{i}].clone()" if j == i else f"    o{i} = o{j}")
+
+    const = functools.partial(_const, names)
+
+    def expr(node):
+        cls = type(node)
+        if cls is _Slot:
+            return f"o{node.index}"
+        if cls is tuple:
+            return "(" + "".join(f"{expr(n)}, " for n in node) + ")"
+        if cls is list:
+            return "[" + ", ".join(expr(n) for n in node) + "]"
+        if cls is dict:
+            return "{" + ", ".join(f"{const(k)}: {expr(v)}" for k, v in node.items()) + "}"
+        if hasattr(cls, "__dataclass_fields__"):
+            return f"{const(cls)}(" + ", ".join(
+                f"{n}={expr(getattr(node, n))}" for n in _field_names(cls)) + ")"
+        return const(node)
+
+    lines.append(f"    return {expr(template)}")
+    return _generated("rebuild", lines, names)
+
+
 class _Graph:
     """One captured call: the first run's result, the static input buffers,
     the graph and its outputs. ``carry``: the first argument is a carry that
     the function returns first; the graph ends by copying it into its own
-    input buffers, so that the next replay continues from it."""
+    input buffers, so that the next replay continues from it. ``key`` and
+    ``guard``: its cache key (the cache's own object) and the :func:`_guard`
+    of its arguments, which :class:`Graphed` sets when the full path first
+    finds the graph."""
+
+    key = guard = None
 
     def __init__(self, fn, template, leaves, carry=False, groups=()):
         self.groups = groups
@@ -336,31 +461,42 @@ class _Graph:
         for f, n in zip(_COUNTED, self.captured):
             f.launches += n
 
-    def load(self, leaves) -> int:
+    def load(self, leaves, changed=None) -> int:
         """Copy ``leaves`` into the input buffers, in one grouped copy, but
-        for each tensor whose buffer already holds it (:func:`stale`);
+        for each tensor whose buffer already holds it: ``changed`` the
+        indices to copy, where the guard found them, else :func:`stale`'s;
         returns how many were copied."""
-        changed = stale(leaves, self._loaded)
+        if changed is None:
+            changed = stale(leaves, self._loaded)
         if changed:
             torch._foreach_copy_([self.inputs[i] for i in changed],
                                  [leaves[i] for i in changed])
-        self._loaded = _marks(leaves)
+            loaded = self._loaded
+            for i in changed:
+                t = leaves[i]
+                loaded[i] = (t, None if t.is_inference() else t._version)
         return len(changed)
 
-    def __call__(self, leaves, traced: bool = False):
-        """Load, replay and copy the outputs out; ``traced`` (a profiler
-        runs, utils/profiling.py): each step a span, and the inputs copied
-        counted."""
+    @functools.cached_property
+    def rebuild(self):
+        """The result of a replay from the output buffers: :func:`_rebuilder`
+        of the output template, made at the first replay."""
+        return _rebuilder(self.out_template, self.outputs)
+
+    def __call__(self, leaves, traced: bool = False, changed=None):
+        """Load (``changed``: see :meth:`load`), replay and copy the outputs
+        out; ``traced`` (a profiler runs, utils/profiling.py): each step a
+        span, and the inputs copied counted."""
         if not traced:
-            self.load(leaves)
+            self.load(leaves, changed)
             self.replay()
-            return fill_tensors(self.out_template, _clone_all(self.outputs))
+            return self.rebuild(self.outputs)
         with span("graphed.load", True):
-            profiling.count("graphed.inputs_copied", self.load(leaves))
+            profiling.count("graphed.inputs_copied", self.load(leaves, changed))
         with span("graphed.replay", True):
             self.replay()
         with span("graphed.outputs", True):
-            return fill_tensors(self.out_template, _clone_all(self.outputs))
+            return self.rebuild(self.outputs)
 
 
 def _leaves(obj):
@@ -404,6 +540,22 @@ class Graphed:
     not count, through ``p.data`` or through a raw pointer (ctypes, DLPack),
     is not seen: change an argument through torch ops or pass a new tensor.
     Inference tensors have no counter and are copied at every call.
+
+    A call first tries the guard of the graph used last (:func:`_guard`,
+    generated once a graph, at its first replay, from the arguments the full
+    path found it with): straight-line checks of each container's type and length, each
+    dict's keys, each dataclass's type, each constant (by identity, else as
+    the key compares it) and each tensor's shape, dtype, device and
+    ``requires_grad``, all read anew at every call, so a rebound field or a
+    tensor whose ``.data`` was swapped is checked as the walk would check it.
+    It accepts exactly the arguments whose cache key equals the graph's and
+    that :func:`refusal` would pass, returns their tensors in the walk's
+    order and, in the same pass, the ones to copy. Where it refuses, the call
+    takes the full path: the walk (:func:`_flatten`), :func:`refusal` with
+    its messages, the lookup by key and, for a new structure, the capture.
+    The result is rebuilt by a constructor generated from the output
+    template (:func:`_rebuilder`). Under the profiler the counters
+    ``graphed.guard_hits`` and ``graphed.guard_misses`` count the two paths.
     """
 
     def __init__(self, fn, max_graphs: Optional[int] = None):
@@ -411,6 +563,7 @@ class Graphed:
         self.max_graphs = max_graphs
         self.graphs: "OrderedDict[tuple, _Graph]" = OrderedDict()
         self.captures = 0
+        self._last = None   # the graph used last
         _GRAPHED.add(self)
 
     def cache_key(self, *args):
@@ -418,20 +571,38 @@ class Graphed:
         return _flatten(args, [])
 
     def _find(self, args):
-        """(key, leaves, graph): the cache key and tensors of ``args`` and
-        the graph cached under that key, None where there is none yet;
-        (None, leaves, None) where the call runs inline (:func:`_inline`)."""
+        """(key, leaves, graph, changed): the cache key and tensors of
+        ``args`` and the graph cached under that key, None where there is
+        none yet; key None where the call runs inline (:func:`_inline`).
+        ``changed``: the tensors to load (:meth:`_Graph.load`) where the
+        guard of the graph used last accepted ``args``, else None: then the
+        full path ran (the walk, :func:`refusal` and the lookup)."""
+        last = self._last
+        if last is not None:
+            hit = last.guard(args, last._loaded)
+            if hit is not None:
+                if _inline():
+                    return None, hit[0], None, hit[1]
+                try:
+                    # the cache's own key, already last: nothing hashed
+                    self.graphs.move_to_end(last.key)
+                    return last.key, hit[0], last, hit[1]
+                except KeyError:   # dropped from the cache
+                    self._last = None
         leaves = []
         key = _flatten(args, leaves)
         why = refusal(leaves)
         if why is not None:
             raise ValueError(f"no CUDA graph of this call: {why}")
         if _inline():
-            return None, leaves, None
+            return None, leaves, None, None
         graph = self.graphs.get(key)
         if graph is not None:
             self.graphs.move_to_end(key)
-        return key, leaves, graph
+            if graph.guard is None:   # its first replay
+                graph.key, graph.guard = next(reversed(self.graphs)), _guard(args)
+            self._last = graph
+        return key, leaves, graph, None
 
     def _capture(self, key, args, leaves, carry):
         """(graph, first): the graph of ``args``' structure, captured and
@@ -454,11 +625,13 @@ class Graphed:
         parts)."""
         if traced:
             with span("graphed.walk", True):
-                key, leaves, graph = self._find(args)
+                key, leaves, graph, changed = self._find(args)
+                profiling.count("graphed.guard_misses" if changed is None
+                                else "graphed.guard_hits")
         else:
-            key, leaves, graph = self._find(args)
+            key, leaves, graph, changed = self._find(args)
         if graph is not None:
-            return graph(leaves, traced)
+            return graph(leaves, traced, changed)
         if key is None:
             return self.fn(*args)
         return self._capture(key, args, leaves, False)[1]
@@ -471,7 +644,7 @@ class Graphed:
         :func:`scan` is the same loop run eagerly."""
         if length < 1:
             raise ValueError(f"length must be >= 1, got {length}")
-        key, leaves, graph = self._find((carry,) + args)
+        key, leaves, graph, changed = self._find((carry,) + args)
         first = None
         if graph is None:
             if key is None:
@@ -487,7 +660,7 @@ class Graphed:
             torch._foreach_copy_([y[0] for y in ys], _leaves(y1))
             start = 1
         else:
-            graph.load(leaves)
+            graph.load(leaves, changed)
         graph.forget(len(_leaves(carry)))
         for i in range(start, length):
             graph.replay()
@@ -511,6 +684,9 @@ def forget_group_graphs(group=None) -> int:
                     if any(group is None or x is group for x in g.groups)]:
             del graphed.graphs[key]
             dropped += 1
+        if graphed._last is not None and any(group is None or x is group
+                                             for x in graphed._last.groups):
+            graphed._last = None
     return dropped
 
 

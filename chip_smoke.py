@@ -483,10 +483,11 @@ def host_split(keyed, args, calls=200):
     """Host microseconds of each piece of a replayed call of ``keyed`` (a
     KeyedGraph whose graph of ``args`` exists), over ``calls`` calls after
     one: the state, path and dt made graph inputs, the argument walk for the
-    cache key, the refusal check, the load of the inputs (none changed), a
-    copy of every input (what a call would cost without the skip), the
-    replay's launch, the copies of the outputs and the rebuild of the
-    result."""
+    cache key, the guard that takes its place (the graph's own, with the
+    stale check folded in), the refusal check, the load of the inputs (none
+    changed), a copy of every input (what a call would cost without the
+    skip), the replay's launch, the copies of the outputs, the rebuild of the
+    result and the graph's generated rebuild with its copies."""
     import torch
 
     from ccv_mppi_path_tracker_tpu_torch.utils import cuda_graph
@@ -508,12 +509,14 @@ def host_split(keyed, args, calls=200):
     return {
         "graph_inputs": us(lambda: keyed._inputs(*args[:3])),
         "walk": us(lambda: cuda_graph._flatten(full, [])),
+        "guard": us(lambda: graph.guard(full, graph._loaded)),
         "refusal": us(lambda: cuda_graph.refusal(leaves)),
         "load_unchanged": us(lambda: graph.load(leaves)),
         "copy_every_input": us(lambda: torch._foreach_copy_(graph.inputs, leaves)),
         "replay": us(graph.replay),
         "clone_outputs": us(lambda: cuda_graph._clone_all(graph.outputs)),
         "rebuild": us(lambda: cuda_graph.fill_tensors(graph.out_template, graph.outputs)),
+        "clone_and_rebuild": us(lambda: graph.rebuild(graph.outputs)),
         "inputs": len(leaves), "outputs": len(graph.outputs)}
 
 

@@ -108,8 +108,9 @@ def program(kind):
 def test_hot_spans_record_only_under_the_profiler(kind, on_the_cpu, tmp_path):
     """Off the profiler a compiled call records nothing; under it each call
     records each part once (the update's wrap-in twice: its options and the
-    graph's arguments), the inputs copied are counted, and the parts are
-    ranges of the Chrome trace. The traced calls compute what the plain
+    graph's arguments), the inputs copied and the guard's hits are counted
+    (the plain call before took the full path and built the guard of the
+    graph put in by hand), and the parts are ranges of the Chrome trace. The traced calls compute what the plain
     ones do."""
     call, ctrl, copied = program(kind)
     plain, _, _ = program(kind)
@@ -125,7 +126,8 @@ def test_hot_spans_record_only_under_the_profiler(kind, on_the_cpu, tmp_path):
     assert {n: s["count"] for n, s in spans.items()} == dict(
         {"compiled.wrap_in": 6 if kind == "update" else 3}, **{n: 3 for n in PARTS})
     assert all(s["total_s"] > 0 for s in spans.values())
-    assert profiling.counters() == {"graphed.inputs_copied": 3 * copied}
+    assert profiling.counters() == {"graphed.inputs_copied": 3 * copied,
+                                    "graphed.guard_hits": 3}
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
@@ -175,13 +177,15 @@ def test_counters_add_up_and_reset_empties_both():
     assert profiling.spans() == {} and profiling.counters() == {}
 
 
-# four calls, each of its parts in nanoseconds; 10 tensors copied; set-up once
+# four calls, each of its parts in nanoseconds; 10 tensors copied; the guard
+# accepting three of the four calls; set-up once
 HAND = {"compiled.wrap_in": (8, 80_000), "compiled.wrap_out": (4, 20_000),
         "graphed.walk": (4, 160_000), "graphed.load": (4, 60_000),
         "graphed.replay": (4, 80_000), "graphed.outputs": (4, 200_000),
         "graphed.capture": (1, 3_000_000_000), "kernel.load": (1, 500_000_000)}
 READS = {"call_wrap_us": 25.0, "graph_walk_us": 40.0, "graph_load_us": 15.0,
-         "graph_replay_us": 20.0, "graph_outputs_us": 50.0, "graph_inputs_copied": 2.5}
+         "graph_replay_us": 20.0, "graph_outputs_us": 50.0, "graph_inputs_copied": 2.5,
+         "graph_guard_hit": 75.0}
 WANT = dict({f"{m}.{x}": v for m, v in READS.items() for x in ("update", "node", "tick")},
             setup_capture_s=2.5, setup_kernel_load_s=0.5)
 CELL = {"update": "full_body.update", "node": "diff_drive.update",
@@ -198,8 +202,11 @@ def test_each_reader(metric, monkeypatch):
     for name, (n, ns) in HAND.items():
         profiling.record(name, ns, count=n)
     profiling.count("graphed.inputs_copied", 10)
+    profiling.count("graphed.guard_hits", 3)
+    profiling.count("graphed.guard_misses", 1)
     assert read({}) == pytest.approx(WANT[metric], rel=1e-12)
     monkeypatch.delattr(profiling, "spans")
+    monkeypatch.delattr(profiling, "counters")
     assert read({}) is None
     (entry,) = [m for m in harness.load_benchmark()["per_layer"] if m["name"] == metric]
     suffix = metric.split(".")[-1]
