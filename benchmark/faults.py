@@ -40,8 +40,8 @@ class StaleState(Port):
 
 
 class HalfBatch(Port):
-    def __init__(self, config: dict, device, course=None):
-        super().__init__(config, device, course)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
         from ccv_mppi_path_tracker_tpu_torch.solver import batch, mppi
 
         self.patched = []

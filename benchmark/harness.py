@@ -5,11 +5,18 @@ Everything that belongs to one configuration, traffic mix or per-layer
 metric is a file of its own, found by the names in ``BENCHMARK.json``:
 
 - ``benchmark/configs/<config>.json``: what a configuration fixes (the
-  ``file`` of its ``configs`` entry);
+  ``file`` of its ``configs`` entry). Its ``program`` block may hold
+  ``options``, keyword options of the port's ``mppi_step`` that the program
+  passes on (``benchmark/programs.py``), and its ``reference`` key may name
+  the configuration's own reference module (``benchmark/reference.py``
+  says what one supplies; that file is the default);
 - ``benchmark/traffic/<traffic>.json``: a mix's parameters, with its
   ``kind``, the module ``benchmark/kinds/<kind>.py`` that drives it;
 - ``benchmark/metrics/<metric>.py``: a per-layer metric's reader,
-  ``read(obs) -> number or None``;
+  ``read(obs) -> number or None``. ``obs`` holds ``spans`` and ``traces``
+  (the kind's spans and ``trace.breakdown`` of each traced window), ``shape``,
+  the run's ``config`` and ``traffic`` dicts, and ``units``: for each traced
+  window, every device operation of every unit (``trace.unit_ops``);
 - ``benchmark/limits/<workload>.json``: the limit of each number that the
   correctness check compares in that cell.
 
@@ -18,8 +25,8 @@ cells it lists: one quantity split where its cells spread too differently to
 share a bound.
 
 A kind's ``run(ctx)`` returns an :class:`Outcome`; the harness then frees
-the program's state, recomputes the sampled answers with the plain
-reference (``benchmark/reference.py``) and compares.
+the program's state, recomputes the sampled answers with the
+configuration's plain reference module and compares.
 """
 
 from __future__ import annotations
@@ -68,10 +75,32 @@ def cell_files(bench: dict, workload: str, root: Path = ROOT) -> dict:
     """The cell's entry, configuration, traffic mix and limits, by name."""
     cell = find(bench, "workloads", workload)
     conf_entry = find(bench, "configs", cell["config"])
+    here = root / HERE.name
     return {"cell": cell,
             "config": load_json(root / conf_entry["file"]),
-            "traffic": load_json(HERE / "traffic" / f"{cell['traffic']}.json"),
-            "limits": load_json(HERE / "limits" / f"{workload}.json")}
+            "traffic": load_json(here / "traffic" / f"{cell['traffic']}.json"),
+            "limits": load_json(here / "limits" / f"{workload}.json")}
+
+
+def reference_module(config: dict, root: Path = ROOT):
+    """The configuration's reference module: the file its ``reference`` key
+    names (a path under ``benchmark/`` from the checkout's root), or
+    ``benchmark/reference.py``."""
+    name = config.get("reference")
+    if name is None:
+        return reference
+    parts = Path(name).parts
+    if Path(name).is_absolute() or parts[:1] != (HERE.name,) or ".." in parts:
+        raise ValueError(f"a configuration's reference is a file under {HERE.name}/, "
+                         f"not {name!r}")
+    label = "benchmark_reference_" + "".join(c if c.isalnum() else "_" for c in name)
+    spec = importlib.util.spec_from_file_location(label, root / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [f for f in ("update", "num_states", "plant") if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"the reference module {name} lacks {', '.join(missing)}")
+    return mod
 
 
 def kind_module(kind: str):
@@ -123,6 +152,7 @@ class Outcome:
     memory_peak: int
     spans: dict = dataclasses.field(default_factory=dict)
     traces: dict = dataclasses.field(default_factory=dict)
+    units: dict = dataclasses.field(default_factory=dict)   # trace.unit_ops by window
 
 
 @dataclasses.dataclass
@@ -136,6 +166,7 @@ class Context:
     program: object
     course: np.ndarray
     rng: np.random.Generator
+    reference: object             # the configuration's reference module
 
 
 class Sample:
@@ -172,18 +203,6 @@ def start_pose(course: np.ndarray, num_states: int, rng, sigma) -> np.ndarray:
     return pose.astype(np.float32)
 
 
-def host_plant(model: str, poses: np.ndarray, u0: np.ndarray, dt: float) -> np.ndarray:
-    """The world: the model's Euler step in NumPy on the host, (B, S) poses
-    under (B, U) commands, as a new array."""
-    x, y, yaw = poses[:, 0], poses[:, 1], poses[:, 2]
-    v, w = u0[:, 0], u0[:, 1]
-    heading = yaw if model == "unicycle" else yaw + u0[:, reference.STEER]
-    out = [x + v * np.cos(heading) * dt, y + v * np.sin(heading) * dt, yaw + w * dt]
-    if model == "full_body":
-        out += [poses[:, 3] + u0[:, 3] * dt, poses[:, 4] + u0[:, 4] * dt]
-    return np.stack(out, axis=-1).astype(np.float32)
-
-
 def respawn(poses: np.ndarray, starts: np.ndarray, course: np.ndarray, before_end: float):
     """Robots within ``before_end`` metres of the course's end (in x) start
     their lap again from their start pose."""
@@ -205,12 +224,15 @@ def _gap(a: float, b: float, angle: bool) -> float:
 
 
 def judge(answers: list, config: dict, course: np.ndarray, seed: int, device,
-          limits: dict):
+          limits: dict, ref=reference):
     """The numbers compared over every kept answer, and how many answers broke
-    a limit:
+    a limit, against the reference module ``ref``:
 
     - ``u_gap``: the largest gap between the program's u_opt and the
       reference's, each control channel over its box width;
+    - where ``ref`` has ``update_marked``, ``undecided``: the robots' updates
+      that it marks undecidable (a discrete choice of the algorithm within
+      rounding of its threshold), which ``u_gap`` leaves out;
     - ``carry``: answers whose carried state was not the previous output
       (the warm start bit for bit, the step and the key [seed, n]);
     - with a serving cycle's read, ``cmd_gap``: the largest gap (m/s, rad/s,
@@ -221,23 +243,34 @@ def judge(answers: list, config: dict, course: np.ndarray, seed: int, device,
     sol = config["solver"]
     box = (torch.tensor(sol["u_max"], dtype=torch.float64)
            - torch.tensor(sol["u_min"], dtype=torch.float64)).to(device)
+    marked = getattr(ref, "update_marked", None)
     out, failed = {"u_gap": 0.0, "carry": 0}, 0
+    if marked is not None:
+        out["undecided"] = 0
     for a in answers:
-        ref = reference.update(config, course, torch.from_numpy(a.poses).to(device),
-                               None if a.n == 0 else a.u_prev, seed, a.n)
+        args = (config, course, torch.from_numpy(a.poses).to(device),
+                None if a.n == 0 else a.u_prev, seed, a.n)
         got = a.out.to(device=device, dtype=torch.float64)
-        gap = ((got - ref.double()).abs() / box).max().item()
+        if marked is None:
+            gap = ((got - ref.update(*args).double()).abs() / box).max().item()
+        else:
+            want, undecided = marked(*args)
+            diff = ((got - want.double()).abs() / box)[~undecided.to(device)]
+            gap = diff.max().item() if diff.numel() else 0.0
         one = {"u_gap": gap if math.isfinite(gap) else math.inf}
         bad = not torch.equal(a.u_prev, a.prev_out)
         bad |= a.step is not None and a.step != a.n
         bad |= a.key is not None and a.key.tolist() != [seed, a.n]
         one["carry"] = int(bad)
+        if marked is not None:
+            one["undecided"] = int(undecided.sum())
         if a.read is not None:
-            want = reference.command(config["model"], a.read["u0"], a.read["dt"],
-                                     config["command"])
+            want = getattr(ref, "command", reference.command)(
+                config["model"], a.read["u0"], a.read["dt"], config["command"])
             one["cmd_gap"] = max(_gap(a.read[name], v, name.startswith("steer"))
                                  for name, v in want.items())
-            mode = reference.steering_mode(a.read["steer_r"], a.read["steer_l"])
+            mode = getattr(ref, "steering_mode", reference.steering_mode)(
+                a.read["steer_r"], a.read["steer_l"])
             one["mode_miss"] = int(mode is not None and mode != a.read["mode"])
         for name, value in one.items():
             out[name] = max(out.get(name, 0), value) if name.endswith("gap") else (
@@ -273,20 +306,28 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
         traffic_overrides=None, root: Path = ROOT):
     """One run of ``workload``: returns (the result's line as a dict, the
     lines for standard error). ``program`` (``programs.Port`` by default) is
-    built from the configuration; ``*_overrides`` change the configuration
-    or the mix (the tests' small sizes)."""
+    built from the configuration, the course and the configuration's
+    reference module; ``*_overrides`` change the configuration or the mix
+    (the tests' small sizes). A reference that marks undecidable answers
+    needs a limit for ``undecided`` in the cell's limits file: without one
+    the run raises before its window."""
     from benchmark import programs
 
     bench = load_benchmark(root)
     files = cell_files(bench, workload, root)
     config = dict(files["config"], **(config_overrides or {}))
     traffic = dict(files["traffic"], **(traffic_overrides or {}))
+    limits = files["limits"]
+    ref = reference_module(config, root)
+    if hasattr(ref, "update_marked") and "undecided" not in limits:
+        raise ValueError(f"{workload}'s reference marks undecided answers, and its limits "
+                         f"file has no limit for undecided")
     rng = inputs_rng(seed)
     course = course_for(config, traffic, rng)
     if program is None:
         program = programs.Port
-    prog = program(config, device, course)
-    ctx = Context(seed, seconds, trace, device, config, traffic, prog, course, rng)
+    prog = program(config, device, course, ref)
+    ctx = Context(seed, seconds, trace, device, config, traffic, prog, course, rng, ref)
     try:
         outcome = kind_module(traffic["kind"]).run(ctx)
     finally:
@@ -296,9 +337,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
-    limits = files["limits"]
     with torch.no_grad():
-        compared, failed = judge(outcome.answers, config, course, seed, device, limits)
+        compared, failed = judge(outcome.answers, config, course, seed, device, limits, ref)
     checks = {name: {"value": compared[name], "limit": limits[name]}
               for name in compared}
     stderr = [f"check {name}: {c['value']!r} (limit {c['limit']!r})"
@@ -315,7 +355,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device,
                 value = outcome.metrics[m["name"].split(".")[0]]
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        obs = {"spans": outcome.spans, "traces": outcome.traces,
+        obs = {"spans": outcome.spans, "traces": outcome.traces, "units": outcome.units,
+               "config": config, "traffic": traffic,
                "shape": {"model": config["model"], "num_samples": config["num_samples"],
                          "horizon": config["horizon"],
                          "robots": traffic.get("robots", 1)}}

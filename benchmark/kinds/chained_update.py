@@ -22,12 +22,12 @@ import time
 import torch
 from torch.profiler import record_function
 
-from benchmark import harness, reference, timing, trace
+from benchmark import harness, timing, trace
 
 
 def run(ctx: harness.Context) -> harness.Outcome:
     prog, dev, conf, tr = ctx.program, ctx.device, ctx.config, ctx.traffic
-    pose = harness.start_pose(ctx.course, reference.NUM_STATES[conf["model"]], ctx.rng,
+    pose = harness.start_pose(ctx.course, ctx.reference.num_states(conf), ctx.rng,
                               tr["pose_sigma"])
     poses = pose[None]
     path = prog.path(ctx.course)
@@ -73,7 +73,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     answers += [answer(*k) for k in kept if k is not None] + [answer(*last)]
 
-    traces = {}
+    traces, units = {}, {}
     if ctx.trace:
         def window():
             nonlocal ctrl
@@ -83,8 +83,9 @@ def run(ctx: harness.Context) -> harness.Outcome:
         events = trace.traced(window, dev)
         if events is not None:
             traces["update"] = trace.breakdown(events, harness.MARK)
+            units["update"] = trace.unit_ops(events, harness.MARK)
     k, t = conf["num_samples"], conf["horizon"]
     return harness.Outcome(
         metrics={"propagations_per_s": k * (t - 1) * count / seconds},
         attempted=count, setup_end=setup_end, answers=answers, memory_peak=peak,
-        spans={"call.update": spans} if ctx.trace else {}, traces=traces)
+        spans={"call.update": spans} if ctx.trace else {}, traces=traces, units=units)

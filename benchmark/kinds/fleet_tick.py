@@ -1,10 +1,10 @@
 """Traffic kind ``fleet_tick``: a fleet operator serving ``robots`` robots on
 one shared seeded course from one card. Each tick copies the fleet's poses
 from the host, runs one tick of the configuration's fleet step, reads the
-robots' commands (u0) back in one copy and steps the harness's NumPy plant
-by the solver's dt; a robot within ``respawn_before_end_m`` of the course's
-end starts its lap again from its start pose. Ticks are chained for the
-window.
+robots' commands (u0) back in one copy and steps the reference module's
+NumPy plant by the solver's dt; a robot within ``respawn_before_end_m`` of
+the course's end starts its lap again from its start pose. Ticks are chained
+for the window.
 
 Set-up: the first tick from zero warm starts (on the card it captures the
 CUDA graph), then ``warmup_units`` more. The window starts at the next tick
@@ -26,15 +26,15 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark import harness, reference, timing, trace
+from benchmark import harness, timing, trace
 
 
 def run(ctx: harness.Context) -> harness.Outcome:
     prog, dev, conf, tr = ctx.program, ctx.device, ctx.config, ctx.traffic
-    b, model = tr["robots"], conf["model"]
+    b = tr["robots"]
     course, dt_host = ctx.course, conf["dt"]
     heading = np.arctan2(course[1, 1] - course[0, 1], course[1, 0] - course[0, 0])
-    starts = np.zeros((b, reference.NUM_STATES[model]), np.float32)
+    starts = np.zeros((b, ctx.reference.num_states(conf)), np.float32)
     starts[:, 0] = course[0, 0] + ctx.rng.uniform(*tr["spawn_dx_m"], b)
     starts[:, 1] = course[0, 1] + ctx.rng.uniform(*tr["spawn_dy_m"], b)
     starts[:, 2] = heading
@@ -42,6 +42,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     dt = torch.full((), dt_host, dtype=torch.float32, device=dev)
     step = prog.fleet_step()
     before_end = tr["respawn_before_end_m"]
+    plant = ctx.reference.plant
 
     def tick(ctrls, poses):
         states = torch.from_numpy(poses).to(dev)
@@ -49,8 +50,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
         nxt, out, u0 = step(ctrls, states, path, dt)
         t1 = time.perf_counter()
         u0 = u0.cpu().numpy()
-        moved = harness.respawn(harness.host_plant(model, poses, u0, dt_host), starts,
-                                course, before_end)
+        moved = harness.respawn(plant(conf, poses, u0, dt_host), starts, course, before_end)
         return nxt, out, moved, t1 - t0
 
     def answer(n, ctrls, prev, out, poses):
@@ -89,7 +89,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     answers += [answer(*k) for k in kept if k is not None] + [answer(*last)]
 
-    traces = {}
+    traces, units = {}, {}
     if ctx.trace:
         def window():
             nonlocal ctrls, poses
@@ -99,7 +99,8 @@ def run(ctx: harness.Context) -> harness.Outcome:
         events = trace.traced(window, dev)
         if events is not None:
             traces["tick"] = trace.breakdown(events, harness.MARK)
+            units["tick"] = trace.unit_ops(events, harness.MARK)
     return harness.Outcome(
         metrics={"robot_updates_per_s": b * count / seconds},
         attempted=b * count, setup_end=setup_end, answers=answers, memory_peak=peak,
-        spans={"call.tick": spans} if ctx.trace else {}, traces=traces)
+        spans={"call.tick": spans} if ctx.trace else {}, traces=traces, units=units)

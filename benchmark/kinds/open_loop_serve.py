@@ -5,7 +5,7 @@ the previous cycle has finished (an open loop). Each cycle is composed as
 ``InputGate`` update and get, ``ControlLoop.step(pose, dt=solver_dt)``,
 ``command_from_solution``, ``resolve_command``, ``steering_mode``, and one
 device-to-host read of u0, the command and the mode. The plant is the world:
-the harness's NumPy copy of the model equations steps 1/hz seconds on the u0
+the reference module's NumPy model equations step 1/hz seconds on the u0
 read, after the read and outside the latency; the robot starts its lap again
 within ``respawn_before_end_m`` of the course's end.
 
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark import harness, reference, timing, trace
+from benchmark import harness, timing, trace
 
 FIELDS = ("v", "w", "steer_l", "steer_r", "roll")
 
@@ -52,9 +52,9 @@ def wait_until(due: float):
 
 def run(ctx: harness.Context) -> harness.Outcome:
     prog, dev, conf, tr = ctx.program, ctx.device, ctx.config, ctx.traffic
-    model, period, solver_dt = conf["model"], 1.0 / tr["hz"], tr["solver_dt"]
+    period, solver_dt = 1.0 / tr["hz"], tr["solver_dt"]
     course = ctx.course
-    start = harness.start_pose(course, reference.NUM_STATES[model], ctx.rng,
+    start = harness.start_pose(course, ctx.reference.num_states(conf), ctx.rng,
                                tr["pose_sigma"])[None]
     path = prog.path(course)
     loop = prog.control_loop(path, ctx.seed)
@@ -91,7 +91,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
         return host, res, ctrl_in, gate.stale_cycles > stale_before
 
     def plant(pose_np, host):
-        moved = harness.host_plant(model, pose_np, host[None, :u_dim], period)
+        moved = ctx.reference.plant(conf, pose_np, host[None, :u_dim], period)
         return harness.respawn(moved, start, course, tr["respawn_before_end_m"])
 
     pose = start
@@ -136,7 +136,7 @@ def run(ctx: harness.Context) -> harness.Outcome:
     print(f"generator lateness: mean {float(np.mean(late)) * 1e3!r} ms, max "
           f"{float(np.max(late)) * 1e3!r} ms over {cycles} cycles", file=sys.stderr)
 
-    traces = {}
+    traces, units = {}, {}
     if ctx.trace:
         def window():
             nonlocal pose
@@ -149,9 +149,10 @@ def run(ctx: harness.Context) -> harness.Outcome:
         events = trace.traced(window, dev)
         if events is not None:
             traces["cycle"] = trace.breakdown(events, harness.MARK)
+            units["cycle"] = trace.unit_ops(events, harness.MARK)
     lat_ms = [x * 1e3 for x in latency]
     return harness.Outcome(
         metrics={"cycle_ms_p95": timing.percentile(lat_ms, 95.0),
                  "cycle_ms_mean": float(np.mean(lat_ms))},
         attempted=cycles, setup_end=t_start, answers=answers, memory_peak=peak,
-        spans=spans if ctx.trace else {}, traces=traces)
+        spans=spans if ctx.trace else {}, traces=traces, units=units)

@@ -6,10 +6,17 @@ entry points only: ``core.presets``, ``paths.PathBuffer``,
 / ``build_fleet_step``, ``runtime.loop.ControlLoop``, ``runtime.gating.InputGate``
 and ``solver.command.command_from_solution`` / ``steering_mode``.
 
-:class:`Control` is the control of the correctness check: the plain
-reference, computed in bfloat16, put in the place of the update (the port's
-serving glue stays). The harness's runs never use it; ``benchmark.readings``
-and the tests do.
+The configuration's ``program`` block may hold ``options``: keyword options
+of ``mppi_step`` (``refine_steps``, ``refine_method``, ``elite_frac``,
+``adapt_sigma``, ...), which the port's update gets as written. Before any
+timing :class:`Port` refuses, with :class:`ConfigMismatch`, an option that
+``mppi_step`` does not know, one that is an argument of a call rather than a
+setting, and one that the traffic's path cannot honour; no option is dropped.
+
+:class:`Control` is the control of the correctness check: the
+configuration's plain reference, computed in bfloat16, put in the place of
+the update (the port's serving glue stays). The harness's runs never use it;
+``benchmark.readings`` and the tests do.
 """
 
 from __future__ import annotations
@@ -24,7 +31,13 @@ from benchmark import reference
 
 class ConfigMismatch(ValueError):
     """The preset the configuration names does not hold the configuration's
-    numbers."""
+    numbers, or the port cannot run the options it names as written."""
+
+
+# mppi_step's keywords that are a call's arguments or the program block's own
+# keys, not options of a configuration
+NOT_OPTIONS = ("model_params", "noise", "elite_stale_thresh", "group", "num_samples",
+               "first_sample", "use_kernel", "lean")
 
 
 def _check(name, got, want):
@@ -38,10 +51,14 @@ def _check(name, got, want):
 class Port:
     """The port at one configuration (a configuration file's dict) on
     ``device``; ``course`` is the harness's (the port is handed it as a path
-    by the traffic kind)."""
+    by the traffic kind), ``ref`` the configuration's reference module
+    (``benchmark/reference.py`` by default; the port never reads it)."""
 
-    def __init__(self, config: dict, device, course=None):
+    def __init__(self, config: dict, device, course=None, ref=reference):
+        import inspect
+
         from ccv_mppi_path_tracker_tpu_torch.core import presets
+        from ccv_mppi_path_tracker_tpu_torch.solver import mppi_step
 
         self.config, self.device = config, device
         preset = getattr(presets, config["program"]["preset"])
@@ -58,6 +75,22 @@ class Port:
         if self.cfg.steer_off != sol["steer_off"]:
             raise ConfigMismatch("steer_off differs from the configuration file")
         self.num_controls = len(sol["u_min"])
+        self.ref = ref
+        self.options = dict(config["program"].get("options", {}))
+        known = inspect.signature(mppi_step).parameters
+        for name in self.options:
+            if name not in known or known[name].default is inspect.Parameter.empty:
+                raise ConfigMismatch(f"mppi_step has no option {name!r}")
+            if name in NOT_OPTIONS:
+                raise ConfigMismatch(f"{name!r} is not an option of a configuration: it is an "
+                                     f"argument of a call or a key of the program block")
+
+    def _refuse(self, names, path: str):
+        """ConfigMismatch where the configuration names one of ``names``,
+        options that ``path`` cannot honour."""
+        bad = sorted(set(self.options) & set(names))
+        if bad:
+            raise ConfigMismatch(f"{path} cannot honour the option(s) {', '.join(bad)}")
 
     def path(self, course):
         from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
@@ -73,11 +106,12 @@ class Port:
 
     def update_step(self):
         """step(ctrl, state, path, dt) -> (ctrl, u_opt (T-1, U)): the compiled
-        kernel-lean update."""
+        kernel-lean update, under the configuration's options."""
         from ccv_mppi_path_tracker_tpu_torch.solver import compile_step
 
         opts = self.config["program"]
-        compiled = compile_step(self.cfg, use_kernel=opts["use_kernel"], lean=opts["lean"])
+        compiled = compile_step(self.cfg, use_kernel=opts["use_kernel"], lean=opts["lean"],
+                                **self.options)
         sp, cp = self.sp, self.cp
 
         def step(ctrl, state, path, dt):
@@ -94,6 +128,8 @@ class Port:
         """step(ctrls, states, path, dt) -> (ctrls, u_opt (B, T-1, U), u0 (B, U))."""
         from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step
 
+        self._refuse(self.options, "the fleet tick (build_fleet_step takes no solver options)")
+
         tick = build_fleet_step(self.cfg, use_kernel=self.config["program"]["use_kernel"])
         sp, cp = self.sp, self.cp
 
@@ -103,14 +139,17 @@ class Port:
         return step
 
     def control_loop(self, path, seed: int):
-        """A ControlLoop whose controller starts from ``seed``."""
+        """A ControlLoop whose controller starts from ``seed``, under the
+        configuration's options."""
         from ccv_mppi_path_tracker_tpu_torch.runtime.loop import ControlLoop
 
         opts = self.config["program"]
+        self._refuse(("adapt_sigma",), "the serving loop (ControlLoop sets adapt_sigma from "
+                     "its sigma_adapt)")
         loop = ControlLoop(cfg=self.cfg, sp=self.sp, cp=self.cp, path=path,
                            nominal_dt=self.config["dt"],
                            solver_options={"use_kernel": opts["use_kernel"],
-                                           "lean": opts["lean"]})
+                                           "lean": opts["lean"], **self.options})
         loop.ctrl = self.initial(seed)
         return loop
 
@@ -131,15 +170,15 @@ class Port:
 
 
 class Control(Port):
-    """The port with its update replaced by the plain reference in bfloat16
-    (the nearest precision below the configuration's float32). ``course``:
-    the harness's course, which the reference reads as it reads it in the
-    check."""
+    """The port with its update replaced by the configuration's plain
+    reference ``ref`` in bfloat16 (the nearest precision below the
+    configuration's float32). ``course``: the harness's course, which the
+    reference reads as it reads it in the check."""
 
     dtype = torch.bfloat16
 
-    def __init__(self, config: dict, device, course):
-        super().__init__(config, device)
+    def __init__(self, config: dict, device, course, ref=reference):
+        super().__init__(config, device, ref=ref)
         self.course = course
 
     def _state(self, seed, step, u_prev):
@@ -151,8 +190,8 @@ class Control(Port):
                                                 device=self.device))
 
     def _update(self, u_prev, states, seed, step):
-        u = reference.update(self.config, self.course, states, u_prev, seed, step,
-                             dtype=self.dtype)
+        u = self.ref.update(self.config, self.course, states, u_prev, seed, step,
+                            dtype=self.dtype)
         return u.to(torch.float32)
 
     def update_step(self):

@@ -32,6 +32,30 @@ One update, for B robots at once (a single robot is B = 1):
 ``dtype`` sets the precision of the arithmetic (float32 as configured; the
 control computes in bfloat16). The draw's uniforms and normals are always
 made in float32, as the generator defines them, and then cast.
+
+This module is also the default *reference module* of a configuration. A
+configuration file's ``reference`` key may name another, a file under
+``benchmark/`` given from the checkout's root; the harness then takes from it
+everything that is model-specific, and it may import the shared pieces (the
+draw, the window, the course) from here. A reference module imports nothing
+of the program, of JAX, of the JAX package or of ``bench_torch``, and
+supplies:
+
+- ``update(config, path_xy, pose, u_prev, seed, step, robots=None,
+  dtype=torch.float32)``: u_opt (B, T-1, U) of one update, as :func:`update`;
+- ``num_states(config)``: the length S of a pose;
+- ``plant(config, poses, u0, dt)``: the world's step of (B, S) NumPy poses
+  under (B, U) commands, as :func:`plant`;
+
+and may supply
+
+- ``update_marked(config, path_xy, pose, u_prev, seed, step)``: (u_opt,
+  undecided), undecided a (B,) bool tensor that marks the robots whose
+  answer a discrete choice of the algorithm decides within rounding of its
+  threshold. The check counts them (``undecided``, held to the cell's
+  limits file, which must have that limit) and leaves them out of ``u_gap``;
+- ``command`` and ``steering_mode``: the serving path's command geometry
+  (this module's where absent).
 """
 
 from __future__ import annotations
@@ -252,6 +276,23 @@ def update(config: dict, path_xy, pose, u_prev, seed: int, step: int, robots=Non
     w = torch.exp((c - torch.amin(c, dim=1, keepdim=True)) * (-1.0 / x.lam))
     num = torch.sum(w[:, None, :, None] * u, dim=2)
     return num / torch.sum(w, dim=1)[:, None, None]
+
+
+def num_states(config: dict) -> int:
+    return NUM_STATES[config["model"]]
+
+
+def plant(config: dict, poses: np.ndarray, u0: np.ndarray, dt: float) -> np.ndarray:
+    """The world: the model's Euler step in NumPy on the host, (B, S) poses
+    under (B, U) commands, as a new float32 array."""
+    model = config["model"]
+    x, y, yaw = poses[:, 0], poses[:, 1], poses[:, 2]
+    v, w = u0[:, 0], u0[:, 1]
+    heading = yaw if model == "unicycle" else yaw + u0[:, STEER]
+    out = [x + v * np.cos(heading) * dt, y + v * np.sin(heading) * dt, yaw + w * dt]
+    if model == "full_body":
+        out += [poses[:, 3] + u0[:, 3] * dt, poses[:, 4] + u0[:, 4] * dt]
+    return np.stack(out, axis=-1).astype(np.float32)
 
 
 # --- the serving path's command -----------------------------------------------------

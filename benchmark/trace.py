@@ -14,15 +14,19 @@ harness opens around its own call into the program, it gives
   interpreter between torch calls).
 
 :func:`inside_marks` adds the busy share inside the units' ranges only, for a
-paced loop whose units are apart. Nothing inside the program is instrumented.
+paced loop whose units are apart. :func:`unit_ops` keeps every device
+operation of every unit, compactly, for readers that split a unit's device
+time their own way. Nothing inside the program is instrumented.
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import os
 import tempfile
 
+import numpy as np
 import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -105,6 +109,51 @@ def inside_marks(marks, busy):
             covered += min(b, busy[i][1]) - max(a, busy[i][0])
             i += 1
     return 1.0 - covered / total if total > 0 else None
+
+
+def unit_ops(events, mark):
+    """Every device operation (kernel, copy, set) of each unit of the window
+    of ``mark`` ranges in the Chrome-trace ``events``, as arrays:
+
+    - ``names``: the operations' distinct names (a list of str);
+    - ``unit_us``: (n,) each unit's range on the host, in microseconds;
+    - ``unit``, ``name``: (m,) int32, the unit and the index into ``names``
+      of each operation;
+    - ``start_us``, ``dur_us``: (m,) float64, its start on the device from
+      its unit's start on the host, and its length.
+
+    An operation belongs to the unit inside whose range the host launched
+    it (its runtime call, by the trace's ``correlation``; a CUDA graph's
+    kernels carry their ``cudaGraphLaunch``'s). One with no launch in the
+    trace belongs to the last unit that started before it. The rows are
+    sorted by unit, then start."""
+    complete = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    marks = sorted(_marks(complete, mark), key=lambda e: e["ts"])
+    starts = [e["ts"] for e in marks]
+    ends = [e["ts"] + e["dur"] for e in marks]
+    launched = {}
+    for e in complete:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launched[corr] = e["ts"]
+    index, rows = {}, []
+    for e in complete:
+        if e.get("cat") not in DEVICE_CATS:
+            continue
+        host = launched.get(e.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, e["ts"] if host is None else host) - 1
+        if i < 0 or (host is not None and host > ends[i]):
+            continue
+        rows.append((i, e["ts"] - starts[i], e["dur"], index.setdefault(e["name"], len(index))))
+    rows.sort()
+    cols = list(zip(*rows)) or [(), (), (), ()]
+    return {"names": list(index),
+            "unit_us": np.array([e["dur"] for e in marks], dtype=np.float64),
+            "unit": np.array(cols[0], dtype=np.int32),
+            "name": np.array(cols[3], dtype=np.int32),
+            "start_us": np.array(cols[1], dtype=np.float64),
+            "dur_us": np.array(cols[2], dtype=np.float64)}
 
 
 def traced(window, device):
