@@ -17,7 +17,10 @@ are plain tensor functions that ``torch.func`` transforms as well. The
 refinement reads nothing back to the host: the
 Levenberg-Marquardt accept and the damping stay 0-d tensors under
 ``torch.where``, and the normal equations are solved by ``cholesky_ex`` and
-``cholesky_solve``, which check no error on the host.
+``cholesky_solve``, which check no error on the host. The steps taken and
+accepted are device counters of utils/profiling.py (``refine.lm_steps``,
+``refine.lm_accepted``), added to at the stage's end in three launches,
+which a CUDA graph of the stage replays.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
     rollout,
     rollout_closed_form,
 )
+from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+
+# the device counters of the Gauss-Newton stage (utils/profiling.py)
+COUNTERS = ("refine.lm_steps", "refine.lm_accepted")
 
 
 def _params(model, model_params, like):
@@ -171,6 +179,10 @@ def gauss_newton_refine(
     So refinement never raises the cost of the sampled update. A quadratic
     cost lands in one step where first-order refinement needs many
     (PAPERS.md: "Gauss-Newton accelerated MPPI Control").
+
+    The device counters ``refine.lm_steps`` and ``refine.lm_accepted``
+    count the steps and the accepts, except under a ``torch.func``
+    transform and where an input requires grad (profiling.device_counting).
     """
     res = _batched_residuals(cfg)
     args = (state, ref, dt, cp, model_params)
@@ -182,6 +194,7 @@ def gauss_newton_refine(
     r0 = f(u_opt)
     u, cost = u_opt, torch.sum(r0 * r0)
     lam = torch.full((), damping, dtype=u_opt.dtype, device=u_opt.device)
+    accepts = [] if profiling.device_counting(u_opt, r0) else None
     for _ in range(num_steps):
         r, jac = _residuals_and_jacobian(res, u, *args)
         # J^T J + lam*I is symmetric positive definite: Cholesky, with no
@@ -196,6 +209,16 @@ def gauss_newton_refine(
         u = torch.where(accept, u_new, u)
         cost = torch.where(accept, cost_new, cost)
         lam = torch.where(accept, lam * 0.5, lam * 10.0)
+        if accepts is not None:
+            accepts.append(accept)
+    true = profiling.device_constant(True, torch.bool, u_opt.device) if accepts else None
+    if true is not None:
+        # [steps, accepted] in three launches: the stack; a sum that stays in
+        # uint8, since an int64 sum of bools first casts them; the add
+        taken = torch.stack([x for a in accepts for x in (true, a)])
+        small = torch.uint8 if num_steps < 256 else torch.int64
+        increments = taken.view(torch.uint8).view(-1, 2).sum(0, dtype=small)
+        profiling.count_on_device(COUNTERS, increments)
     return u
 
 

@@ -460,21 +460,25 @@ def _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, 
 
 def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
     """The refine stage, eagerly: ``steps`` refinement steps of ``method``,
-    the steer channel held at zero under ``cfg.steer_off``."""
-    if method == "gauss_newton":
-        u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
-                                    model_params=model_params, num_steps=steps)
-    elif method == "gradient":
-        u_opt = gradient_refine(cfg, u_opt, state, ref, dt, sp, cp, model_params=model_params,
-                                step_size=step_size, num_steps=steps)
-    else:
-        raise ValueError(f"refine_method must be 'gradient' or 'gauss_newton', "
-                         f"got {method!r}")
-    if cfg.steer_off and u_opt.shape[1] > STEER_DIM:
-        # the gradient has no reason to keep the disabled channel at zero
-        u_opt = u_opt.clone()
-        u_opt[:, STEER_DIM] = 0.0
-    return u_opt
+    the steer channel held at zero under ``cfg.steer_off``. The span
+    ``refine.stage`` (utils/profiling.py) records its host time where it runs
+    op by op and at a capture; a replay runs no host code."""
+    with span("refine.stage"):
+        if method == "gauss_newton":
+            u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
+                                        model_params=model_params, num_steps=steps)
+        elif method == "gradient":
+            u_opt = gradient_refine(cfg, u_opt, state, ref, dt, sp, cp,
+                                    model_params=model_params, step_size=step_size,
+                                    num_steps=steps)
+        else:
+            raise ValueError(f"refine_method must be 'gradient' or 'gauss_newton', "
+                             f"got {method!r}")
+        if cfg.steer_off and u_opt.shape[1] > STEER_DIM:
+            # the gradient has no reason to keep the disabled channel at zero
+            u_opt = u_opt.clone()
+            u_opt[:, STEER_DIM] = 0.0
+        return u_opt
 
 
 # The refine stage's CUDA graphs: one per refine configuration and shapes a

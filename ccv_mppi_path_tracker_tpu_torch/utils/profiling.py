@@ -11,6 +11,13 @@ process-wide registry of spans and counters that the program records into.
   range of the same name, so it sits in the profiler's Chrome trace on the
   device trace's clock.
 - A counter adds whole numbers under a name (:func:`counters`).
+- A device counter (:func:`count_on_device`) is a 0-d int64 tensor on a
+  device, one a name and device, allocated once and added to in place, so
+  that a CUDA graph captured around the addition keeps adding to the same
+  memory at every replay, where no host code runs. The counters added to at
+  one site are the elements of one tensor, so that one launch adds to them
+  all. Adding reads nothing back; :func:`counters` reads each device's
+  counters once, and :func:`reset` zeroes them in place.
 - Hot spans and counters, those of every compiled call
   (utils/cuda_graph.py, solver/mppi.py, solver/batch.py), record only while
   a profiler runs: the call asks :func:`tracing` once at its entry and takes
@@ -37,6 +44,10 @@ tracing = torch.autograd._profiler_enabled
 # name -> [count, total nanoseconds]; name -> count
 _SPANS: dict = {}
 _COUNTERS: dict = {}
+# (names, device) -> an int64 tensor of one counter a name; (value, dtype,
+# device) -> a constant
+_DEVICE_COUNTERS: dict = {}
+_DEVICE_CONSTANTS: dict = {}
 
 
 def record(name: str, ns: int, count: int = 1, table: dict = _SPANS):
@@ -54,6 +65,54 @@ def count(name: str, n: int = 1):
     _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
+def device_counting(*tensors) -> bool:
+    """Whether device counters may be added to here: no ``torch.func``
+    transform is active, nothing is being compiled or exported, and none of
+    ``tensors`` requires grad (the counters stay out of autograd's graph)."""
+    return (torch._C._functorch.maybe_current_level() is None
+            and not torch.compiler.is_compiling()
+            and not any(t.requires_grad for t in tensors))
+
+
+def _made_once(table: dict, key, make):
+    """``table[key]``, made by ``make()`` where it is missing; None where it
+    is missing under a CUDA graph's capture, which would allocate it from the
+    graph's pool and capture its fill into every replay."""
+    t = table.get(key)
+    if t is None:
+        if key[-1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return None
+        # a plain tensor even under inference mode: a later call outside it adds
+        with torch.inference_mode(False):
+            t = table[key] = make()
+    return t
+
+
+def device_constant(value, dtype, device):
+    """A 0-d tensor holding ``value`` on ``device``, made once (None where it
+    would first be made under a capture)."""
+    device = torch.device(device)
+    return _made_once(_DEVICE_CONSTANTS, (value, dtype, device),
+                      lambda: torch.full((), value, dtype=dtype, device=device))
+
+
+def count_on_device(names: tuple, increments) -> bool:
+    """Add ``increments``, a (len(names),) tensor of whole numbers on one
+    device, to the device counters ``names`` there, in one launch: the
+    counters of one tuple of names are the elements of one int64 tensor, each
+    name's counter a 0-d view of it. Under a CUDA graph's capture the add is
+    captured and a replay makes it again. Counts nothing, and returns False,
+    where the counters would first be made under a capture (a graph's first
+    run, outside the capture, makes them)."""
+    device = increments.device
+    group = _made_once(_DEVICE_COUNTERS, (tuple(names), device),
+                       lambda: torch.zeros(len(names), dtype=torch.int64, device=device))
+    if group is None:
+        return False
+    group.add_(increments)
+    return True
+
+
 def _summary(table: dict) -> dict:
     return {name: {"count": c, "total_s": ns / 1e9} for name, (c, ns) in table.items()}
 
@@ -64,14 +123,28 @@ def spans() -> dict:
 
 
 def counters() -> dict:
-    """{name: total} of every counter since :func:`reset`."""
-    return dict(_COUNTERS)
+    """{name: total} of every counter since :func:`reset`: the host's, and
+    each device counter that is not 0 added to its name's, read with one
+    copy a device at this call."""
+    out = dict(_COUNTERS)
+    by_device: dict = {}
+    for (names, device), group in _DEVICE_COUNTERS.items():
+        by_device.setdefault(device, []).append((names, group))
+    for groups in by_device.values():
+        values = torch.cat([g for _, g in groups]).tolist()
+        for name, v in zip([n for names, _ in groups for n in names], values):
+            if v:
+                out[name] = out.get(name, 0) + v
+    return out
 
 
 def reset():
-    """Empty the spans and the counters."""
+    """Empty the spans and the counters; the device counters are zeroed in
+    place, so that a captured graph keeps adding to them."""
     _SPANS.clear()
     _COUNTERS.clear()
+    for t in _DEVICE_COUNTERS.values():
+        t.zero_()
 
 
 class span:

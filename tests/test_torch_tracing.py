@@ -213,3 +213,87 @@ def test_each_reader(metric, monkeypatch):
     assert entry["workloads"] == ([CELL[suffix]] if suffix in CELL else
                                   ["full_body.update", "diff_drive.fleet-B256",
                                    "diff_drive.update"])
+
+
+# --- the refine stage's readers (the cell full_body_gn.update) --------------------------------
+
+GN_CELL = "full_body_gn.update"
+GN_READERS = ("refine_device_us.gn", "refine_ops.gn", "refine_roofline.gn",
+              "refine_accepted.gn")
+
+
+def gn_window(monkeypatch):
+    """The obs of a traced in-process window of the refined cell at K=64,
+    T=10, and its line. On the CPU the trace holds no device operation, so
+    ``units`` is empty."""
+    import time
+
+    seen = []
+    real = harness.reader
+    monkeypatch.setattr(harness, "reader", lambda name: lambda obs: (seen.append(obs),
+                                                                    real(name)(obs))[1])
+    line, _ = harness.run(GN_CELL, 2**31 + 3, 0.0, True, torch.device("cpu"),
+                          time.perf_counter(), config_overrides={"num_samples": 64, "horizon": 10},
+                          traffic_overrides={"warmup_units": 1, "trace_units": 2,
+                                             "check_sample": 1})
+    monkeypatch.setattr(harness, "reader", real)
+    return seen[0], line
+
+
+def gn_units():
+    """Two refined units as the card's trace gives them: the fused kernel,
+    then the stage's launches (two and three of them), by correlation."""
+    from benchmark import trace
+
+    k = "void rollout_cost_kernel<3, false, true>(float*)"
+    x = lambda name, cat, ts, dur, corr=None: dict(  # noqa: E731
+        {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur},
+        **({"args": {"correlation": corr}} if corr is not None else {}))
+    events = [x(harness.MARK, "user_annotation", 0, 100),
+              x(harness.MARK, "user_annotation", 400, 100),
+              x("cudaGraphLaunch", "cuda_runtime", 10, 5, 1),
+              x("cudaGraphLaunch", "cuda_runtime", 410, 5, 2),
+              x("fill", "kernel", 20, 2, 1), x(k, "kernel", 30, 150, 1),
+              x("cholesky", "kernel", 181, 40, 1), x("solve", "kernel", 230, 20, 1),
+              x(k, "kernel", 420, 150, 2), x("gemm", "kernel", 571, 10, 2),
+              x("cholesky", "kernel", 590, 40, 2), x("where", "kernel", 640, 6, 2)]
+    return trace.unit_ops(events, harness.MARK)
+
+
+def test_refine_readers_read_a_traced_window(monkeypatch):
+    """The accepted share from the counters the window's updates added; the
+    stage's time, launches and roofline share from its units (here the
+    card's trace given by hand): 60 and 56 us, 2 and 3 launches."""
+    from benchmark import work_refine
+
+    obs, line = gn_window(monkeypatch)
+    counted = profiling.counters()
+    assert counted["refine.lm_steps"] % 3 == 0 and counted["refine.lm_steps"] >= 3 * 4
+    share = line["metrics"]["refine_accepted.gn"]["value"]
+    assert share == 100.0 * counted.get("refine.lm_accepted", 0) / counted["refine.lm_steps"]
+    assert 0.0 < share <= 100.0
+    assert set(line["metrics"]) == {"refine_accepted.gn"}     # no device trace on the CPU
+    obs = dict(obs, units={"update": gn_units()})
+    got = {name: harness.reader(name)(obs) for name in GN_READERS}
+    assert got["refine_device_us.gn"] == 58.0 and got["refine_ops.gn"] == 2.5
+    assert got["refine_roofline.gn"] == pytest.approx(
+        100.0 * work_refine.bound_us(10, 5, 3) / 58.0, rel=1e-12)
+    assert got["refine_accepted.gn"] == share
+    entries = {m["name"]: m for m in harness.load_benchmark()["per_layer"]}
+    assert all(entries[n]["workloads"] == [GN_CELL] and entries[n]["layer"] == "refine stage"
+               for n in GN_READERS)
+
+
+def test_refine_readers_are_silent_without_what_they_read(monkeypatch):
+    """A port without the device counters (it counts nothing) reads no
+    accepted share; no traced unit, or none with the fused kernel, reads no
+    stage time."""
+    monkeypatch.setattr(profiling, "count_on_device", lambda increments, device: False)
+    obs, line = gn_window(monkeypatch)
+    assert profiling.counters() == {} and line["metrics"] == {}
+    assert all(harness.reader(name)(obs) is None for name in GN_READERS)
+    units = gn_units()
+    units["names"] = ["other" if "rollout_cost" in n else n for n in units["names"]]
+    assert harness.reader("refine_device_us.gn")(dict(obs, units={"update": units})) is None
+    monkeypatch.delattr(profiling, "counters")
+    assert harness.reader("refine_accepted.gn")(obs) is None
