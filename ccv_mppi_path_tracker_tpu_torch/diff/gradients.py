@@ -21,15 +21,25 @@ Levenberg-Marquardt accept and the damping stay 0-d tensors under
 accepted are device counters of utils/profiling.py (``refine.lm_steps``,
 ``refine.lm_accepted``), added to at the stage's end in three launches,
 which a CUDA graph of the stage replays.
+
+On the card, the Gauss-Newton steps of a full_body sequence in float32, where
+nothing requires grad and no ``torch.func`` transform is active, run as one
+launch of the hand-written kernel kernels/gauss_newton.py, which adds to the
+same counters and to ``refine.fused_steps`` itself; everywhere else (the CPU,
+the other models, grad, transforms, a horizon past the kernel's shared memory)
+they run op by op (:func:`gauss_newton_refine_plain`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.autograd.forward_ad as fwAD
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import CostParams, SolverConfig, SolverParams
 from ccv_mppi_path_tracker_tpu_torch.core.types import RefWindow
+from ccv_mppi_path_tracker_tpu_torch.kernels import gauss_newton as gn_kernel
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.mindist import min_sq_distance
@@ -183,7 +193,56 @@ def gauss_newton_refine(
     The device counters ``refine.lm_steps`` and ``refine.lm_accepted``
     count the steps and the accepts, except under a ``torch.func``
     transform and where an input requires grad (profiling.device_counting).
+
+    Where the kernel takes the call (:func:`_fused_inputs`: full_body,
+    float32 CUDA tensors of a shape that fits its shared memory, nothing that
+    requires grad, no transform) the steps are one launch of
+    kernels/gauss_newton.py, which also counts them in
+    ``refine.fused_steps``; elsewhere they run op by op
+    (:func:`gauss_newton_refine_plain`).
     """
+    fused = _fused_inputs(cfg, u_opt, state, ref, dt, sp, cp, model_params, num_steps)
+    if fused is None:
+        return gauss_newton_refine_plain(cfg, u_opt, state, ref, dt, sp, cp, model_params,
+                                         num_steps, damping)
+    return gn_kernel.gauss_newton_steps(
+        *fused, num_steps, damping,
+        counts=profiling.device_group(gn_kernel.COUNTERS, u_opt.device),
+        fused=profiling.device_group(gn_kernel.FUSED, u_opt.device))
+
+
+def _contiguous(params):
+    return dataclasses.replace(params, **{f.name: getattr(params, f.name).contiguous()
+                                          for f in dataclasses.fields(params)})
+
+
+def _on_card(t) -> bool:
+    return t.is_cuda
+
+
+def _fused_inputs(cfg, u_opt, state, ref, dt, sp, cp, model_params, num_steps):
+    """The operands of kernels/gauss_newton.py gauss_newton_steps for this
+    call, each contiguous (a number dt made a tensor), or None where the
+    steps run op by op: off the card, another model or dtype, a shape the
+    kernel has no plan for, an input that requires grad, or a transform."""
+    if not (_on_card(u_opt) and cfg.model == "full_body" and u_opt.dtype == torch.float32):
+        return None
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), dt, dtype=u_opt.dtype, device=u_opt.device)
+    mp = _params(get_model(cfg.model), model_params, u_opt)
+    args = (u_opt, state, ref.xy, ref.yaw, dt, sp.u_min, sp.u_max)
+    if not gn_kernel.takes(*args, cp, mp, num_steps):
+        return None
+    params = [getattr(p, f.name) for p in (cp, mp) for f in dataclasses.fields(p)]
+    if not profiling.device_counting(*args, *params):
+        return None
+    return (*[t.contiguous() for t in args], _contiguous(cp), _contiguous(mp))
+
+
+def gauss_newton_steps_plain(cfg, u_opt, state, ref, dt, u_min, u_max, cp, model_params,
+                             num_steps, damping):
+    """The guarded steps op by op: (u, [each step's accept, a 0-d bool
+    tensor], r0 the residuals at u_opt)."""
     res = _batched_residuals(cfg)
     args = (state, ref, dt, cp, model_params)
 
@@ -194,7 +253,7 @@ def gauss_newton_refine(
     r0 = f(u_opt)
     u, cost = u_opt, torch.sum(r0 * r0)
     lam = torch.full((), damping, dtype=u_opt.dtype, device=u_opt.device)
-    accepts = [] if profiling.device_counting(u_opt, r0) else None
+    accepts = []
     for _ in range(num_steps):
         r, jac = _residuals_and_jacobian(res, u, *args)
         # J^T J + lam*I is symmetric positive definite: Cholesky, with no
@@ -202,16 +261,26 @@ def gauss_newton_refine(
         # round-off gives a NaN step, which the guard below rejects)
         chol, _ = torch.linalg.cholesky_ex(jac.T @ jac + lam * eye)
         delta = torch.cholesky_solve((jac.T @ r)[:, None], chol)[:, 0]
-        u_new = torch.clamp(u - delta.reshape(u.shape), sp.u_min, sp.u_max)
+        u_new = torch.clamp(u - delta.reshape(u.shape), u_min, u_max)
         r_new = f(u_new)
         cost_new = torch.sum(r_new * r_new)
         accept = cost_new < cost
         u = torch.where(accept, u_new, u)
         cost = torch.where(accept, cost_new, cost)
         lam = torch.where(accept, lam * 0.5, lam * 10.0)
-        if accepts is not None:
-            accepts.append(accept)
-    true = profiling.device_constant(True, torch.bool, u_opt.device) if accepts else None
+        accepts.append(accept)
+    return u, accepts, r0
+
+
+def gauss_newton_refine_plain(cfg, u_opt, state, ref, dt, sp, cp, model_params=None,
+                              num_steps=3, damping=1e-3):
+    """:func:`gauss_newton_refine` op by op (forward-mode AD, matmuls,
+    ``cholesky_ex``/``cholesky_solve``, ``torch.where``), the steps and the
+    accepts counted at the end."""
+    u, accepts, r0 = gauss_newton_steps_plain(cfg, u_opt, state, ref, dt, sp.u_min, sp.u_max,
+                                              cp, model_params, num_steps, damping)
+    counting = accepts and profiling.device_counting(u_opt, r0)
+    true = profiling.device_constant(True, torch.bool, u_opt.device) if counting else None
     if true is not None:
         # [steps, accepted] in three launches: the stack; a sum that stays in
         # uint8, since an int64 sum of bools first casts them; the add

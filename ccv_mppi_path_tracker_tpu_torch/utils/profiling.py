@@ -16,7 +16,8 @@ process-wide registry of spans and counters that the program records into.
   that a CUDA graph captured around the addition keeps adding to the same
   memory at every replay, where no host code runs. The counters added to at
   one site are the elements of one tensor, so that one launch adds to them
-  all. Adding reads nothing back; :func:`counters` reads each device's
+  all; a kernel may add to that tensor itself (:func:`device_group`). Adding
+  reads nothing back; :func:`counters` reads each device's
   counters once, and :func:`reset` zeroes them in place.
 - Hot spans and counters, those of every compiled call
   (utils/cuda_graph.py, solver/mppi.py, solver/batch.py), record only while
@@ -96,6 +97,16 @@ def device_constant(value, dtype, device):
                       lambda: torch.full((), value, dtype=dtype, device=device))
 
 
+def device_group(names: tuple, device):
+    """The int64 tensor of the device counters ``names`` on ``device``, one
+    element a name, made once as zeros, for a kernel that adds to it in place;
+    None where it would first be made under a capture (a graph's first run,
+    outside the capture, makes it)."""
+    device = torch.device(device)
+    return _made_once(_DEVICE_COUNTERS, (tuple(names), device),
+                      lambda: torch.zeros(len(names), dtype=torch.int64, device=device))
+
+
 def count_on_device(names: tuple, increments) -> bool:
     """Add ``increments``, a (len(names),) tensor of whole numbers on one
     device, to the device counters ``names`` there, in one launch: the
@@ -104,9 +115,7 @@ def count_on_device(names: tuple, increments) -> bool:
     captured and a replay makes it again. Counts nothing, and returns False,
     where the counters would first be made under a capture (a graph's first
     run, outside the capture, makes them)."""
-    device = increments.device
-    group = _made_once(_DEVICE_COUNTERS, (tuple(names), device),
-                       lambda: torch.zeros(len(names), dtype=torch.int64, device=device))
+    group = device_group(names, increments.device)
     if group is None:
         return False
     group.add_(increments)

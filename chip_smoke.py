@@ -231,6 +231,17 @@ failure ending the run with a non-zero exit:
      the draw of robot 65535 alone); scripts/torch_eager_breakdown.py
      --quick and scripts/torch_kernel_ab.py sass (both kernels' issue
      floors), each in a process of its own.
+ 36. the refine stage's kernel (kernels/gauss_newton.py, csrc/gauss_newton.cu):
+     its build and ptxas report; against the op-by-op stage on the card at
+     T=30 on 30 inputs (28 seeded sampled updates, half with roll_off, and
+     the zero warm start of two), the accept pattern of the 3 steps, the
+     counters and max |du| over the box width; an input with a NaN and one
+     with a non-positive pivot, every step rejected; the dispatch of
+     gauss_newton_refine launching it; one launch a replayed refined update
+     (and the device ops from the fused kernel's end by torch.profiler);
+     CUDA-event times in turns of the kernel, the plain stage as a graph, the
+     refined update with either, the unrefined update, beside
+     benchmark/work_refine.py bound_us(30, 5, 3).
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -240,7 +251,8 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 "training": ...}), phases 24-28 with {"sharded": ..., "auto": ..., "export":
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
 phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
-phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...}.
+phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...},
+phase 36 with {"gauss_newton_kernel": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
@@ -2651,6 +2663,236 @@ def phase_35(dev, card, counters_zero):
     return record, {"rollout_cost_unicycle_fleet": tick_launches}
 
 
+GN_SEEDS = 28              # phase 36: seeded sampled updates, half with roll_off
+GN_GAP = 5e-2              # phase 36: kernel vs op by op, of the box (see the phase)
+
+
+def phase_36(dev, card, counters_zero):
+    """Phase 36: the refine stage's kernel (kernels/gauss_newton.py
+    gauss_newton_steps, csrc/gauss_newton.cu) against the plain op-by-op
+    stage on the card (diff/gradients.py gauss_newton_steps_plain), float32,
+    full_body at T=30: (a) its build and ptxas report; (b) 32 inputs: the
+    sampled update of GN_SEEDS seeded flagship cases (half with roll_off, so
+    that the ZMP and roll-rate rows weigh too) and the zero warm start of two
+    (the v = 0 tie), each with the accept pattern of the 3 steps equal (the
+    kernel's from its counters after 1, 2 and 3 steps), the counters
+    [3, accepted] and the fused steps 3, and max |du| over the box width
+    under GN_GAP: the damped system's condition number is ~2e4, so rounding
+    alone moves an answer by up to 2e-2 of the box (PERF.md section 2); both
+    arms' distance from the float64 stage is printed; the dispatch
+    (gauss_newton_refine) launching the kernel, bit-equal to the wrapper's
+    call; an input with a NaN (every step rejected, a NaN pivot) and one
+    with damping -1e3 (a non-positive pivot): every step rejected, the
+    sequence returned bit for bit; (c) a compiled refined update replayed 20
+    times: one kernel launch, 3 fused steps counted a replay, and by
+    torch.profiler the device ops after the fused kernel; (d) CUDA-event
+    times in turns: the kernel (a graph of 20 launches), the plain stage
+    as a graph, the refined update with the kernel and with the plain
+    stage, the unrefined update; the kernel beside
+    benchmark/work_refine.py bound_us(30, 5, 3). Returns its record."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import work_refine
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, RefWindow
+    from ccv_mppi_path_tracker_tpu_torch.diff import gradients
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels import gauss_newton as gn
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    record = {}
+    # (a) the build
+    lib_path, build_s, log = build.build("gauss_newton")
+    ptxas = build.ptxas_summary(log or "")
+    print(f"[36 build] {lib_path.name} in {build_s:.2f} s; ptxas {ptxas}", flush=True)
+    require(all("rollout_cost_kernel" not in name for name in ptxas),
+            "a Gauss-Newton entry point carries the fused kernel's name")
+    record["ptxas"] = ptxas
+
+    def case(seed, roll_off, zero=False):
+        s = kernel_case("full_body", K_MAIN, T_MAIN, roll_off=roll_off, seed=seed)
+        _, res = mppi_step(s["cfg"], ControllerState(s["u_prev"], seed, 0), s["state"],
+                           s["path"], s["dt"], s["sp"], s["cp"], model_params=s["mp"],
+                           use_kernel=True)
+        u = torch.zeros_like(res.u_opt) if zero else res.u_opt
+        return s, u, res.ref
+
+    def cast(obj, dtype):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(dtype)
+                                           for f in dataclasses.fields(obj)})
+
+    def plain(s, u, ref, dtype=torch.float32, damping=1e-3):
+        sp = cast(s["sp"], dtype)
+        out, accepts, _ = gradients.gauss_newton_steps_plain(
+            s["cfg"], u.to(dtype), s["state"].to(dtype),
+            RefWindow(ref.xy.to(dtype), ref.yaw.to(dtype)), s["dt"].to(dtype), sp.u_min,
+            sp.u_max, cast(s["cp"], dtype), cast(s["mp"], dtype), 3, damping)
+        return out, [bool(a) for a in accepts]
+
+    def kernel(s, u, ref, steps=3, damping=1e-3):
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        fused = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = gn.gauss_newton_steps(u, s["state"], ref.xy, ref.yaw, s["dt"], s["sp"].u_min,
+                                    s["sp"].u_max, s["cp"], s["mp"], steps, damping,
+                                    counts=counts, fused=fused)
+        torch.cuda.synchronize()
+        return out, counts.tolist(), fused.tolist()
+
+    # (b) the kernel against the op-by-op stage
+    cases = [(seed, seed % 2 == 0, False) for seed in range(GN_SEEDS)]
+    cases += [(GN_SEEDS, True, True), (GN_SEEDS + 1, False, True)]
+    gaps, rows = [], []
+    for seed, roll_off, zero in cases:
+        s, u, ref = case(seed, roll_off, zero)
+        box = (s["sp"].u_max - s["sp"].u_min).double()
+        want, pattern = plain(s, u, ref)
+        got, counts, fused = kernel(s, u, ref)
+        prefix = [kernel(s, u, ref, steps=k)[1][1] for k in (1, 2)] + [counts[1]]
+        kpattern = [prefix[0] == 1] + [b - a == 1 for a, b in zip(prefix, prefix[1:])]
+        exact, _ = plain(s, u, ref, torch.float64)
+        gap = float(((got.double() - want.double()).abs() / box).max())
+        k64 = float(((got.double() - exact).abs() / box).max())
+        p64 = float(((want.double() - exact).abs() / box).max())
+        before = gn.gauss_newton_steps.launches
+        routed = gradients.gauss_newton_refine(s["cfg"], u, s["state"], ref, s["dt"],
+                                               s["sp"], s["cp"], s["mp"])
+        require(gn.gauss_newton_steps.launches == before + 1 and torch.equal(routed, got),
+                f"seed {seed}: gauss_newton_refine did not route to the kernel")
+        rows.append(dict(seed=seed, roll_off=roll_off, zero=zero, gap=gap, kernel_f64=k64,
+                         plain_f64=p64, pattern=pattern, counts=counts))
+        gaps.append(gap)
+        print(f"  seed {seed} roll_off {roll_off} zero {zero}: accepts plain {pattern} "
+              f"kernel {kpattern}, counts {counts} fused {fused}; |du|/box {gap:.3e}; "
+              f"from float64: kernel {k64:.3e}, plain {p64:.3e}", flush=True)
+        require(kpattern == pattern and counts == [3, sum(pattern)] and fused == [3],
+                f"seed {seed}: the kernel's accepts or counters differ from the op-by-op "
+                f"stage's")
+        require(gap <= GN_GAP, f"seed {seed}: the kernel differs by {gap} of the box")
+    # every step rejected: a NaN in the sequence (a NaN pivot), and a damping
+    # that makes a pivot negative
+    s, u, ref = case(GN_SEEDS + 2, True)
+    u_nan = u.clone()
+    u_nan[3, 1] = float("nan")
+    for name, uu, damping in (("nan", u_nan, 1e-3), ("negative pivot", u, -1e3)):
+        got, counts, fused = kernel(s, uu, ref, damping=damping)
+        same = torch.equal(got.nan_to_num(7.0), uu.nan_to_num(7.0))
+        want, pattern = plain(s, uu, ref, damping=damping)
+        print(f"  {name}: kernel counts {counts}, the sequence returned bit for bit {same}; "
+              f"the op-by-op stage's accepts {pattern}", flush=True)
+        require(counts == [3, 0] and same, f"{name}: a step was not rejected")
+    record["compare"] = dict(max_gap=max(gaps), rows=rows)
+    print(f"[36 compare] the kernel against the op-by-op stage on the card, {len(cases)} "
+          f"inputs at T={T_MAIN}: max |du|/box {max(gaps):.3e} (gate {GN_GAP}); accept "
+          f"patterns and counters equal; NaN and non-positive pivots rejected", flush=True)
+
+    # (c) one launch a replayed refined update
+    s = kernel_case("full_body", K_MAIN, T_MAIN, roll_off=True, seed=36)
+    call = (s["state"], s["path"], s["dt"], s["sp"], s["cp"])
+    refined = compile_step(s["cfg"], use_kernel=True, lean=True, refine_steps=3,
+                           refine_method="gauss_newton")
+    carry = [ControllerState(s["u_prev"], 36, 0)]
+
+    def update():
+        carry[0], _ = refined(carry[0], *call, model_params=s["mp"])
+
+    for _ in range(3):
+        update()
+    torch.cuda.synchronize()
+    require(refined.captures == 1, f"{refined.captures} captures of the refined update")
+    profiling.reset()
+    before = gn.gauss_newton_steps.launches
+    for _ in range(20):
+        update()
+    torch.cuda.synchronize()
+    launched = gn.gauss_newton_steps.launches - before
+    counted = profiling.counters()
+    print(f"[36 replay] 20 replays of the refined update: {launched} kernel launches, "
+          f"counters {counted}", flush=True)
+    require(launched == 20 and counted.get("refine.fused_steps") == 60
+            and counted.get("refine.lm_steps") == 60,
+            "the replayed refined update does not take the kernel once")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            update()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    ends = [e.time_range.end for e in events if "rollout_cost_kernel" in e.name]
+    gn_events = [e for e in events if "gauss_newton_kernel" in e.name]
+    if ends:
+        # the ops from the fused kernel's end to the Gauss-Newton launch's end
+        after = [sum(1 for e in events if a <= e.time_range.start < g.time_range.end)
+                 for a, g in zip(ends, gn_events)]
+        gn_us = [e.time_range.elapsed_us() for e in gn_events]
+        record["replay"] = dict(ops_after_kernel=after, kernel_us=gn_us,
+                                device_ops=len(events) / 5)
+        print(f"[36 profile] 5 replays: {len(events) / 5:.1f} device ops an update, "
+              f"{after} from the fused kernel's end to the Gauss-Newton launch's end, "
+              f"{len(gn_events)} Gauss-Newton launches of "
+              f"{gn_us} us", flush=True)
+        require(len(gn_events) == 5, "not one Gauss-Newton launch a replay")
+    else:
+        print("[36 profile] the profiler recorded no device activity: not measured",
+              flush=True)
+
+    # (d) times in turns
+    s, u, ref = case(37, True)
+    args = (u, s["state"], ref.xy, ref.yaw, s["dt"], s["sp"].u_min, s["sp"].u_max, s["cp"],
+            s["mp"])
+    plain_args = (s["cfg"], u, s["state"], ref, s["dt"], s["sp"], s["cp"], s["mp"])
+    unrefined = compile_step(s["cfg"], use_kernel=True, lean=True)
+    carries = {}
+
+    def updater_of(step, key):
+        carries[key] = ControllerState(s["u_prev"], 37, 0)
+
+        def fn():
+            carries[key], _ = step(carries[key], s["state"], s["path"], s["dt"], s["sp"],
+                                   s["cp"], model_params=s["mp"])
+        fn()
+        return fn
+
+    refined_kernel = updater_of(compile_step(s["cfg"], use_kernel=True, lean=True,
+                                             refine_steps=3, refine_method="gauss_newton"),
+                                "kernel")
+    fused_inputs = gradients._fused_inputs
+    gradients._fused_inputs = lambda *a: None    # the parent's op-by-op stage
+    try:
+        refined_plain = updater_of(compile_step(s["cfg"], use_kernel=True, lean=True,
+                                                refine_steps=3,
+                                                refine_method="gauss_newton"), "plain")
+    finally:
+        gradients._fused_inputs = fused_inputs
+    arms = {
+        "stage/kernel": (graph_replay(lambda: gn.gauss_newton_steps(*args, 3, 1e-3), 20), 1),
+        "stage/plain_graphed": (graph_replay(
+            lambda: gradients.gauss_newton_refine_plain(*plain_args), 1), 1),
+        "update/refined_kernel": (refined_kernel, 20),
+        "update/refined_plain": (refined_plain, 5),
+        "update/unrefined": (updater_of(unrefined, "unrefined"), 20),
+    }
+    times = time_interleaved(arms, 5, warm=1)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    med["stage/kernel"] /= 20
+    bound = work_refine.bound_us(T_MAIN, 5, 3)
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    record["times_ms"] = med
+    record["bound_us"] = bound
+    props = {k: K_MAIN * (T_MAIN - 1) / (v * 1e-3) for k, v in med.items()
+             if k.startswith("update/")}
+    record["propagations_per_s"] = props
+    print(f"[36 timing] median of 5 CUDA-event reps on {card} (after: sm clock, draw, "
+          f"limit, temp = {clocks}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+          + f"; the kernel at {100 * bound / (1e3 * med['stage/kernel']):.2f} % of "
+            f"work_refine's bound {bound:.3f} us; propagations/s "
+          + ", ".join(f"{k} {v:.4e}" for k, v in props.items()), flush=True)
+    counters_zero("gauss newton kernel")
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -4318,6 +4560,10 @@ def main():
     # --- 35. fleets past 65535 robots, the measuring twins' quick forms -----------
     big_fleets, launches35 = phase_35(dev, card, counters_zero)
     print(json.dumps({"big_fleets": big_fleets}), flush=True)
+
+    # --- 36. the refine stage's kernel ------------------------------------------
+    print(json.dumps({"gauss_newton_kernel": phase_36(dev, card, counters_zero)}),
+          flush=True)
 
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
