@@ -139,10 +139,10 @@ failure ending the run with a non-zero exit:
      event per traced step (and the launch count adds the warm step);
      simulate(with_paths=True) logs on the card, eager with candidates and
      kernel, finite; no figure (the card's machine has no matplotlib);
- 29. the benchmark (bench_torch/): `python3 -m bench_torch --all --quick`,
-     the seven cells each in a process of its own with short chains and no
-     traced run; every gate passes and every metric is finite, each cell's
-     line printed;
+ 29. the benchmark (benchmark/): each workload of BENCHMARK.json once,
+     `python3 -m benchmark --workload W --seed 0 --seconds 2 --trace 0`, each
+     in a process of its own; its last line correct, 0 failed and every
+     metric finite, one line a cell printed;
  30. the compiled paths (utils/cuda_graph.py, the counterparts of jax.jit
      and lax.scan): the kernel with its (seed, step) key read from device
      memory, bit-equal to the by-value key (every model, both elite passes,
@@ -269,6 +269,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import socket
@@ -530,6 +531,32 @@ def host_split(keyed, args, calls=200):
         "rebuild": us(lambda: cuda_graph.fill_tensors(graph.out_template, graph.outputs)),
         "clone_and_rebuild": us(lambda: graph.rebuild(graph.outputs)),
         "inputs": len(leaves), "outputs": len(graph.outputs)}
+
+
+def phase_29():
+    """Each workload of BENCHMARK.json once, in a process of its own, for 2 s
+    and untraced: its last line says correct, 0 failed, every metric finite."""
+    with open(ROOT / "BENCHMARK.json") as f:
+        workloads = [w["name"] for w in json.load(f)["workloads"]]
+    t0 = time.perf_counter()
+    for name in workloads:
+        cmd = [sys.executable, "-m", "benchmark", "--workload", name, "--seed", "0",
+               "--seconds", "2", "--trace", "0"]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0 and lines, f"{' '.join(cmd[1:])} exited "
+                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        rec = json.loads(lines[-1])
+        metrics = {k: m["value"] for k, m in rec["metrics"].items()}
+        print(f"[29 benchmark] {name}: correct {rec['correct']}, attempted "
+              f"{rec['attempted']}, failed {rec['failed']}, {metrics}, checks "
+              f"{rec['checks']}; on {rec['device']['kind']}", flush=True)
+        require(rec["correct"] is True and rec["failed"] == 0 and metrics
+                and all(isinstance(v, (int, float)) and math.isfinite(v)
+                        for v in metrics.values()),
+                f"benchmark {name}: not correct, a failed answer or a metric not finite: {rec}")
+    print(f"[29 benchmark] {len(workloads)} cells, each correct, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_30(dev, card, launches, max_abs_err, times_out, counters_zero):
@@ -4512,28 +4539,9 @@ def main():
                                                    for m, a in auto.items()},
                       "export": exported}))
 
-    # --- 29. the benchmark's seven cells, quick --------------------------------
+    # --- 29. the benchmark's cells, short ----------------------------------
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "bench_torch", "--all", "--quick"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
-    for rec in lines:
-        lay = rec.get("layers", {})
-        print(f"[29 bench_torch] {rec['cell']}: {rec.get('metric')} {rec.get('value')} "
-              f"{rec.get('unit')} (step {rec.get('step_ms')} ms), gate "
-              f"{'ok' if rec['gate']['ok'] else 'FAILED'} {rec['gate']['checks']}; "
-              f"layers {lay}; on {rec.get('card')}", flush=True)
-    require(proc.returncode == 0, f"python3 -m bench_torch --all --quick exited "
-            f"{proc.returncode}:\n{proc.stderr[-3000:]}")
-    require(len(lines) == 7, f"bench_torch printed {len(lines)} cells, not 7")
-    for rec in lines:
-        nums = [rec["value"], rec["step_ms"], *[v for v in rec["layers"].values()
-                                                if v is not None]]
-        require(rec["gate"]["ok"] and all(np.isfinite(v) for v in nums),
-                f"bench_torch {rec['cell']}: gate or a metric not finite: {rec}")
-    print(f"[29 bench_torch] seven cells, every gate passed, {wall:.1f} s", flush=True)
+    phase_29()
 
     # --- 30. the compiled paths: CUDA graphs and the device key ----------------
     med30 = {}

@@ -55,7 +55,7 @@ def test_port_runs_without_jax():
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
                          + sorted((ROOT / "scripts").glob("torch_*.py"))
-                         + sorted((ROOT / "bench_torch").glob("*.py")),
+                         + sorted((ROOT / "benchmark").rglob("*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_neither_jax_nor_the_jax_package(path):
     for node in ast.walk(ast.parse(path.read_text())):
