@@ -73,10 +73,14 @@ class ControllerState:
             return dict(key=None, seed=self.seed, step=self.step)
         return dict(key=self.key, seed=None, step=None)
 
-    def advanced(self, u_prev: torch.Tensor, steps: int = 1) -> "ControllerState":
+    def advanced(self, u_prev: torch.Tensor, steps: int = 1,
+                 next_key: Optional[torch.Tensor] = None) -> "ControllerState":
         """The state ``steps`` cycles on: warm start ``u_prev``, the step and
-        the key (where there is one) advanced together."""
-        key = None if self.key is None else advance_key(self.key, steps)
+        the key (where there is one) advanced together; ``next_key``: the
+        advanced key where the step already made it."""
+        key = next_key
+        if key is None and self.key is not None:
+            key = advance_key(self.key, steps)
         return ControllerState(u_prev=u_prev, seed=self.seed, step=self.step + steps,
                                key=key)
 

@@ -107,6 +107,9 @@
 // for the eager arm (its own note is at philox_normals_kernel). It lives in
 // this file because the build hashes this file alone (kernels/build.py) and
 // because both kernels share philox_pair, so they draw the same numbers.
+// The third, step_prologue, prepares the fused kernel's operands for the
+// control step (its note is at step_prologue_kernel); it lives here so that
+// the step loads one library.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC  (kernels/build.py), bound with ctypes.
@@ -931,6 +934,188 @@ void launch_draw(bool wide, float* out, const long long* key, uint32_t seed,
   }
 }
 
+// The control step's prologue: everything the fused kernel's launch needs
+// that the step used to prepare op by op (about 45 PyTorch launches of a few
+// floats each, ~1.3 us apiece on the card), in one launch of one block a
+// robot. It ports no Pallas kernel: in the JAX package these ops are XLA's,
+// fused by its compiler (paths/resample.py calc_RefPath, the kernel
+// wrapper's packing). Block b, for robot b:
+// 1. the nearest valid path point to the robot (get_CurrentIndex): a strided
+//    scan of d2 = dx*dx + dy*dy, reduced over (d2, index) pairs by warp
+//    shuffles, NaN first and the lower index on a tie, as torch.min(dim)
+//    does; an index whose d2 is not under DIST_CAP^2 becomes 0;
+// 2. the window: point cur + floor(t * (v_ref*dt) / resolution), clamped to
+//    the last valid point, gathered into ref_xy (T, 2), and ref_yaw (T,) the
+//    atan2f of each segment, the last entry repeating its neighbour's;
+// 3. the centred rows refc (R_pad, 4) [2(r-c), |r-c|^2, 0] with c = ref_xy[0]
+//    and padding rows [0, 0, +inf, 0]; the start state with -c on x and y;
+// 4. the 18 scalars of pack_scalars, slot 8 the window's first yaw, each other
+//    slot read from device memory at every launch (a CUDA graph's replay sees
+//    a retuned weight) or, where the step has no tensor for it, a constant;
+// 5. the fused kernel's tickets zeroed, the next key [seed, step + 1] written
+//    to a new buffer, and (block 0) the step's device counters advanced.
+// Every expression is rounded as the op-by-op glue rounds it: one PyTorch op
+// a rounding, so each product and sum is an __fmul_rn / __fadd_rn / __fsub_rn
+// (never contracted into an FMA) and the index step an __fdiv_rn; atan2f as
+// PyTorch's atan2 kernel calls it. The outputs then equal the glue's bit for
+// bit (chip_smoke.py phase 37).
+// What bounds it: a launch. It reads the path (8 bytes a point) and writes a
+// few hundred floats a robot.
+constexpr int kPrologueThreads = 256;
+constexpr int kPrologueWarps = kPrologueThreads / 32;
+constexpr int kPrologueMaxWindow = 4096;  // T: the window's 8 bytes a point in shared memory
+constexpr int kPrologueMaxState = 16;
+
+// Where each scalar slot comes from: ptr (one float, or one a robot where
+// per_robot), or value where ptr is null. Slot kYawRef0 is computed.
+struct PrologueScalars {
+  const float* ptr[kNScal];
+  float value[kNScal];
+  int per_robot[kNScal];
+};
+
+// Whether candidate (da, ia) comes before (db, ib) in torch.min(dim)'s order
+// (ATen's LessOrNan): NaN first, then the smaller, then the lower index.
+__device__ __forceinline__ bool nearer(float da, long long ia, float db, long long ib) {
+  const bool na = isnan(da), nb = isnan(db);
+  if (na != nb) return na;
+  if (!na && da != db) return da < db;
+  return ia < ib;
+}
+
+__device__ __forceinline__ float scalar_slot(const PrologueScalars& sc, int slot, int robot) {
+  const float* p = sc.ptr[slot];
+  return p == nullptr ? sc.value[slot] : p[sc.per_robot[slot] ? robot : 0];
+}
+
+__global__ void __launch_bounds__(kPrologueThreads)
+step_prologue_kernel(const float* __restrict__ path_xy,
+                     const long long* __restrict__ num_valid,
+                     const float* __restrict__ resolution,
+                     const float* __restrict__ state,
+                     const long long* __restrict__ key,
+                     PrologueScalars sc,
+                     float* __restrict__ ref_xy, float* __restrict__ ref_yaw,
+                     float4* __restrict__ refc, float* __restrict__ s0,
+                     float* __restrict__ scal, unsigned int* __restrict__ tickets,
+                     long long* __restrict__ next_key,
+                     unsigned long long* __restrict__ updates,
+                     unsigned long long* __restrict__ fused,
+                     int capacity, int horizon, int num_ref4, int state_dim,
+                     int xy_per_robot, int valid_per_robot, int res_per_robot,
+                     int tickets_per_robot, long long num_valid_value) {
+  extern __shared__ float s_xy[];  // the window, (T, 2)
+  __shared__ float s_d[kPrologueWarps];
+  __shared__ long long s_i[kPrologueWarps];
+  __shared__ long long s_cur;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int robot = blockIdx.x;
+  const float* xy = path_xy + (xy_per_robot ? (size_t)robot * capacity * 2 : 0);
+  const long long nv = num_valid != nullptr ? num_valid[valid_per_robot ? robot : 0]
+                                            : num_valid_value;
+  const float* pos = state + (size_t)robot * state_dim;
+  const float px = pos[0], py = pos[1];
+
+  // 1. the nearest valid point
+  float best = INFINITY;
+  long long bi = 0;
+  const long long scan = nv < capacity ? nv : capacity;
+  for (long long i = tid; i < scan; i += kPrologueThreads) {
+    const float dx = __fsub_rn(xy[2 * i], px), dy = __fsub_rn(xy[2 * i + 1], py);
+    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    if (nearer(d2, i, best, bi)) {
+      best = d2;
+      bi = i;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(kFull, best, off);
+    const long long oi = __shfl_xor_sync(kFull, bi, off);
+    if (nearer(od, oi, best, bi)) {
+      best = od;
+      bi = oi;
+    }
+  }
+  if (lane == 0) {
+    s_d[warp] = best;
+    s_i[warp] = bi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kPrologueWarps; ++w) {
+      if (nearer(s_d[w], s_i[w], best, bi)) {
+        best = s_d[w];
+        bi = s_i[w];
+      }
+    }
+    s_cur = best < kCap2 ? bi : 0;
+  }
+  __syncthreads();
+
+  // 2. the window
+  const long long cur = s_cur;
+  const float dt = scalar_slot(sc, kDt, robot), v_ref = scalar_slot(sc, kVRef, robot);
+  const float res = resolution[res_per_robot ? robot : 0];
+  const float step = __fdiv_rn(__fmul_rn(v_ref, dt), res);
+  float* out_xy = ref_xy + (size_t)robot * horizon * 2;
+  for (int t = tid; t < horizon; t += kPrologueThreads) {
+    long long idx = cur + static_cast<long long>(floorf(__fmul_rn((float)t, step)));
+    if (idx > nv - 1) idx = nv - 1;
+    if (idx < 0) idx += capacity;  // a negative index counts from the end, as in torch
+    idx = idx < 0 ? 0 : (idx >= capacity ? capacity - 1 : idx);
+    const float x = xy[2 * idx], y = xy[2 * idx + 1];
+    s_xy[2 * t] = x;
+    s_xy[2 * t + 1] = y;
+    out_xy[2 * t] = x;
+    out_xy[2 * t + 1] = y;
+  }
+  __syncthreads();
+  float* out_yaw = ref_yaw + (size_t)robot * horizon;
+  for (int t = tid; t < horizon; t += kPrologueThreads) {
+    const int a = t < horizon - 1 ? t : horizon - 2;
+    out_yaw[t] = atan2f(__fsub_rn(s_xy[2 * a + 3], s_xy[2 * a + 1]),
+                        __fsub_rn(s_xy[2 * a + 2], s_xy[2 * a]));
+  }
+
+  // 3. the centred rows and the start state
+  const float cx = s_xy[0], cy = s_xy[1];
+  float4* rows = refc + (size_t)robot * num_ref4;
+  for (int r = tid; r < num_ref4; r += kPrologueThreads) {
+    float4 row = make_float4(0.0f, 0.0f, INFINITY, 0.0f);
+    if (r < horizon) {
+      const float rc0 = __fsub_rn(s_xy[2 * r], cx), rc1 = __fsub_rn(s_xy[2 * r + 1], cy);
+      row = make_float4(__fmul_rn(2.0f, rc0), __fmul_rn(2.0f, rc1),
+                        __fadd_rn(__fmul_rn(rc0, rc0), __fmul_rn(rc1, rc1)), 0.0f);
+    }
+    rows[r] = row;
+  }
+  float* out_s0 = s0 + (size_t)robot * state_dim;
+  for (int j = tid; j < state_dim; j += kPrologueThreads) {
+    out_s0[j] = j == 0 ? __fsub_rn(px, cx) : (j == 1 ? __fsub_rn(py, cy) : pos[j]);
+  }
+
+  // 4. the scalars; the window's first yaw computed again as above
+  float* out_scal = scal + (size_t)robot * kNScal;
+  if (tid < kNScal) {
+    out_scal[tid] = tid == kYawRef0 ? atan2f(__fsub_rn(s_xy[3], s_xy[1]),
+                                             __fsub_rn(s_xy[2], s_xy[0]))
+                                    : scalar_slot(sc, tid, robot);
+  }
+
+  // 5. tickets, key, counters
+  unsigned int* tk = tickets + (size_t)robot * tickets_per_robot;
+  for (int i = tid; i < tickets_per_robot; i += kPrologueThreads) tk[i] = 0u;
+  if (robot == 0 && tid == 0) {
+    if (key != nullptr) {
+      next_key[0] = key[0];
+      next_key[1] = key[1] + 1;
+    }
+    if (updates != nullptr) atomicAdd(updates, 1ull);
+    if (fused != nullptr) atomicAdd(fused, 1ull);
+  }
+}
+
 int model_u(int model) {
   switch (model) {
     case kUnicycle: return Dims<kUnicycle>::U;
@@ -954,7 +1139,8 @@ int rollout_cost_num_scalars() { return kNScal; }
 // binding holds equal to this).
 const char* rollout_cost_signature() {
   return "rollout_cost:" "ii" "pppppppppppppppp" "iiiuuuuiiffiiip"
-         ";philox_normals:" "ppuuiiiiuuliiiiip";
+         ";philox_normals:" "ppuuiiiiuuliiiiip"
+         ";step_prologue:" "ppppppppppppppp" "iiiiiiiiil" "p";
 }
 
 // U * 16 + S of model id `model`, or -1 for an unknown id.
@@ -1122,6 +1308,47 @@ int philox_normals(float* out, const long long* key, unsigned int seed,
     PHILOX_DRAW_CASE(5)
   }
 #undef PHILOX_DRAW_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The control step's prologue (step_prologue_kernel) for num_robots robots,
+// one block each, on `stream`. path_xy (capacity, 2), or (num_robots,
+// capacity, 2) where xy_per_robot; num_valid an int64 count on the device
+// (one, or one a robot where valid_per_robot), or null and num_valid_value;
+// resolution one float (one a robot where res_per_robot); state (num_robots,
+// state_dim); key the (2,) int64 [seed, step] or null; scalars a host
+// PrologueScalars (copied into the launch). Writes ref_xy (num_robots,
+// horizon, 2), ref_yaw (num_robots, horizon), refc (num_robots, num_ref4, 4)
+// with num_ref4 = horizon rounded up to 4, s0 (num_robots, state_dim), scal
+// (num_robots, 18), tickets_per_robot zeros a robot into tickets, next_key
+// [seed, step + 1] where key is given, and adds 1 to *updates and *fused
+// (int64 device counters) where given. Returns the cudaError_t of the launch,
+// cudaErrorInvalidValue where the arguments do not fit.
+int step_prologue(const float* path_xy, const long long* num_valid, const float* resolution,
+                  const float* state, const long long* key, const void* scalars,
+                  float* ref_xy, float* ref_yaw, float* refc, float* s0, float* scal,
+                  unsigned int* tickets, long long* next_key, long long* updates,
+                  long long* fused, int num_robots, int capacity, int horizon, int num_ref4,
+                  int state_dim, int xy_per_robot, int valid_per_robot, int res_per_robot,
+                  int tickets_per_robot, long long num_valid_value, void* stream) {
+  if (path_xy == nullptr || resolution == nullptr || state == nullptr || scalars == nullptr ||
+      ref_xy == nullptr || ref_yaw == nullptr || refc == nullptr || s0 == nullptr ||
+      scal == nullptr || num_robots < 1 || capacity < 1 || horizon < 2 ||
+      horizon > kPrologueMaxWindow || num_ref4 != align4(horizon) || state_dim < 2 ||
+      state_dim > kPrologueMaxState || tickets_per_robot < 0 ||
+      (tickets_per_robot > 0 && tickets == nullptr) || ((key == nullptr) != (next_key == nullptr)) ||
+      reinterpret_cast<uintptr_t>(refc) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const PrologueScalars sc = *static_cast<const PrologueScalars*>(scalars);
+  const size_t smem = sizeof(float) * 2 * static_cast<size_t>(horizon);
+  step_prologue_kernel<<<num_robots, kPrologueThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      path_xy, num_valid, resolution, state, key, sc, ref_xy, ref_yaw,
+      reinterpret_cast<float4*>(refc), s0, scal, tickets, next_key,
+      reinterpret_cast<unsigned long long*>(updates),
+      reinterpret_cast<unsigned long long*>(fused), capacity, horizon, num_ref4, state_dim,
+      xy_per_robot, valid_per_robot, res_per_robot, tickets_per_robot, num_valid_value);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -530,6 +530,24 @@ def _check_key(key, seed, step, device, needed: bool = True):
         raise ValueError("the RNG mode needs seed and step, or key")
 
 
+def _check_prepared(prepared, ref_xy, state0):
+    """``prepared`` (refc, s0, tickets or None) as :class:`KernelLaunch`
+    takes them: the padded centred rows and the translated start state of
+    ``ref_xy`` and ``state0``, contiguous float32, and int32 tickets."""
+    refc, s0, tickets = prepared
+    lead = tuple(ref_xy.shape[:-2])
+    for name, t, shape, dtype in (
+            ("refc", refc, lead + (pad_ref_count(ref_xy.shape[-2]), 4), torch.float32),
+            ("s0", s0, tuple(state0.shape), torch.float32),
+            ("tickets", tickets, None, torch.int32)):
+        if t is None and name == "tickets":
+            continue
+        if (t.dtype != dtype or t.device != ref_xy.device or not t.is_contiguous()
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"prepared {name} must be contiguous {dtype} "
+                             f"{shape or ''} on {ref_xy.device}")
+
+
 def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
                   num_samples, model, noise, accumulate, costs_in, key):
     _check_key(key, seed, step, u_prev.device, needed=noise is None)
@@ -584,11 +602,16 @@ def _check_inputs(u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed, step,
 # accumulate, steer_max, rate_max, num_robots, second_moment, threads; the
 # stream. philox_normals: out, key; seed, step, num_samples, tm1, u_dim,
 # robots, robot_base, first_sample; rows, rows_per_block, blocks, smem,
-# unrolled_u, wide (:func:`philox_draw_geometry`); the stream. csrc
+# unrolled_u, wide (:func:`philox_draw_geometry`); the stream. step_prologue
+# (kernels/step_prologue.py): path_xy, num_valid, resolution, state, key, the
+# scalars' sources, ref_xy, ref_yaw, refc, s0, scal, tickets, next_key, the
+# two counters; num_robots, capacity, horizon, num_ref4, state_dim, three
+# per-robot flags, tickets_per_robot, num_valid_value; the stream. csrc
 # rollout_cost_signature() returns them as "name:letters;...", checked when
 # bound.
 SIGNATURE = {"rollout_cost": "ii" + "p" * 16 + "iiiuuuuiiffiiip",
-             "philox_normals": "ppuuiiiiuuliiiiip"}
+             "philox_normals": "ppuuiiiiuuliiiiip",
+             "step_prologue": "p" * 15 + "i" * 9 + "lp"}
 _CTYPES = {"i": ctypes.c_int, "u": ctypes.c_uint, "l": ctypes.c_longlong,
            "f": ctypes.c_float, "p": ctypes.c_void_p}
 
@@ -673,7 +696,8 @@ def fleet_chunks(num_robots: int):
 class KernelLaunch:
     """One kernel launch with its operands prepared on the device: the
     padded centered reference rows (:func:`pad_ref_rows`), the start state
-    translated by -c (per robot in a fleet, in one batched pass), the noise
+    translated by -c (per robot in a fleet, in one batched pass; both, and
+    the finish's tickets, taken as they are where ``prepared`` gives them), the noise
     transposed to a contiguous (..., T-1, U, K), the launch shape
     (:func:`launch_shape`; ``form`` and ``threads`` override it), and the
     outputs. A fleet of more than MAX_ROBOTS robots is launched in the
@@ -686,7 +710,7 @@ class KernelLaunch:
     def __init__(self, u_prev, sigma, u_min, u_max, ref_xy, state0, scal, seed,
                  step, num_samples, model, steer_off=False, noise=None,
                  accumulate=True, costs_in=None, second_moment=False, robot=0,
-                 first_sample=0, key=None, form=None, threads=None):
+                 first_sample=0, key=None, form=None, threads=None, prepared=None):
         from ccv_mppi_path_tracker_tpu_torch.kernels.build import load_library
 
         self.lib = _bind(load_library("rollout_cost"))
@@ -702,8 +726,12 @@ class KernelLaunch:
         self.shape = launch_shape(model, num_samples, self.tm1 + 1, num_ref, m2,
                                   accumulate, costs_in is not None, form=form,
                                   threads=threads)
-        c, refc = pad_ref_rows(ref_xy)
-        s0 = torch.cat([state0[..., :2] - c, state0[..., 2:]], dim=-1).contiguous()
+        self.tickets = None
+        if prepared is None:
+            c, refc = pad_ref_rows(ref_xy)
+            s0 = torch.cat([state0[..., :2] - c, state0[..., 2:]], dim=-1).contiguous()
+        else:
+            refc, s0, self.tickets = prepared
         noise_t = None if noise is None else noise.transpose(-1, -2).contiguous()
         out_shape = self.lead + (self.tm1, self.u_dim)
 
@@ -714,6 +742,9 @@ class KernelLaunch:
         self.partials = self.u_num = self.norm = self.u2_num = None
         groups = finish_groups(self.shape.blocks)
         self.num_counters = self.num_robots * (groups + 1)
+        if self.tickets is not None and self.tickets.numel() < self.num_counters:
+            raise ValueError(f"{self.tickets.numel()} prepared tickets, the launch takes "
+                             f"{self.num_counters}")
         rows = None
         if accumulate:
             # the block rows, then the group rows of the two-level finish
@@ -727,7 +758,8 @@ class KernelLaunch:
         if model == "rate_limited_steering":
             steer_max, rate_max = steer_limits(model)
         # operands stay referenced by self until the launch is dropped
-        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t, rows, key)
+        self._keep = (u_prev, sigma, u_min, u_max, refc, s0, scal, noise_t, rows, key,
+                      self.tickets)
         self.key = key
         self.device = dev
 
@@ -769,7 +801,9 @@ class KernelLaunch:
             stream = torch.cuda.current_stream(self.device).cuda_stream
             tickets = None
             if self.accumulate:
-                if torch.cuda.is_current_stream_capturing():
+                if self.tickets is not None:
+                    tickets = self.tickets
+                elif torch.cuda.is_current_stream_capturing():
                     tickets = torch.zeros(self.num_counters, dtype=torch.int32,
                                           device=self.device)
                 else:
@@ -801,6 +835,7 @@ def fused_sample_rollout_cost(
     noise: Optional[torch.Tensor] = None, accumulate: bool = True,
     costs_in: Optional[torch.Tensor] = None, second_moment: bool = False,
     robot: int = 0, first_sample: int = 0, key: Optional[torch.Tensor] = None,
+    prepared=None,
 ):
     """Sample, roll out and cost K trajectories of ``model`` and accumulate
     the softmax-weighted update, in one kernel.
@@ -834,6 +869,12 @@ def fused_sample_rollout_cost(
     (costs_in, u_num, norm). second_moment=True: a fourth output, u2_num
     (T-1, U), the weighted sums of u^2 (None without the update).
 
+    prepared: (refc, s0, tickets) made before the launch (kernels/step_prologue.py):
+    the rows of :func:`pad_ref_rows` of ``ref_xy``, ``state0`` translated by
+    the window's first point, and int32 zeros enough for the finish's
+    tickets (None: the launch finds its own). The plain version does not
+    read them.
+
     Returns (costs (K,), u_num (T-1, U), norm ()) under the baseline
     min(costs): ``u_opt = u_num / norm``. A CPU tensor runs
     :func:`fused_sample_rollout_cost_reference`; a CUDA tensor launches the
@@ -849,7 +890,9 @@ def fused_sample_rollout_cost(
         return fused_sample_rollout_cost_reference(*args)
     if u_prev.device.type != "cuda":
         raise ValueError(f"no fused kernel for device {u_prev.device}")
-    launch = KernelLaunch(*args)
+    if prepared is not None:
+        _check_prepared(prepared, ref_xy, state0)
+    launch = KernelLaunch(*args, prepared=prepared)
     launch.run()
     fused_sample_rollout_cost.launches += launch.calls
     return (launch.costs,) + launch.finish()

@@ -42,14 +42,12 @@ from ccv_mppi_path_tracker_tpu_torch.core.types import (
     StepResult,
     make_key,
 )
-from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
-    fused_sample_rollout_cost,
-    pack_scalars,
-)
+from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import fused_sample_rollout_cost
+from ccv_mppi_path_tracker_tpu_torch.kernels.step_prologue import step_prologue
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
 from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import softmax_weights
-from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer, resample_references
+from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, _opt_rollout, mppi_step
 from ccv_mppi_path_tracker_tpu_torch.utils.profiling import tracing
 
@@ -108,19 +106,22 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
 def _tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel):
     """One fleet tick: the update of every robot, then its planned path."""
     model = get_model(cfg.model)
-    if model_params is None and model.default_params is not None:
-        model_params = model.default_params(device=states.device, dtype=states.dtype)
     update = _kernel_update if use_kernel else _eager_update
-    u_opt, ref, stats = update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise)
+    u_opt, ref, stats, next_key = update(cfg, ctrls, states, path, dt, sp, cp, model_params,
+                                         noise)
     opt_states = _opt_rollout(cfg.model, model, states, u_opt.transpose(0, 1),
                               dt).transpose(0, 1)
-    return ctrls.advanced(u_opt), StepResult(u_opt=u_opt, u0=u_opt[:, 0], ref=ref,
-                                             opt_states=opt_states, stats=stats)
+    return ctrls.advanced(u_opt, next_key=next_key), StepResult(
+        u_opt=u_opt, u0=u_opt[:, 0], ref=ref, opt_states=opt_states, stats=stats)
 
 
 def _eager_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
     """mppi_step per robot, vectorized over the fleet by torch.func.vmap,
-    on the normals of one draw for the whole fleet."""
+    on the normals of one draw for the whole fleet. Returns (u_opt, ref,
+    stats, None): the tick advances the key."""
+    model = get_model(cfg.model)
+    if model_params is None and model.default_params is not None:
+        model_params = model.default_params(device=states.device, dtype=states.dtype)
     if noise is None:
         num_robots, tm1, u_dim = ctrls.u_prev.shape
         noise = draw_standard_normals(**ctrls.rng(), shape=(num_robots, tm1, cfg.num_samples,
@@ -137,18 +138,19 @@ def _eager_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
     u_opt, ref_xy, ref_yaw, stats = torch.func.vmap(
         one, in_dims=(0, 0, 0, dims, dims, dims))(
         ctrls.u_prev, states, noise, path.xy, path.num_valid, path.resolution)
-    return u_opt, RefWindow(xy=ref_xy, yaw=ref_yaw), stats
+    return u_opt, RefWindow(xy=ref_xy, yaw=ref_yaw), stats, None
 
 
 def _kernel_update(cfg, ctrls, states, path, dt, sp, cp, model_params, noise):
     """The kernel branch of mppi_step for B robots in one launch (a chunk
     of at most 65535 robots a launch: kernels/rollout_cost.py
-    fleet_chunks)."""
-    ref = resample_references(path, states[:, :2], cp.v_ref, dt, cfg.horizon)
-    scal = pack_scalars(dt, cp, ref.yaw[:, 0], model_params, sp.noise_beta, sp.lam)
+    fleet_chunks), after the fleet's prologue (kernels/step_prologue.py: the
+    windows, scalars, centred operands, tickets and next key of every robot,
+    one launch on the card). Returns (u_opt, ref, stats, next key)."""
+    pro = step_prologue(cfg, path, states, dt, sp, cp, model_params, key=ctrls.key)
     costs, u_num, norm = fused_sample_rollout_cost(
-        ctrls.u_prev, sp.control_noise, sp.u_min, sp.u_max, ref.xy, states, scal,
+        ctrls.u_prev, sp.control_noise, sp.u_min, sp.u_max, pro.ref.xy, states, pro.scal,
         num_samples=cfg.num_samples, model=cfg.model, steer_off=cfg.steer_off,
-        noise=noise, **ctrls.rng())
+        noise=noise, prepared=pro.launch, **ctrls.rng())
     stats = torch.func.vmap(lambda c: softmax_weights(c, sp.lam)[1])(costs)
-    return u_num / norm[:, None, None], ref, stats
+    return u_num / norm[:, None, None], pro.ref, stats, pro.next_key

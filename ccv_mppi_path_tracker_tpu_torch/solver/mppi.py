@@ -39,6 +39,7 @@ from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
     pack_scalars,
     should_use_kernel,
 )
+from ccv_mppi_path_tracker_tpu_torch.kernels.step_prologue import step_prologue
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
@@ -154,25 +155,27 @@ def mppi_step(
         raise ValueError("lean drops the debug outputs: no debug_candidates with lean")
     k = cfg.num_samples if num_samples is None else num_samples
     model = get_model(cfg.model)
-    if model_params is None and model.default_params is not None:
-        model_params = model.default_params(device=state.device, dtype=state.dtype)
     if delay is not None:
         state = model.step(state, ctrl.u_prev[0], delay)
     u_mean = ctrl.u_prev
     if shift_warm_start:
         u_mean = torch.cat([ctrl.u_prev[1:], ctrl.u_prev[-1:]], dim=0)
 
-    ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
-
+    next_key = None
     if use_kernel:
+        # the window, the scalars, the kernel's centred operands and tickets,
+        # the default body parameters and the next key: one launch on the
+        # card (kernels/step_prologue.py)
+        pro = step_prologue(cfg, path, state, dt, sp, cp, model_params, elite_stale_thresh,
+                            ctrl.key, num_samples=k)
+        ref, model_params, next_key = pro.ref, pro.model_params, pro.next_key
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
         kw = dict(ctrl.rng(), num_samples=k, model=cfg.model, steer_off=cfg.steer_off,
-                  noise=noise, second_moment=adapt_sigma, first_sample=first_sample)
-        scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta, sp.lam,
-                            cost_thresh=elite_stale_thresh)
+                  noise=noise, second_moment=adapt_sigma, first_sample=first_sample,
+                  prepared=pro.launch)
         costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
-            *kargs, scal, accumulate=not two_pass, **kw)
+            *kargs, pro.scal, accumulate=not two_pass, **kw)
         if lean:
             stats = {}
             if elite_frac is not None:
@@ -199,6 +202,9 @@ def mppi_step(
         if adapt_sigma:
             stats["sigma_suggest"] = _sigma_suggest(u2_num[0] / safe_norm, u_opt)
     else:
+        if model_params is None and model.default_params is not None:
+            model_params = model.default_params(device=state.device, dtype=state.dtype)
+        ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
         if noise is None:
             tm1, u_dim = u_mean.shape
             noise = draw_standard_normals(**ctrl.rng(), shape=(tm1, k, u_dim),
@@ -233,7 +239,7 @@ def mppi_step(
         u_opt = _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, refine_steps,
                         refine_step_size, refine_method)
 
-    next_ctrl = ctrl.advanced(u_opt)
+    next_ctrl = ctrl.advanced(u_opt, next_key=next_key)
     if lean:
         # only what a caller feeds back survives
         keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}

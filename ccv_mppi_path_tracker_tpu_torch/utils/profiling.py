@@ -187,17 +187,42 @@ class span:
         return False
 
 
+# Small device ops that the profiler's discarded warm-up cycle runs (device_profile).
+WARMUP_OPS = 64
+
+
+@contextlib.contextmanager
+def device_profile():
+    """``torch.profiler`` over the block (CPU activity, and CUDA activity
+    where a card is present), whose window opens after a warm-up cycle that
+    it discards: a profiler started in a process that ran others before
+    loses the first device records after its start (on an H100, the first
+    5 to ~26 kernels: a CUDA graph's first replay then shows fewer kernels
+    than it ran). So WARMUP_OPS small device ops, waited for, run first and
+    are left out. Yields the profiler; after the block its ``events()`` and
+    ``key_averages()`` hold the block's activity."""
+    cuda = torch.cuda.is_available()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    warm_first = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    with torch.profiler.profile(activities=activities, schedule=warm_first) as prof:
+        if cuda:
+            x = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_OPS):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA
-    activity where a card is present) and write it as a Chrome trace,
-    ``log_dir/trace.json`` (open in Perfetto or chrome://tracing). Yields
-    the profiler; its ``key_averages()`` summarizes the trace."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    """Trace the block with :func:`device_profile` and write it as a Chrome
+    trace, ``log_dir/trace.json`` (open in Perfetto or chrome://tracing).
+    Yields the profiler; its ``key_averages()`` summarizes the trace."""
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with device_profile() as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

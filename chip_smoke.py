@@ -242,6 +242,15 @@ failure ending the run with a non-zero exit:
      CUDA-event times in turns of the kernel, the plain stage as a graph, the
      refined update with either, the unrefined update, beside
      benchmark/work_refine.py bound_us(30, 5, 3).
+ 37. the control step's prologue (kernels/step_prologue.py, csrc/rollout_cost.cu
+     step_prologue) against the op-by-op glue it replaces, bit for bit on every
+     output (window, yaw, centred rows and state, scalars, next key; tickets
+     zero), for every model on 32 poses of the benchmark's course (beyond
+     DIST_CAP, the course's end, an exact tie, roomy paths) and fleets of 256
+     on shared and per-robot paths; compiled updates with either prologue
+     chained bit for bit (lean, two-pass and stale elite, Gauss-Newton
+     refined, the fleet tick); one launch and the counters a replay; the
+     replayed flagship update's ms and device ops with either.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -252,7 +261,7 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
 phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
 phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...},
-phase 36 with {"gauss_newton_kernel": ...}.
+phase 36 with {"gauss_newton_kernel": ...}, phase 37 with {"step_prologue": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
@@ -1025,6 +1034,8 @@ EAGER_UPDATES = 50          # phase 31: chained updates, graphed eager against o
 DRAW_TOL = 1e-5             # phase 31: the draw kernel against its plain version, max |diff|
 SEED_31, STEP_31 = 2 ** 33 + 7, 11  # phase 31's key: a seed past 32 bits
 REPLACES_DRAW = "ccv_mppi_path_tracker_tpu/ops/sampling.py:53"  # XLA's RBG normal
+# XLA's ops of the jitted step, from the reference window on
+REPLACES_PROLOGUE = "ccv_mppi_path_tracker_tpu/paths/resample.py:73"
 # meta_train's step draw (diff/learned_optimizer.py), (B, T-1, K, U): 64 robot rows
 META_DRAW = (64, 7, 64, 2)
 
@@ -2720,7 +2731,6 @@ def phase_36(dev, card, counters_zero):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from benchmark import work_refine
     from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, RefWindow
@@ -2841,7 +2851,9 @@ def phase_36(dev, card, counters_zero):
     require(launched == 20 and counted.get("refine.fused_steps") == 60
             and counted.get("refine.lm_steps") == 60,
             "the replayed refined update does not take the kernel once")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a profiler with a discarded warm-up cycle: one started this late in the
+    # smoke's process loses the first device records after its start
+    with profiling.device_profile() as prof:
         for _ in range(5):
             update()
         torch.cuda.synchronize()
@@ -2920,6 +2932,411 @@ def phase_36(dev, card, counters_zero):
     return record
 
 
+PROLOGUE_POSES = 32        # phase 37: seeded poses a model on the benchmark course
+PROLOGUE_FLEET = 256       # phase 37: the fleet's robots
+TIE_AT = 60                # phase 37: the course point doubled for an exact tie
+# phase 37: the operands the dispatch converts, one a pose in turn
+CONVERTED = ("tensors", "number dt", "number v_ref", "float64 weight", "int32 count")
+
+
+def prologue_bound(points, horizon, state_dim, tickets, robots=1):
+    """(bytes, (ms, "bytes")): the step prologue's bytes at the HBM rate
+    (kernels/rollout_cost.py HBM_BYTES_PER_S). Read: the valid path points
+    (8 B each), the state, the 17 scalar sources, the count, resolution and
+    key. Written: the window (xy and yaw), the padded centred rows (16 B
+    each), the start state, the scalar vector, the tickets, the next key;
+    the two device counters read and written."""
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+        HBM_BYTES_PER_S,
+        NSCAL,
+        pad_ref_count,
+    )
+
+    read = points * 8 + robots * state_dim * 4 + (NSCAL - 1) * 4 + 8 + 4 + 16
+    written = robots * (horizon * 12 + pad_ref_count(horizon) * 16 + state_dim * 4
+                        + NSCAL * 4 + tickets * 4) + 16 + 2 * 16
+    nbytes = read + written
+    return nbytes, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+
+
+def phase_37(dev, card, counters_zero):
+    """Phase 37: the control step's prologue (kernels/step_prologue.py, one
+    launch of csrc/rollout_cost.cu step_prologue) against its plain version,
+    the op-by-op glue, on the card: (a) for each model, PROLOGUE_POSES seeded
+    poses on the benchmark's course (benchmark/reference.py course of the
+    flagship configuration at a seeded offset): ref.xy, ref.yaw, refc, s0,
+    scal and the next key bit for bit, the tickets zero, the default body
+    parameters as views of scal equal to default_params; the poses include
+    one beyond DIST_CAP of every point (index 0), one at the course's end
+    (the window clamped), one on a doubled point (an exact tie, the first
+    index), paths whose capacity exceeds their valid count, the count as a
+    tensor and as an int, the elite threshold given and absent, the key
+    given and absent, given body parameters, and the operands the dispatch
+    converts (dt or v_ref a number, a float64 weight, an int32 count), dt
+    and v_ref both numbers refused; (b) a fleet of PROLOGUE_FLEET robots of
+    each model on a shared path and on per-robot paths of other lengths, a
+    per-robot threshold once, a number dt once; (c) compiled updates with the
+    kernel against the same updates with the plain prologue, chained, bit for
+    bit: the flagship lean update, two-pass and stale elite, the
+    Gauss-Newton-refined update, the diff_drive fleet tick; one prologue
+    launch a replay, the counters step.kernel_updates and step.prologue_fused;
+    (d) the replayed flagship update in turns with the plain prologue and
+    with the kernel: CUDA-event ms and torch.profiler's device ops an update;
+    the prologue alone, the kernel's launch against the op-by-op glue it
+    replaced, each replayed as a CUDA graph, beside its byte bound
+    (:func:`prologue_bound`). Returns its record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from benchmark import reference
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import PRESETS
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, make_key
+    from ccv_mppi_path_tracker_tpu_torch.kernels import step_prologue as pro
+    from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import pad_ref_rows
+    from ccv_mppi_path_tracker_tpu_torch.models import get_model
+    from ccv_mppi_path_tracker_tpu_torch.models.full_body import FullBodyParams
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+    from ccv_mppi_path_tracker_tpu_torch.solver import build_fleet_step, compile_step, init_fleet
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    config = json.loads((ROOT / "benchmark" / "configs" / "full_body-K102400-T30.json")
+                        .read_text())
+    spec, res = config["course"], config["course"]["resolution"]
+    record = {"cases": 0, "converted": {}}
+    dt = torch.full((), 0.1, device=dev)
+
+    def bits(t):
+        """A float32 tensor's bit patterns (-0.0 and +0.0 differ, a NaN equals
+        itself), any other tensor as it is."""
+        return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+    def centred(ref_xy, state):
+        """The centred rows and start state as the fused launch makes them
+        where no prologue gives them (kernels/rollout_cost.py KernelLaunch)."""
+        c, refc = pad_ref_rows(ref_xy)
+        return refc, torch.cat([state[..., :2] - c, state[..., 2:]], dim=-1).contiguous()
+
+    def compare(tag, cfg, path, state, sp, cp, mp=None, thresh=None, key=None, dt=dt):
+        want = pro.step_prologue_plain(cfg, path, state, dt, sp, cp, mp, thresh, key)
+        want_refc, want_s0 = centred(want.ref.xy, state)
+        ops = pro._kernel_operands(cfg, path, state, dt, sp, cp, mp, thresh, key)
+        require(ops is not None, f"{tag}: the kernel does not take the call")
+        poison = torch.full((1 << 16,), -1, dtype=torch.int32, device=dev)
+        del poison   # the tickets come from memory that held -1
+        got = pro.step_prologue_cuda(**ops, tickets_per_robot=pro.ticket_count(cfg.num_samples))
+        torch.cuda.synchronize()
+        pairs = [("ref.xy", got.ref.xy, want.ref.xy), ("ref.yaw", got.ref.yaw, want.ref.yaw),
+                 ("refc", got.refc, want_refc), ("s0", got.s0, want_s0),
+                 ("scal", got.scal, want.scal), ("next_key", got.next_key, want.next_key)]
+        if mp is None and want.model_params is not None:
+            pairs += [(f"model_params.{f}", getattr(got.model_params, f),
+                       getattr(want.model_params, f).expand_as(getattr(got.model_params, f)))
+                      for f in ("mass", "base2com", "inertia", "gravity_z")]
+        diffs = [name for name, a, b in pairs if not same(a, b)]
+        zeros = bool((got.tickets == 0).all())
+        require(not diffs and zeros,
+                f"{tag}: the kernel's prologue differs from the op-by-op one in {diffs}; "
+                f"tickets zero {zeros}")
+        record["cases"] += 1
+        return got
+
+    # (a) single robots: each model on the benchmark's course
+    presets = list(PRESETS)
+    for mi, preset in enumerate(presets):
+        cfg, sp, cp, _ = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+        m = get_model(cfg.model)
+        rng = np.random.RandomState(3700 + mi)
+        course = reference.course(spec, tuple(rng.uniform(-1.0, 1.0, 2)))
+        n = len(course)
+        tied = np.insert(course, TIE_AT, course[TIE_AT], axis=0)
+        paths = {
+            "int": PathBuffer.from_points(course, res, device=dev),
+            "roomy": PathBuffer.from_points(course, res, capacity=n + 57, device=dev),
+            "tie": PathBuffer.from_points(tied, res, device=dev),
+        }
+        paths["count"] = paths["int"].with_count_tensor()
+        paths["roomy_count"] = paths["roomy"].with_count_tensor()
+        checks = []
+        for i in range(PROLOGUE_POSES):
+            name = ("count", "int", "roomy_count", "roomy")[i % 4]
+            at = course[rng.randint(0, n)] + 0.3 * rng.randn(2)
+            if i == 0:
+                at = course[0] + np.array([150.0, 150.0])      # beyond DIST_CAP of all
+            elif i == 1:
+                at = course[-1] + np.array([0.02, -0.03])      # the window clamped
+            elif i == 2:
+                name, at = "tie", tied[TIE_AT]                 # an exact tie
+            elif i == 3:
+                at = course[-3]                                # past the roomy path's end
+            rest = (0.1 * rng.randn(m.num_states - 2)).tolist()
+            state = torch.tensor([float(at[0]), float(at[1]), *rest], dtype=torch.float32,
+                                 device=dev)
+            thresh = torch.full((), 40.0 + i, device=dev) if i % 2 else None
+            key = None if i % 5 == 4 else make_key(1000 + i, i, dev)
+            mp = None
+            if m.default_params is not None and i % 6 == 5:
+                d = m.default_params(device=dev)
+                mp = FullBodyParams(mass=d.mass * 1.01, base2com=d.base2com * 0.99,
+                                    inertia=d.inertia * 1.02, gravity_z=d.gravity_z)
+            path = paths[name]
+            # the operands the dispatch converts, one a pose in turn
+            kind = CONVERTED[i % len(CONVERTED)]
+            pose_dt, pose_cp, pose_path = dt, cp, path
+            if kind == "number dt":
+                pose_dt = 0.1
+            elif kind == "number v_ref":
+                pose_cp = dataclasses.replace(cp, v_ref=float(cp.v_ref))
+            elif kind == "float64 weight":
+                pose_cp = dataclasses.replace(cp, path_weight=cp.path_weight.double() / 3.0)
+            elif kind == "int32 count":
+                pose_path = dataclasses.replace(path, num_valid=torch.as_tensor(
+                    path.num_valid, dtype=torch.int32, device=dev))
+            record["converted"][kind] = record["converted"].get(kind, 0) + 1
+            got = compare(f"{preset} pose {i} ({name}, {kind})", cfg, pose_path, state, sp,
+                          pose_cp, mp, thresh, key, dt=pose_dt)
+            if i in (0, 1, 2):
+                nv = int(path.num_valid)
+                want_first = {0: 0, 1: nv - 1, 2: TIE_AT}[i]
+                require(torch.equal(got.ref.xy[0], path.xy[want_first]),
+                        f"{preset} pose {i}: the window starts elsewhere than point {want_first}")
+                if i == 2:
+                    step_pts = int(torch.floor(cp.v_ref * dt / path.resolution))
+                    require(torch.equal(got.ref.xy[1], path.xy[TIE_AT + step_pts]),
+                            f"{preset}: the tie did not keep the first index")
+                if i == 1:
+                    require(torch.equal(got.ref.xy[-1], path.xy[nv - 1]),
+                            f"{preset}: the window at the end is not clamped")
+            checks.append(name)
+        both = dataclasses.replace(cp, v_ref=float(cp.v_ref))
+        try:
+            pro._kernel_operands(cfg, paths["int"], state, 0.1, sp, both, None, None, None)
+            refused = False
+        except TypeError:
+            refused = True
+        require(refused, f"{preset}: dt and v_ref both numbers were not refused")
+        print(f"[37 single] {preset} ({cfg.model}): {PROLOGUE_POSES} poses on the course "
+              f"({n} points) bit-equal on every output, tickets zero; far pose at point 0, "
+              f"end pose clamped, tie at the first index; converted operands (the models "
+              f"so far) {record['converted']}; dt and v_ref both numbers refused", flush=True)
+
+    # (b) fleets on a shared path and on per-robot paths
+    for mi, preset in enumerate(presets):
+        cfg, sp, cp, _ = PRESETS[preset](num_samples=K_FLEET, horizon=T_FLEET, device=dev)
+        m = get_model(cfg.model)
+        rng = np.random.RandomState(3710 + mi)
+        b = PROLOGUE_FLEET
+        course = reference.course(spec, (0.0, 0.0))
+        st = np.zeros((b, m.num_states))
+        st[:, 0] = rng.uniform(0.0, 19.0, b)
+        st[:, 1] = np.interp(st[:, 0], course[:, 0], course[:, 1]) + 0.3 * rng.randn(b)
+        st[:, 2:] = 0.05 * rng.randn(b, m.num_states - 2)
+        st[0, :2] = course[0] + 200.0                      # robot 0 beyond DIST_CAP
+        states = torch.tensor(st, dtype=torch.float32, device=dev)
+        shared = PathBuffer.from_points(course, res, capacity=len(course) + 9, device=dev)
+        lens = rng.randint(120, len(course) + 1, b)
+        own = PathBuffer.stack([
+            PathBuffer.from_points(reference.course(spec, tuple(0.3 * rng.randn(2)))[:ln], res,
+                                   capacity=len(course), device=dev) for ln in lens])
+        key = make_key(77, 5, dev)
+        compare(f"{preset} fleet shared", cfg, shared, states, sp, cp, key=key)
+        compare(f"{preset} fleet shared, count tensor", cfg, shared.with_count_tensor(), states,
+                sp, cp, key=key)
+        compare(f"{preset} fleet shared, number dt", cfg, shared, states, sp, cp, key=key,
+                dt=0.1)
+        thresh = torch.linspace(10.0, 90.0, b, device=dev) if mi == 0 else None
+        compare(f"{preset} fleet per-robot paths", cfg, own, states, sp, cp, thresh=thresh,
+                key=key)
+        print(f"[37 fleet] {preset}: B={b} on a shared path (count int and tensor, dt a "
+              f"tensor and a number) and on "
+              f"per-robot paths of {lens.min()}-{lens.max()} points"
+              f"{', a per-robot threshold' if thresh is not None else ''}: bit-equal",
+              flush=True)
+
+    # (c) compiled updates: kernel prologue against the plain one, chained
+    plain_operands = pro._kernel_operands
+
+    def capture(step, ctrl, call, force_plain, **kw):
+        """The first call (the graph's capture) under the same arm."""
+        if force_plain:
+            pro._kernel_operands = lambda *a, **k: None
+        try:
+            return step(ctrl, *call, **kw)
+        finally:
+            pro._kernel_operands = plain_operands
+
+    def chain(preset, opts, n, stale=False, roll_off=True):
+        kw = {"roll_off": roll_off} if preset == "full_body" else {}
+        cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN, device=dev,
+                                              **kw)
+        m = get_model(cfg.model)
+        path = PathBuffer.from_points(course, 0.1, device=dev)
+        rest = list(PRESET_MODELS[preset][1])
+        state = torch.tensor([0.05, float(course[0, 1]) + 0.1, *rest], dtype=torch.float32,
+                             device=dev)
+        outs = {}
+        for arm in ("plain", "kernel"):
+            step = compile_step(cfg, use_kernel=True, lean=True, **opts)
+            ctrl = ControllerState.initial(37, cfg.horizon, m.num_controls, device=dev)
+            thresh = torch.full((), 60.0, device=dev) if stale else None
+            extra = {"elite_stale_thresh": thresh} if stale else {}
+            seq = []
+            for i in range(n):
+                call = (state, path, dt, sp, cp)
+                if i == 0:
+                    ctrl, r = capture(step, ctrl, call, arm == "plain", **extra)
+                else:
+                    ctrl, r = step(ctrl, *call, **extra)
+                if stale:
+                    extra["elite_stale_thresh"] = r.stats["elite_thresh"]
+                seq.append((ctrl.u_prev.clone(), ctrl.key.clone()))
+            outs[arm] = seq
+        torch.cuda.synchronize()
+        equal = all(same(a[0], b[0]) and same(a[1], b[1])
+                    for a, b in zip(outs["plain"], outs["kernel"]))
+        return equal
+
+    cases = [("flagship lean", "full_body", {}, 20, False),
+             ("two-pass elite", "full_body", {"elite_frac": ELITE}, 6, False),
+             ("stale elite", "diff_drive", {"elite_frac": ELITE}, 6, True),
+             ("Gauss-Newton refined", "full_body",
+              {"refine_steps": 3, "refine_method": "gauss_newton"}, 6, False),
+             ("rate-limited lean", "rate_limited_steering", {}, 6, False)]
+    chains = {}
+    for name, preset, opts, n, stale in cases:
+        chains[name] = chain(preset, opts, n, stale)
+        print(f"[37 chained] {name}: {n} compiled updates with the kernel's prologue "
+              f"bit-equal to the plain prologue's (u_prev and key): {chains[name]}", flush=True)
+        require(chains[name], f"{name}: the compiled updates differ")
+    record["chained"] = chains
+
+    # the fleet tick, diff_drive at the benchmark's node size
+    cfg, sp, cp, course = PRESETS["diff_drive"](num_samples=1000, horizon=15, device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    rng = np.random.RandomState(3720)
+    st = np.zeros((PROLOGUE_FLEET, 3))
+    st[:, 0] = rng.uniform(0.0, 8.0, PROLOGUE_FLEET)
+    st[:, 1] = np.interp(st[:, 0], course[:, 0], course[:, 1]) + 0.3 * rng.randn(PROLOGUE_FLEET)
+    states = torch.tensor(st, dtype=torch.float32, device=dev)
+    ticks = {}
+    for arm in ("plain", "kernel"):
+        if arm == "plain":
+            pro._kernel_operands = lambda *a, **k: None
+        try:
+            tick = build_fleet_step(cfg, use_kernel=True)
+            ctrls = init_fleet(cfg, PROLOGUE_FLEET, seed=37, device=dev)
+            ctrls, _ = tick(ctrls, states, path, dt, sp, cp)
+        finally:
+            pro._kernel_operands = plain_operands
+        seq = [(ctrls.u_prev.clone(), ctrls.key.clone())]
+        for _ in range(5):
+            ctrls, _ = tick(ctrls, states, path, dt, sp, cp)
+            seq.append((ctrls.u_prev.clone(), ctrls.key.clone()))
+        ticks[arm] = seq
+    torch.cuda.synchronize()
+    fleet_equal = all(same(a[0], b[0]) and same(a[1], b[1])
+                      for a, b in zip(ticks["plain"], ticks["kernel"]))
+    print(f"[37 chained] diff_drive fleet tick B={PROLOGUE_FLEET} K=1000 T=15: 6 ticks "
+          f"bit-equal {fleet_equal}", flush=True)
+    require(fleet_equal, "the fleet ticks differ")
+    record["chained"]["fleet tick"] = fleet_equal
+
+    # (d) the replayed flagship update: plain prologue against the kernel
+    cfg, sp, cp, course = PRESETS["full_body"](num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    state = torch.tensor([0.05, float(course[0, 1]) + 0.1, 0.1, 0.02, -0.03],
+                         dtype=torch.float32, device=dev)
+    carries, steps = {}, {}
+    for arm in ("plain", "kernel"):
+        steps[arm] = compile_step(cfg, use_kernel=True, lean=True)
+        carries[arm] = ControllerState.initial(37, T_MAIN, 5, device=dev)
+        carries[arm], _ = capture(steps[arm], carries[arm], (state, path, dt, sp, cp),
+                                  arm == "plain")
+
+    def updater(arm):
+        def fn():
+            carries[arm], _ = steps[arm](carries[arm], state, path, dt, sp, cp)
+        return fn
+
+    profiling.reset()
+    before = pro.step_prologue_cuda.launches
+    for arm in ("plain", "kernel"):
+        for _ in range(10):
+            updater(arm)()
+    torch.cuda.synchronize()
+    counted = profiling.counters()
+    launched = pro.step_prologue_cuda.launches - before
+    print(f"[37 replay] 10 replays each arm: {launched} prologue launches; counters "
+          f"{ {k: v for k, v in counted.items() if k.startswith('step.')} }", flush=True)
+    require(launched == 10 and counted.get("step.kernel_updates") == 20
+            and counted.get("step.prologue_fused") == 10,
+            "not one prologue launch a replay, or the counters are off")
+    ops = {}
+    for arm in ("plain", "kernel"):
+        with profiling.device_profile() as prof:   # its warm-up cycle discarded
+            for _ in range(5):
+                updater(arm)()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        names = {}
+        for e in events:
+            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+        ops[arm] = dict(ops_per_update=len(events) / 5,
+                        prologue_us=[e.time_range.elapsed_us() for e in events
+                                     if "step_prologue_kernel" in e.name],
+                        names=names)
+        print(f"[37 profile] {arm} prologue: {len(events) / 5:.1f} device ops an update; "
+              f"prologue kernel us {ops[arm]['prologue_us']}", flush=True)
+    record["profile"] = ops
+    times = time_interleaved({arm: (updater(arm), 20) for arm in ("plain", "kernel")}, 7)
+    med = {arm: statistics.median(v) for arm, v in times.items()}
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    record["times_ms"] = med
+    print(f"[37 timing] the replayed flagship update, median of 7 CUDA-event reps of 20 on "
+          f"{card} (after: sm clock, draw, limit, temp = {clocks}): plain prologue "
+          f"{med['plain']:.4f} ms, kernel prologue {med['kernel']:.4f} ms; propagations/s "
+          f"{K_MAIN * (T_MAIN - 1) / (med['plain'] * 1e-3):.4e} -> "
+          f"{K_MAIN * (T_MAIN - 1) / (med['kernel'] * 1e-3):.4e}", flush=True)
+
+    # the prologue alone at the flagship: the kernel's launch against the
+    # op-by-op glue it replaced (the plain version, the centred rows and
+    # start state, the tickets' zeros), each a CUDA graph of 20
+    key = make_key(37, 0, dev)
+    tickets = pro.ticket_count(cfg.num_samples)
+    ops_alone = pro._kernel_operands(cfg, path, state, dt, sp, cp, None, None, key)
+
+    def kernel_alone():
+        pro.step_prologue_cuda(**ops_alone, tickets_per_robot=tickets)
+
+    def plain_alone():
+        want = pro.step_prologue_plain(cfg, path, state, dt, sp, cp, None, None, key)
+        centred(want.ref.xy, state)
+        torch.zeros(tickets, dtype=torch.int32, device=dev)
+
+    alone = time_interleaved({"kernel": (graph_replay(kernel_alone, 20), 1),
+                              "plain": (graph_replay(plain_alone, 20), 1)}, 7)
+    alone = {arm: statistics.median(v) / 20 for arm, v in alone.items()}
+    nbytes, (bound_ms, _) = prologue_bound(int(path.num_valid), T_MAIN, state.numel(),
+                                           tickets)
+    record["alone_ms"] = alone
+    record["bound"] = {"bytes": nbytes, "ms": bound_ms}
+    # every case above is bit-equal on every output
+    record["max_abs_err"] = 0.0
+    print(f"[37 alone] the prologue at N={int(path.num_valid)} T={T_MAIN}, a launch of a "
+          f"graph of 20, median of 7 on {card}: kernel {alone['kernel']:.6f} ms, the "
+          f"op-by-op glue {alone['plain']:.6f} ms; bound {bound_ms:.3e} ms ({nbytes} B at "
+          f"the HBM rate)", flush=True)
+    counters_zero("step prologue")
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -2957,6 +3374,7 @@ def main():
         launch_shape,
         rollout_cost_bound_ms,
     )
+    from ccv_mppi_path_tracker_tpu_torch.kernels.step_prologue import step_prologue_cuda
     from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
     from ccv_mppi_path_tracker_tpu_torch.models import get_model
     from ccv_mppi_path_tracker_tpu_torch.ops.softmax_update import elite_threshold
@@ -3219,7 +3637,7 @@ def main():
     for preset, opts, per_cycle in loops:
         cfg, sp, cp, course = PRESETS[preset](num_samples=K_MAIN, horizon=T_MAIN,
                                               device=dev)
-        fused_sample_rollout_cost.launches = 0
+        fused_sample_rollout_cost.launches = step_prologue_cuda.launches = 0
         t0 = time.perf_counter()
         logs, m = lean_loop(cfg, sp, cp, course, opts)
         wall = time.perf_counter() - t0
@@ -3227,6 +3645,7 @@ def main():
         name = cfg.model + ("_elite_stale" if opts.get("elite_stale")
                             else "_elite" if opts else "")
         launches[name] = n
+        launches[f"{name}/prologue"] = step_prologue_cuda.launches
         loop_rate[name] = STEPS / wall
         finite = bool(np.isfinite(logs["state"]).all())
         print(f"[6 closed loop] {preset} {opts or ''} {STEPS} cycles K={K_MAIN} "
@@ -3237,6 +3656,9 @@ def main():
         require(m["rmse"] < 0.15, f"{name} closed-loop RMSE {m['rmse']} >= 0.15")
         require(n == per_cycle * STEPS,
                 f"{name}: kernel launched {n} times, not {per_cycle * STEPS}")
+        require(launches[f"{name}/prologue"] == STEPS,
+                f"{name}: the step prologue launched {launches[f'{name}/prologue']} times, "
+                f"not {STEPS}")
         counters_zero(name)
 
     # --- 7. the command line -------------------------------------------
@@ -4573,6 +4995,10 @@ def main():
     print(json.dumps({"gauss_newton_kernel": phase_36(dev, card, counters_zero)}),
           flush=True)
 
+    # --- 37. the control step's prologue -------------------------------------------
+    prologue = phase_37(dev, card, counters_zero)
+    print(json.dumps({"step_prologue": prologue}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -4654,6 +5080,13 @@ def main():
     draw["meta_train_ms"] = med31["draw_graph50/meta_train"]
     draw["meta_train_bound_ms"] = philox_bound(*META_DRAW)[0]
     kernels.append(draw)
+    # the control step's prologue (phase 37), in the same library; launches: the
+    # lean full_body 200-cycle loop's (phase 6), one an update
+    max_abs_err["step_prologue"] = prologue["max_abs_err"]
+    kernels.append(entry("step_prologue", "full_body/prologue", "step_prologue",
+                         prologue["alone_ms"]["kernel"], prologue["alone_ms"]["plain"],
+                         (prologue["bound"]["ms"], "bytes"), replaces=REPLACES_PROLOGUE))
+    kernels[-1]["bound_bytes"] = prologue["bound"]["bytes"]
     # phase 32's, 33's, 34's and 35's runs, each counted from 0 just before it
     # (phase 34: the graphed sharded 200-cycle loop over NCCL; phase 35: one
     # replayed tick of a fleet of B_SPLIT robots, three launches)
