@@ -12,6 +12,9 @@ core/device.py).
   A=1.5, f=0.127, delta=0).
 - :func:`rate_limited_launch`: the rate-limited steering family (not in the
   reference) on the diff-drive course.
+- :func:`autorally_nn_launch`: AutoRally's learned network model
+  (models/autorally_nn.py) on the full-body course: steering and throttle in
+  [-1, 1], sigma 0.3, lambda 1, v_ref 2.0, path 10, speed 1.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ import numpy as np
 import torch
 
 from ccv_mppi_path_tracker_tpu_torch.core.config import (
+    SolverConfig,
     diff_drive_config,
     full_body_config,
+    make_cost_params,
+    make_solver_params,
     rate_limited_steering_config,
     steering_diff_drive_config,
 )
@@ -82,6 +88,19 @@ def rate_limited_launch(num_samples=10000, horizon=15, dtype=torch.float32,
         dtype=dtype, device=device,
     )
     return cfg, sp, cp, _course(1.0, 0.25, 10.0, dtype)
+
+
+def autorally_nn_launch(num_samples=102400, horizon=30, dtype=torch.float32, device=None):
+    """The AutoRally network model at the project's target K and T on the
+    flagship's course (sum of cosines, A=1.5, f=0.127, 20 m): the box of the
+    normalised chassis commands, sigma (0.3, 0.3), lambda 1, and the tracking
+    cost with v_ref 2.0, path weight 10 and speed weight 1."""
+    cfg = SolverConfig(model="autorally_nn", num_samples=num_samples, horizon=horizon)
+    sp = make_solver_params([0.3, 0.3], 1.0, [-1.0, -1.0], [1.0, 1.0], dtype=dtype,
+                            device=device)
+    cp = make_cost_params(v_ref=2.0, path_weight=10.0, v_weight=1.0, dtype=dtype,
+                          device=device)
+    return cfg, sp, cp, _course(1.5, 0.127, 20.0, dtype)
 
 
 PRESETS = {

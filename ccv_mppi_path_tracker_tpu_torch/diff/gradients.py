@@ -45,7 +45,7 @@ from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.mindist import min_sq_distance
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
     CLOSED_FORM_MODELS,
-    rollout,
+    model_rollout,
     rollout_closed_form,
 )
 from ccv_mppi_path_tracker_tpu_torch.utils import profiling
@@ -61,17 +61,18 @@ def _params(model, model_params, like):
     return model_params
 
 
-def _rollout(cfg, model, state, u, dt):
+def _rollout(cfg, model, state, u, dt, model_params=None):
     """The rollout of a batch u (T-1, B, U) from one state (S,): the closed
     form where the model has one, as the sampled solver's eager path rolls
-    out, else the sequential Euler recurrence. The JAX package's refinement
+    out, else the sequential Euler recurrence (ops/rollout.py model_rollout,
+    under ``model_params``). The JAX package's refinement
     rolls out sequentially; the two agree to round-off, and the closed form
     is tens of tensor calls where the recurrence is hundreds, which on the
     card is what a refinement's time is made of."""
     state0 = state.expand(u.shape[1], -1)
     if cfg.model in CLOSED_FORM_MODELS:
         return rollout_closed_form(cfg.model, state0, u, dt)
-    return rollout(model.step, state0, u, dt)
+    return model_rollout(model, state0, u, dt, model_params)
 
 
 def make_trajectory_cost(cfg: SolverConfig):
@@ -86,7 +87,7 @@ def make_trajectory_cost(cfg: SolverConfig):
     def cost_fn(u_seq, state, ref: RefWindow, dt, cp: CostParams, model_params=None):
         model_params = _params(model, model_params, u_seq)
         u = u_seq[:, None, :]  # (T-1, 1, U)
-        states = _rollout(cfg, model, state, u, dt)
+        states = _rollout(cfg, model, state, u, dt, model_params)
         aux = {}
         if model.aux_from_rollout is not None:
             aux = model.aux_from_rollout(states, u, dt, model_params)
@@ -104,7 +105,7 @@ def _batched_residuals(cfg: SolverConfig):
 
     def res(u, state, ref: RefWindow, dt, cp: CostParams, model_params=None):
         model_params = _params(model, model_params, u)
-        states = _rollout(cfg, model, state, u, dt)
+        states = _rollout(cfg, model, state, u, dt, model_params)
         if cfg.model == "full_body":
             zmp_y = model.aux_from_rollout(states, u, dt, model_params)["zmp"][..., 1]
             tm2 = states.shape[0] - 2

@@ -45,7 +45,7 @@ from ccv_mppi_path_tracker_tpu_torch.diff.learned_sampler import random_poses
 from ccv_mppi_path_tracker_tpu_torch.diff.optim import Program, adam_init, adam_update
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
-from ccv_mppi_path_tracker_tpu_torch.ops.rollout import rollout
+from ccv_mppi_path_tracker_tpu_torch.ops.rollout import model_rollout
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
     STEER_DIM,
     draw_standard_normals,
@@ -145,7 +145,8 @@ def learned_update_step(
                                       dtype=state.dtype, device=state.device)
     u_samples = sample_controls(ctrl.u_prev, sp, cfg.num_samples, steer_off=cfg.steer_off,
                                 noise=noise)
-    states = rollout(model.step, state.expand(cfg.num_samples, -1), u_samples, dt)
+    states = model_rollout(model, state.expand(cfg.num_samples, -1), u_samples, dt,
+                           model_params)
     aux = {}
     if model.aux_from_rollout is not None:
         aux = model.aux_from_rollout(states, u_samples, dt, model_params)
@@ -163,7 +164,8 @@ def learned_update_step(
              "ess": 1.0 / torch.sum(weights * weights)}
     next_ctrl = ctrl.advanced(u_opt)
     return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=ref,
-                                 opt_states=rollout(model.step, state, u_opt, dt),
+                                 opt_states=model_rollout(model, state, u_opt, dt,
+                                                          model_params),
                                  stats=stats)
 
 

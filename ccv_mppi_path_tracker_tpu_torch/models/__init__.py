@@ -1,6 +1,7 @@
 """Dynamics models; importing the package registers the built-in ones."""
 
 from ccv_mppi_path_tracker_tpu_torch.models import (  # noqa: F401
+    autorally_nn,
     full_body,
     rate_limited_steering,
     steering_unicycle,

@@ -26,6 +26,12 @@ class Model:
         steer and rate limits). Code that re-derives the dynamics outside
         ``step`` (the closed-form rollout, the fused kernel) reads them from
         here, so a re-registered variant stays consistent with its step.
+    rollout: optional sequential rollout that takes the model's parameters,
+        (state0 (..., S), controls (T-1, ..., U), dt, params) -> states
+        (T, ..., S). The eager path, the planned path and the refinement
+        call it in place of the Euler recurrence over ``step`` (which gets
+        no parameters): a model whose step reads parameters (a network's
+        weights) supplies it.
     """
 
     name: str
@@ -36,6 +42,7 @@ class Model:
     default_params: Optional[Callable] = None
     cost_fn: Optional[Callable] = None
     constants: Optional[dict] = None
+    rollout: Optional[Callable] = None
 
     @property
     def num_states(self) -> int:

@@ -23,6 +23,15 @@ def rollout(step_fn, state0: torch.Tensor, controls: torch.Tensor, dt):
     return torch.stack(states)
 
 
+def model_rollout(model, state0: torch.Tensor, controls: torch.Tensor, dt, params=None):
+    """The sequential rollout of the registered ``model``: its own
+    (``Model.rollout``, which takes the model's parameters ``params``) where
+    it supplies one, else :func:`rollout` of its step."""
+    if model.rollout is not None:
+        return model.rollout(state0, controls, dt, params)
+    return rollout(model.step, state0, controls, dt)
+
+
 def steer_limits(model_name: str):
     """(steer_max, rate_max) of a rate-limited steering variant, read from
     the registered model's constants (not the module defaults), so that a

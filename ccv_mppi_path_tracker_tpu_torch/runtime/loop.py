@@ -30,7 +30,12 @@ from ccv_mppi_path_tracker_tpu_torch.metrics.tracking import tracking_metrics
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.paths.resample import PathBuffer
 from ccv_mppi_path_tracker_tpu_torch.runtime.plant import Plant
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import (
+    KeyedGraph,
+    compile_step,
+    mppi_step,
+    resolve_auto,
+)
 from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import collectives_capturable
 
 
@@ -106,6 +111,7 @@ def cycle(carry, path, dt, sp, cp, model_params, cfg, plant, options, with_stats
     key; ``options`` the keyword options of ``mppi_step``. Returns (the next
     carry, the cycle's log row)."""
     ctrl, state, thresh = carry
+    options = resolve_auto(cfg, options, state.device)
     if thresh is not None:
         options = dict(options, elite_stale_thresh=thresh)
     next_ctrl, res = mppi_step(cfg, ctrl, state, path, dt, sp, cp,

@@ -47,7 +47,12 @@ from ccv_mppi_path_tracker_tpu_torch.solver.command import (
     command_from_solution,
     steering_mode,
 )
-from ccv_mppi_path_tracker_tpu_torch.solver.mppi import KeyedGraph, compile_step, mppi_step
+from ccv_mppi_path_tracker_tpu_torch.solver.mppi import (
+    KeyedGraph,
+    compile_step,
+    mppi_step,
+    resolve_auto,
+)
 
 
 def _start_pose(course, num_states):
@@ -89,7 +94,7 @@ def run_realtime_experiment(
     path = PathBuffer.from_points(course, resolution, dtype=dtype, device=device)
     opts = {"lean": True} if lean else {}
     if use_kernel:
-        opts["use_kernel"] = True
+        opts["use_kernel"] = use_kernel
     loop = ControlLoop(cfg=cfg, sp=sp, cp=cp, path=path, model_params=model_params,
                        nominal_dt=1.0 / hz, solver_options=opts or None)
     model = get_model(cfg.model)
@@ -192,7 +197,8 @@ def window(ctrl, path, dt, state, sp, cp, cfg, micro_batch, plant_dt, step_kw):
     model = get_model(cfg.model)
     u0s = []
     for _ in range(micro_batch):
-        ctrl, res = mppi_step(cfg, ctrl, state, path, dt, sp, cp, **step_kw)
+        ctrl, res = mppi_step(cfg, ctrl, state, path, dt, sp, cp,
+                              **resolve_auto(cfg, step_kw, state.device))
         state = model.step(state, res.u0, plant_dt)
         u0s.append(res.u0)
     return ctrl, torch.stack(u0s)

@@ -42,7 +42,10 @@ from ccv_mppi_path_tracker_tpu_torch.core.types import (
     StepResult,
     make_key,
 )
-from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import fused_sample_rollout_cost
+from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+    fused_sample_rollout_cost,
+    should_use_kernel,
+)
 from ccv_mppi_path_tracker_tpu_torch.kernels.step_prologue import step_prologue
 from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals
@@ -81,7 +84,8 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
     2) and (B, T), opt_states (B, T, S) and per-robot stats (B,).
 
     ``use_kernel`` runs the fleet through one fused-kernel launch (float32,
-    the four built-in models), else through the vmapped eager arm. On the
+    the four built-in models), else through the vmapped eager arm;
+    ``"auto"`` chooses by kernels/rollout_cost.py should_use_kernel. On the
     card either is the replay of the tick's CUDA graph (captured by the
     first tick of its shapes; dt, the parameters and the paths are its
     inputs, the key is read and advanced on the device, and the step's host
@@ -104,13 +108,17 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
 
 
 def _tick(ctrls, path, dt, states, sp, cp, model_params, noise, cfg, use_kernel):
-    """One fleet tick: the update of every robot, then its planned path."""
+    """One fleet tick: the update of every robot, then its planned path
+    (``use_kernel="auto"`` resolved for the device of ``states``, where the
+    tick runs op by op or is captured)."""
     model = get_model(cfg.model)
+    if use_kernel == "auto":
+        use_kernel = should_use_kernel(cfg.model, states.device)
     update = _kernel_update if use_kernel else _eager_update
     u_opt, ref, stats, next_key = update(cfg, ctrls, states, path, dt, sp, cp, model_params,
                                          noise)
     opt_states = _opt_rollout(cfg.model, model, states, u_opt.transpose(0, 1),
-                              dt).transpose(0, 1)
+                              dt, model_params).transpose(0, 1)
     return ctrls.advanced(u_opt, next_key=next_key), StepResult(
         u_opt=u_opt, u0=u_opt[:, 0], ref=ref, opt_states=opt_states, stats=stats)
 

@@ -35,6 +35,7 @@ from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState, StepResult
 from ccv_mppi_path_tracker_tpu_torch.diff.gradients import gauss_newton_refine, gradient_refine
 from ccv_mppi_path_tracker_tpu_torch.kernels.rollout_cost import (
+    KERNEL_MODELS,
     fused_sample_rollout_cost,
     pack_scalars,
     should_use_kernel,
@@ -44,7 +45,7 @@ from ccv_mppi_path_tracker_tpu_torch.models.registry import get_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import trajectory_costs
 from ccv_mppi_path_tracker_tpu_torch.ops.rollout import (
     CLOSED_FORM_MODELS,
-    rollout,
+    model_rollout,
     rollout_closed_form,
 )
 from ccv_mppi_path_tracker_tpu_torch.ops.sampling import (
@@ -104,8 +105,11 @@ def mppi_step(
         read from ``ctrl.key`` on the device where the state has one (by
         value where it has none). The returned state's step and key are
         advanced by one.
-    use_kernel: run sample + rollout + cost + update in the fused kernel
-        (float32 only, any K, the four built-in models).
+    use_kernel: True runs sample + rollout + cost + update in the fused
+        kernel (float32 only, any K, the four built-in models of
+        ``KERNEL_MODELS``; another model raises), False the eager path. Only
+        a bool: ``"auto"`` is resolved by :func:`compile_step`,
+        :class:`MPPISolver` and the runtime's loops, and raises here.
     shift_warm_start: center sampling on the one-step-shifted previous
         optimum (last control repeated); the reference does not shift.
     delay: actuation-latency compensation in seconds: Euler-predict the
@@ -149,6 +153,13 @@ def mppi_step(
         draw the unsharded step's samples. ``noise`` is then this shard's
         (T-1, K/N, U).
     """
+    if not isinstance(use_kernel, bool):
+        raise ValueError(f"mppi_step takes use_kernel True or False, not {use_kernel!r}: "
+                         "compile_step, MPPISolver and ControlLoop resolve \"auto\" "
+                         "(kernels/rollout_cost.py should_use_kernel)")
+    if use_kernel and cfg.model not in KERNEL_MODELS:
+        raise ValueError(f"the fused kernel implements {KERNEL_MODELS}, not {cfg.model!r}: "
+                         "run this model with use_kernel=False or \"auto\"")
     if elite_stale_thresh is not None and elite_frac is None:
         raise ValueError("elite_stale_thresh requires elite_frac (for the next threshold)")
     if lean and debug_candidates:
@@ -156,7 +167,7 @@ def mppi_step(
     k = cfg.num_samples if num_samples is None else num_samples
     model = get_model(cfg.model)
     if delay is not None:
-        state = model.step(state, ctrl.u_prev[0], delay)
+        state = model_rollout(model, state, ctrl.u_prev[:1], delay, model_params)[-1]
     u_mean = ctrl.u_prev
     if shift_warm_start:
         u_mean = torch.cat([ctrl.u_prev[1:], ctrl.u_prev[-1:]], dim=0)
@@ -215,7 +226,7 @@ def mppi_step(
         if cfg.model in CLOSED_FORM_MODELS:
             states = rollout_closed_form(cfg.model, state0, u_samples, dt)
         else:
-            states = rollout(model.step, state0, u_samples, dt)
+            states = model_rollout(model, state0, u_samples, dt, model_params)
         aux = {}
         if model.aux_from_rollout is not None:
             aux = model.aux_from_rollout(states, u_samples, dt, model_params)
@@ -245,7 +256,7 @@ def mppi_step(
         keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}
         return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=None,
                                      opt_states=None, stats=keep)
-    opt_states = _opt_rollout(cfg.model, model, state, u_opt, dt)
+    opt_states = _opt_rollout(cfg.model, model, state, u_opt, dt, model_params)
     return next_ctrl, StepResult(
         u_opt=u_opt, u0=u_opt[0], ref=ref, opt_states=opt_states, stats=stats
     )
@@ -416,13 +427,29 @@ class CompiledStep:
 
 def compile_step(cfg: SolverConfig, **options) -> CompiledStep:
     """The compiled control step of ``cfg`` under ``options`` (the keyword
-    options of :func:`mppi_step`): see :class:`CompiledStep`."""
+    options of :func:`mppi_step`): see :class:`CompiledStep`. ``use_kernel``
+    may be ``"auto"``: the fused kernel where
+    :func:`kernels.rollout_cost.should_use_kernel` takes the model on the
+    device of the state a call gives, resolved where the step runs op by op
+    or is captured (:func:`_graph_step`), never at a replay."""
     return CompiledStep(cfg, **options)
 
 
 def _graph_step(ctrl, path, dt, state, sp, cp, cfg, kw):
-    """The function a :class:`CompiledStep` captures."""
-    return mppi_step(cfg, ctrl, state, path, dt, sp, cp, **kw)
+    """The function a :class:`CompiledStep` captures: ``use_kernel="auto"``
+    resolved here by :func:`kernels.rollout_cost.should_use_kernel` for the
+    device of ``state``, so that a graph's replay, which runs no host code,
+    pays nothing for it."""
+    return mppi_step(cfg, ctrl, state, path, dt, sp, cp, **resolve_auto(cfg, kw, state.device))
+
+
+def resolve_auto(cfg: SolverConfig, options: dict, device) -> dict:
+    """``options`` (keyword options of :func:`mppi_step`) with
+    ``use_kernel="auto"`` resolved by
+    :func:`kernels.rollout_cost.should_use_kernel` for ``device``."""
+    if options.get("use_kernel") == "auto":
+        return dict(options, use_kernel=should_use_kernel(cfg.model, device))
+    return options
 
 
 def _sum_shards(costs, global_min, lam, u_num, norm, u2_num, group):
@@ -492,13 +519,13 @@ def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_s
 REFINE_GRAPHS = Graphed(refine_stage, max_graphs=16)
 
 
-def _opt_rollout(model_name, model, state, u_opt, dt):
+def _opt_rollout(model_name, model, state, u_opt, dt, model_params=None):
     """Planned-path re-roll of the optimal sequence (the reference's
     publish_OptimalPath, src/diff_drive_mppi.cpp:295-312), in the closed
-    form where the model has one."""
+    form where the model has one, else sequentially under ``model_params``."""
     if model_name in CLOSED_FORM_MODELS:
         return rollout_closed_form(model_name, state, u_opt, dt)
-    return rollout(model.step, state, u_opt, dt)
+    return model_rollout(model, state, u_opt, dt, model_params)
 
 
 class MPPISolver:
