@@ -19,7 +19,10 @@ chassis commands normalised to [-1, 1]. The derivative:
 with W1 (32, 6), W2 (32, 32), W3 (4, 32), and the Euler step
 s' = s + dt * s'. The network's weights are the model's parameters
 (:class:`NNParams`), which reach :func:`step` on the eager path
-(``Model.rollout``); the fused kernel does not take this model.
+(``Model.rollout``); the fused sampling kernel does not take this model.
+Where nothing needs the sampled states, the eager update takes the rollout
+and the cost together (``Model.rollout_cost``, :func:`rollout_cost`): on the
+card one launch of kernels/network_rollout.py.
 
 AutoRally's trained weights are not in this repository, so
 :func:`default_params` draws seeded ones (:data:`WEIGHTS`): PyTorch
@@ -45,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
+from ccv_mppi_path_tracker_tpu_torch.kernels import network_rollout
 from ccv_mppi_path_tracker_tpu_torch.models.base import Model
 from ccv_mppi_path_tracker_tpu_torch.models.registry import register_model
 from ccv_mppi_path_tracker_tpu_torch.ops.costs import sums_over_time
@@ -57,8 +61,9 @@ LAYERS = ((6, 32), (32, 32), (32, 4))
 # states the same numbers.
 WEIGHTS = {"seed": 20170529, "order": ["w1", "b1", "w2", "b2", "w3", "b3"],
            "output_scale": 1.0}
-# the network's evaluations, counted once a rollout (utils/profiling.py)
-COUNTERS = ("model.nn_evals",)
+# the network's evaluations, counted once a rollout (utils/profiling.py);
+# kernels/network_rollout.py adds to it too, and to its own FUSED
+COUNTERS = network_rollout.COUNTERS
 
 
 @dataclasses.dataclass
@@ -130,6 +135,15 @@ def step(state, u, dt, params: NNParams = None):
     return state + torch.cat([pose, network(state, u, params)], dim=-1) * dt
 
 
+def euler_states(state0, controls, dt, params: NNParams):
+    """The sequential Euler rollout of controls (T-1, ..., 2) from state0
+    (..., 7) under ``params``: states (T, ..., 7), op by op."""
+    states = [state0]
+    for u in controls:
+        states.append(step(states[-1], u, dt, params))
+    return torch.stack(states)
+
+
 def rollout(state0, controls, dt, params: NNParams = None):
     """The sequential Euler rollout of controls (T-1, ..., 2) from state0
     (..., 7) under ``params`` (None: :func:`default_params`): states (T, ...,
@@ -140,10 +154,7 @@ def rollout(state0, controls, dt, params: NNParams = None):
     with profiling.span("model.nn_rollout"):
         if params is None:
             params = default_params(state0.device, state0.dtype)
-        states = [state0]
-        for u in controls:
-            states.append(step(states[-1], u, dt, params))
-        states = torch.stack(states)
+        states = euler_states(state0, controls, dt, params)
         if profiling.device_counting(states):
             evals = profiling.device_constant(controls[..., 0].numel(), torch.int64,
                                               states.device)
@@ -152,13 +163,71 @@ def rollout(state0, controls, dt, params: NNParams = None):
         return states
 
 
-def cost(states, controls, aux, ref, cp):
-    """(K,) costs of states (T, K, 7): the path term over all T states and
-    the speed term over states 1 ... T-1, whose v_x the controls set."""
-    d2 = min_sq_distance(states[..., :2], ref.xy)
+def states_cost(states, ref_xy, cp):
+    """(K,) costs of states (T, K, 7) against the window ref_xy (R, 2): the
+    path term over all T states and the speed term over states 1 ... T-1,
+    whose v_x the controls set."""
+    d2 = min_sq_distance(states[..., :2], ref_xy)
     dv = states[1:, ..., 4] - cp.v_ref
     return (cp.path_weight * sums_over_time(d2)[0]
             + cp.v_weight * sums_over_time(dv * dv)[0])
+
+
+def cost(states, controls, aux, ref, cp):
+    """The model's ``cost_fn``: :func:`states_cost` against ``ref.xy``."""
+    return states_cost(states, ref.xy, cp)
+
+
+def _on_card(t) -> bool:
+    return t.is_cuda
+
+
+def _fused_operands(state0, controls, dt, params, ref, cp):
+    """The operands of kernels/network_rollout.py network_rollout_cost for
+    this call, each contiguous (a number dt made a tensor), or None where the
+    rollout and cost run op by op: off the card, a start state that is not
+    one state expanded over the samples, another dtype or shape, an input
+    that requires grad, or a ``torch.func`` transform (a fleet's vmap)."""
+    if not (_on_card(controls) and profiling.device_counting(state0, controls)
+            and state0.dim() == 2 and controls.dim() == 3
+            and state0.shape[0] == controls.shape[1]
+            and (state0.stride(0) == 0 or state0.shape[0] == 1)):
+        return None
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), dt, dtype=controls.dtype, device=controls.device)
+    args = (state0[0], controls, dt, params, ref.xy, cp)
+    if not network_rollout.takes(*args):
+        return None
+    weights = [getattr(params, n) for n in network_rollout.WEIGHT_NAMES]
+    if not profiling.device_counting(dt, ref.xy, *weights,
+                                     *(getattr(cp, n) for n in network_rollout.COST_NAMES)):
+        return None
+    return (*[t.contiguous() for t in args[:3]],
+            NNParams(*[w.contiguous() for w in weights]), ref.xy.contiguous(),
+            dataclasses.replace(cp, **{n: getattr(cp, n).contiguous()
+                                       for n in network_rollout.COST_NAMES}))
+
+
+def rollout_cost(state0, controls, dt, params, ref, cp):
+    """The model's ``rollout_cost`` hook: the (K,) costs of the samples'
+    rollouts, ``cost(rollout(state0, controls, dt, params), ...)``, without
+    the states. Where the kernel takes the call (:func:`_fused_operands`:
+    float32 CUDA tensors, the start state one state expanded over the K
+    samples, controls (T-1, K, 2), the weights of :data:`LAYERS`' shapes,
+    nothing that requires grad, no transform) it is one launch of
+    kernels/network_rollout.py, which adds K·(T-1) to the device counters
+    ``model.nn_evals`` and ``model.nn_fused``; elsewhere, the CPU, float64,
+    grad, a vmapped fleet and other shapes, it is that composition op by op,
+    which adds to ``model.nn_evals`` only."""
+    if params is None:
+        params = default_params(state0.device, state0.dtype)
+    operands = _fused_operands(state0, controls, dt, params, ref, cp)
+    if operands is None:
+        return cost(rollout(state0, controls, dt, params), controls, {}, ref, cp)
+    device = controls.device
+    return network_rollout.network_rollout_cost(
+        *operands, evals=profiling.device_group(COUNTERS, device),
+        fused=profiling.device_group(network_rollout.FUSED, device))
 
 
 MODEL = register_model(
@@ -170,5 +239,6 @@ MODEL = register_model(
         default_params=default_params,
         cost_fn=cost,
         rollout=rollout,
+        rollout_cost=rollout_cost,
     )
 )

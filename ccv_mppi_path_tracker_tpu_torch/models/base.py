@@ -32,6 +32,13 @@ class Model:
         call it in place of the Euler recurrence over ``step`` (which gets
         no parameters): a model whose step reads parameters (a network's
         weights) supplies it.
+    rollout_cost: optional rollout and cost in one, (state0 (K, S), controls
+        (T-1, K, U), dt, params, ref: RefWindow, cp: CostParams) -> (K,), the
+        costs that ``cost_fn`` gives of ``rollout``'s states. The eager path
+        calls it in place of the two where nothing needs the sampled states
+        (no ``debug_candidates``, no ``aux_from_rollout``): a model whose
+        rollout and cost run as one kernel (models/autorally_nn.py) supplies
+        it.
     """
 
     name: str
@@ -43,6 +50,7 @@ class Model:
     cost_fn: Optional[Callable] = None
     constants: Optional[dict] = None
     rollout: Optional[Callable] = None
+    rollout_cost: Optional[Callable] = None
 
     @property
     def num_states(self) -> int:

@@ -223,14 +223,19 @@ def mppi_step(
                                           device=state.device)
         u_samples = sample_controls(u_mean, sp, k, steer_off=cfg.steer_off, noise=noise)
         state0 = state.expand(k, -1)
-        if cfg.model in CLOSED_FORM_MODELS:
-            states = rollout_closed_form(cfg.model, state0, u_samples, dt)
+        if (model.rollout_cost is not None and not debug_candidates
+                and model.aux_from_rollout is None):
+            # rollout and cost in one, no state kept (Model.rollout_cost)
+            costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp)
         else:
-            states = model_rollout(model, state0, u_samples, dt, model_params)
-        aux = {}
-        if model.aux_from_rollout is not None:
-            aux = model.aux_from_rollout(states, u_samples, dt, model_params)
-        costs = trajectory_costs(cfg.model, states, u_samples, aux, ref, cp)
+            if cfg.model in CLOSED_FORM_MODELS:
+                states = rollout_closed_form(cfg.model, state0, u_samples, dt)
+            else:
+                states = model_rollout(model, state0, u_samples, dt, model_params)
+            aux = {}
+            if model.aux_from_rollout is not None:
+                aux = model.aux_from_rollout(states, u_samples, dt, model_params)
+            costs = trajectory_costs(cfg.model, states, u_samples, aux, ref, cp)
         weights, stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
                                          elite_thresh=elite_stale_thresh, group=group)
         if debug_candidates:

@@ -250,7 +250,17 @@ failure ending the run with a non-zero exit:
      on shared and per-robot paths; compiled updates with either prologue
      chained bit for bit (lean, two-pass and stale elite, Gauss-Newton
      refined, the fleet tick); one launch and the counters a replay; the
-     replayed flagship update's ms and device ops with either.
+     replayed flagship update's ms and device ops with either;
+ 38. the eager update's network rollout and cost (kernels/network_rollout.py,
+     csrc/network_rollout.cu): its build and ptxas report; the costs against
+     the plain version (models/autorally_nn.py cost(rollout(...))) at
+     K=102400 T=30 and a ragged K=1000 T=15, the counters model.nn_evals and
+     model.nn_fused; the dispatch launching on the cell's shape and not under
+     float64, grad, vmap or distinct start states; compiled updates on the
+     cell's inputs within 1e-6 of the box of op-by-op ones with the plain
+     rollout; weights changed in place between replays reaching the kernel;
+     one launch a replay; CUDA-event times of the kernel, the plain version
+     and the update with either, the kernel beside work_nn's bound.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -3337,6 +3347,326 @@ def phase_37(dev, card, counters_zero):
     return record
 
 
+NN_SEEDS = 4               # phase 38: seeded cases a shape
+NN_COST_RTOL = 2e-5        # phase 38: kernel vs op by op, the costs (COST_RTOL)
+NN_U_GAP = 1e-6            # phase 38: kernel vs op by op, the update, of the box
+
+
+def nn_case(k, t, seed, dev):
+    """(cfg, sp, cp, path, state, ctrl) of the AutoRally network model at K=k,
+    T=t on its preset's course: a seeded pose near the course's start with a
+    seeded roll and velocities, a seeded warm start inside the box."""
+    import torch
+
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import autorally_nn_launch
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+
+    cfg, sp, cp, course = autorally_nn_launch(num_samples=k, horizon=t, device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    state = torch.zeros(7)
+    state[:2] = torch.as_tensor(course[2], dtype=torch.float32) + 0.1 * torch.randn(2, generator=g)
+    state[2] = 0.2 * torch.randn((), generator=g)
+    state[3:] = 0.3 * torch.randn(4, generator=g)
+    u_prev = torch.clamp(0.4 * torch.randn((t - 1, 2), generator=g), -1.0, 1.0)
+    return (cfg, sp, cp, path, state.to(dev),
+            ControllerState(u_prev.to(dev), seed, 0))
+
+
+def nn_cell_case(seed, dev):
+    """nn_case's tuple as the cell autorally_nn.update draws it from a seed
+    (benchmark/harness.py): the course at a seeded offset, a seeded pose at
+    its start, at rest, a zero warm start."""
+    import torch
+
+    from benchmark import harness
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import autorally_nn_launch
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+
+    with open(ROOT / "benchmark" / "configs" / "autorally_nn-K102400-T30.json") as f:
+        conf = json.load(f)
+    rng = harness.inputs_rng(seed)
+    course = harness.course_for(conf, {"course_offset_m": 1.0}, rng)
+    pose = torch.from_numpy(harness.start_pose(course, 7, rng, [0.05] * 3))
+    cfg, sp, cp, _ = autorally_nn_launch(num_samples=K_MAIN, horizon=T_MAIN, device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    return (cfg, sp, cp, path, pose.to(dev),
+            ControllerState.initial(seed, T_MAIN, 2, device=dev))
+
+
+def phase_38(dev, card, counters_zero):
+    """Phase 38: the eager update's network rollout and cost
+    (kernels/network_rollout.py, csrc/network_rollout.cu) against the plain
+    version, models/autorally_nn.py cost(rollout(...)), on the card, float32:
+    (a) its build and ptxas report (registers, spills); (b) the costs of
+    NN_SEEDS seeded cases at K=102400 T=30 and at a ragged K=1000 T=15,
+    each sample's within NN_COST_RTOL, and the counters model.nn_evals and
+    model.nn_fused K·(T-1) each; the dispatch (autorally_nn.rollout_cost)
+    launching it on the cell's shape and taking the plain version under
+    float64, grad and vmap; (c) compiled updates (compile_step, "auto", lean)
+    against op-by-op updates with the plain rollout on the cell's inputs
+    (nn_cell_case), |du|/box under NN_U_GAP, 3 seeds of 3 chained updates,
+    and on a case whose softmax rests on a few samples (nn_case, printed: a
+    cost's rounding moves its update ~100x more); (d) weights changed in
+    place between two replays reach the kernel: the default weights (read by
+    the graph as they are) and weights passed as model_params; (e) 20 replays of the
+    compiled update: 20 launches, the counters 20 K·(T-1) each, and by
+    torch.profiler the device ops and the kernel's time an update; (f)
+    CUDA-event times in turns: the kernel (a graph of 20 launches) and the
+    plain version (a graph of one), the compiled update with either; the
+    kernel beside benchmark/work_nn.py's bound. Returns its record."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from benchmark import work, work_nn
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels import network_rollout as nr
+    from ccv_mppi_path_tracker_tpu_torch.models import autorally_nn
+    from ccv_mppi_path_tracker_tpu_torch.paths import resample_reference
+    from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals, sample_controls
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    record = {}
+    # (a) the build
+    lib_path, build_s, log = build.build("network_rollout")
+    ptxas = build.ptxas_summary(log or "")
+    print(f"[38 build] {lib_path.name} in {build_s:.2f} s; ptxas {ptxas}", flush=True)
+    require(all("rollout_cost_kernel" not in name for name in ptxas),
+            "a network rollout entry point carries the fused kernel's name")
+    record["ptxas"] = ptxas
+    dt = torch.full((), 0.1, device=dev)
+
+    def operands(k, t, seed):
+        cfg, sp, cp, path, state, ctrl = nn_case(k, t, seed, dev)
+        ref = resample_reference(path, state[:2], cp.v_ref, dt, t)
+        noise = draw_standard_normals(**ctrl.rng(), shape=(t - 1, k, 2), device=dev)
+        u = sample_controls(ctrl.u_prev, sp, k, noise=noise)
+        return state, u, ref, cp, autorally_nn.default_params(dev)
+
+    # (b) the costs against the plain version, and the dispatch
+    worst = {}
+    for k, t in ((K_MAIN, T_MAIN), (1000, 15)):
+        for seed in range(NN_SEEDS):
+            state, u, ref, cp, p = operands(k, t, seed)
+            evals = torch.zeros(1, dtype=torch.int64, device=dev)
+            fused = torch.zeros(1, dtype=torch.int64, device=dev)
+            got = nr.network_rollout_cost(state, u, dt, p, ref.xy.contiguous(), cp, evals, fused)
+            want = autorally_nn.cost(autorally_nn.euler_states(state.expand(k, -1), u, dt, p), u,
+                                     {}, ref, cp)
+            torch.cuda.synchronize()
+            rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
+            worst[f"K{k}_T{t}"] = max(worst.get(f"K{k}_T{t}", 0.0), rel)
+            print(f"  K={k} T={t} seed {seed}: costs {float(want.min()):.4f} .. "
+                  f"{float(want.max()):.4f}, max rel {rel:.3e}; counters "
+                  f"{evals.item()} {fused.item()}", flush=True)
+            require(bool(torch.isfinite(got).all()) and rel <= NN_COST_RTOL,
+                    f"K={k} T={t} seed {seed}: the kernel's costs differ by {rel}")
+            require(evals.item() == fused.item() == k * (t - 1),
+                    f"K={k} T={t}: counters {evals.item()} {fused.item()}")
+    record["cost_max_rel"] = worst
+    state, u, ref, cp, p = operands(K_MAIN, T_MAIN, 9)
+    state0 = state.expand(K_MAIN, -1)
+    before = nr.network_rollout_cost.launches
+    routed = autorally_nn.rollout_cost(state0, u, dt, p, ref, cp)
+    require(nr.network_rollout_cost.launches == before + 1,
+            "rollout_cost did not launch the kernel on the cell's shape")
+    torch.cuda.synchronize()
+    p64 = autorally_nn.default_params(dev, torch.float64)
+    cp64 = dataclasses.replace(cp, **{f.name: getattr(cp, f.name).double()
+                                      for f in dataclasses.fields(cp)})
+    plain_calls = {
+        "float64": lambda: autorally_nn.rollout_cost(state0.double(), u.double(), dt.double(),
+                                                     p64, type(ref)(ref.xy.double(),
+                                                                    ref.yaw.double()), cp64),
+        "grad": lambda: autorally_nn.rollout_cost(state0, u.clone().requires_grad_(True), dt,
+                                                  p, ref, cp),
+        "vmap": lambda: torch.func.vmap(
+            lambda s: autorally_nn.rollout_cost(s.expand(64, -1), u[:, :64], dt, p, ref, cp))(
+                state[None].expand(2, -1)),
+        "states": lambda: autorally_nn.rollout_cost(state0.contiguous(), u, dt, p, ref, cp),
+    }
+    for name, call in plain_calls.items():
+        before = nr.network_rollout_cost.launches
+        with torch.enable_grad():
+            call()
+        require(nr.network_rollout_cost.launches == before,
+                f"rollout_cost launched the kernel under {name}")
+    print(f"[38 compare] the kernel against the plain version: max rel cost {worst} "
+          f"(gate {NN_COST_RTOL}); counters K(T-1) each; the dispatch launches on the "
+          f"cell's shape, not under {list(plain_calls)}", flush=True)
+
+    # (c) compiled updates against the op-by-op update with the plain rollout
+    fused_operands = autorally_nn._fused_operands
+
+    def plain_arm():
+        autorally_nn._fused_operands = lambda *a: None
+
+    def kernel_arm():
+        autorally_nn._fused_operands = fused_operands
+
+    def updates(case, chained):
+        """|du|/box of each of `chained` compiled updates against the
+        op-by-op update with the plain rollout from the same warm start."""
+        cfg, sp, cp, path, state, ctrl = case
+        box = (sp.u_max - sp.u_min).double()
+        step = compile_step(cfg, use_kernel="auto", lean=True)
+        gaps = []
+        for _ in range(chained):
+            before = nr.network_rollout_cost.launches
+            nxt, res_k = step(ctrl, state, path, dt, sp, cp)
+            plain_arm()
+            try:
+                _, res_p = mppi_step(cfg, ctrl, state, path, dt, sp, cp, lean=True)
+            finally:
+                kernel_arm()
+            torch.cuda.synchronize()
+            require(nr.network_rollout_cost.launches == before + 1, "not one launch an update")
+            gaps.append(float(((res_k.u_opt.double() - res_p.u_opt.double()).abs()
+                               / box).max()))
+            ctrl = nxt
+        return gaps
+
+    gaps = {}
+    for seed in (2**31 + 38, 2**32 + 5, 12345):
+        gaps[seed] = updates(nn_cell_case(seed, dev), 3)
+        print(f"  cell seed {seed}: |du|/box {gaps[seed]}", flush=True)
+        require(max(gaps[seed]) <= NN_U_GAP,
+                f"seed {seed}: the compiled update differs by {max(gaps[seed])} of the box")
+    stress = updates(nn_case(K_MAIN, T_MAIN, 100, dev), 1)[0]
+    record["u_gap"] = max(max(g) for g in gaps.values())
+    record["u_gap_few_samples"] = stress
+    print(f"[38 update] compiled updates with the kernel against op-by-op updates with the "
+          f"plain rollout: max |du|/box {record['u_gap']:.3e} on the cell's inputs (gate "
+          f"{NN_U_GAP}); {stress:.3e} where the softmax rests on a few samples", flush=True)
+
+    # (d) weights changed in place reach the kernel at a replay
+    cfg, sp, cp, path, state, ctrl = nn_cell_case(200, dev)
+    box = (sp.u_max - sp.u_min).double()
+    mine = autorally_nn.NNParams(*[t.clone() for t in dataclasses.astuple(
+        autorally_nn.default_params(dev))])
+    for name in ("default", "model_params"):
+        params = autorally_nn.default_params(dev) if name == "default" else mine
+        kw = {} if name == "default" else {"model_params": mine}
+        step = compile_step(cfg, use_kernel="auto", lean=True)
+        for _ in range(2):
+            _, before_res = step(ctrl, state, path, dt, sp, cp, **kw)
+        params.w3.mul_(-1.0)
+        params.b3.mul_(-1.0)
+        try:
+            _, after_res = step(ctrl, state, path, dt, sp, cp, **kw)
+            plain_arm()
+            try:
+                _, want = mppi_step(cfg, ctrl, state, path, dt, sp, cp, lean=True, **kw)
+            finally:
+                kernel_arm()
+            torch.cuda.synchronize()
+        finally:
+            params.w3.mul_(-1.0)
+            params.b3.mul_(-1.0)
+        moved = float(((after_res.u_opt - before_res.u_opt).double().abs() / box).max())
+        gap = float(((after_res.u_opt - want.u_opt).double().abs() / box).max())
+        print(f"[38 in place] {name} weights: W3, b3 negated in place between replays "
+              f"(captures {step.captures}): the update moved {moved:.3e} of the box, "
+              f"{gap:.3e} from the op-by-op update with the new weights", flush=True)
+        require(step.captures == 1 and moved > 1e-3 and gap <= NN_U_GAP,
+                f"{name} weights changed in place did not reach the kernel")
+
+    # (e) one launch a replay, the counters, the device ops
+    cfg, sp, cp, path, state, ctrl = nn_case(K_MAIN, T_MAIN, 300, dev)
+    step = compile_step(cfg, use_kernel="auto", lean=True)
+    carry = [ctrl]
+
+    def update():
+        carry[0], _ = step(carry[0], state, path, dt, sp, cp)
+
+    for _ in range(3):
+        update()
+    torch.cuda.synchronize()
+    profiling.reset()
+    before = nr.network_rollout_cost.launches
+    for _ in range(20):
+        update()
+    torch.cuda.synchronize()
+    launched = nr.network_rollout_cost.launches - before
+    counted = profiling.counters()
+    print(f"[38 replay] 20 replays of the compiled update: {launched} kernel launches, "
+          f"counters {counted}", flush=True)
+    n_evals = 20 * K_MAIN * (T_MAIN - 1)
+    require(launched == 20 and counted.get("model.nn_evals") == n_evals
+            and counted.get("model.nn_fused") == n_evals,
+            "the replayed update does not take the kernel once")
+    record["launches_20_replays"] = launched
+    with profiling.device_profile() as prof:
+        for _ in range(5):
+            update()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine_ev = [e for e in events if "network_rollout_kernel" in e.name]
+    if events:
+        kernel_us = [e.time_range.elapsed_us() for e in mine_ev]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 5
+        record["replay"] = dict(device_ops=len(events) / 5, kernel_us=kernel_us, busy_us=busy)
+        print(f"[38 profile] 5 replays: {len(events) / 5:.1f} device ops an update, "
+              f"{busy:.1f} us busy an update; {len(mine_ev)} network_rollout_kernel events of "
+              f"{kernel_us} us", flush=True)
+        require(len(mine_ev) == 5, "not one network rollout launch a replay")
+    else:
+        print("[38 profile] the profiler recorded no device activity: not measured",
+              flush=True)
+
+    # (f) times in turns
+    state, u, ref, cp, p = operands(K_MAIN, T_MAIN, 400)
+    xy = ref.xy.contiguous()
+    plain_cfg, plain_sp, plain_cp, plain_path, plain_state, plain_ctrl = nn_case(
+        K_MAIN, T_MAIN, 401, dev)
+    steps = {}
+
+    def updater(key):
+        step = compile_step(plain_cfg, use_kernel="auto", lean=True)
+        steps[key] = [plain_ctrl]
+
+        def fn():
+            steps[key][0], _ = step(steps[key][0], plain_state, plain_path, dt, plain_sp,
+                                    plain_cp)
+        fn()
+        return fn
+
+    update_kernel = updater("kernel")
+    plain_arm()
+    try:
+        update_plain = updater("plain")
+        rollout_plain = graph_replay(lambda: autorally_nn.cost(
+            autorally_nn.euler_states(state.expand(K_MAIN, -1), u, dt, p), u, {}, ref, cp), 1)
+    finally:
+        kernel_arm()
+    arms = {
+        "kernel": (graph_replay(lambda: nr.network_rollout_cost(state, u, dt, p, xy, cp), 20), 1),
+        "plain_graphed": (rollout_plain, 1),
+        "update/kernel": (update_kernel, 20),
+        "update/plain": (update_plain, 5),
+    }
+    times = time_interleaved(arms, 5, warm=1)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    med["kernel"] /= 20
+    bound_ms = work_nn.update_flops(K_MAIN, T_MAIN) / work.FP32_PEAK * 1e3
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    props = {k: K_MAIN * (T_MAIN - 1) / (v * 1e-3) for k, v in med.items()
+             if k.startswith("update/")}
+    record.update(times_ms=med, bound_ms=bound_ms, propagations_per_s=props)
+    print(f"[38 timing] median of 5 CUDA-event reps on {card} (after: sm clock, draw, limit, "
+          f"temp = {clocks}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+          + f"; the kernel at {100 * bound_ms / med['kernel']:.2f} % of work_nn's bound "
+            f"{bound_ms:.4f} ms; propagations/s "
+          + ", ".join(f"{k} {v:.4e}" for k, v in props.items()), flush=True)
+    counters_zero("network rollout kernel")
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -4999,6 +5329,10 @@ def main():
     prologue = phase_37(dev, card, counters_zero)
     print(json.dumps({"step_prologue": prologue}), flush=True)
 
+    # --- 38. the eager update's network rollout ------------------------------------
+    network = phase_38(dev, card, counters_zero)
+    print(json.dumps({"network_rollout": network}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -5087,6 +5421,17 @@ def main():
                          prologue["alone_ms"]["kernel"], prologue["alone_ms"]["plain"],
                          (prologue["bound"]["ms"], "bytes"), replaces=REPLACES_PROLOGUE))
     kernels[-1]["bound_bytes"] = prologue["bound"]["bytes"]
+    # the eager update's network rollout (phase 38); launches: 20 replays of the
+    # compiled autorally_nn update, one an update
+    kernels.append({"name": "network_rollout", "route": "cuda",
+                    "source": "ccv_mppi_path_tracker_tpu_torch/csrc/network_rollout.cu",
+                    "replaces": None, "launches": network["launches_20_replays"],
+                    "launches_per_update": network["launches_20_replays"] // 20,
+                    "max_rel_cost_err": max(network["cost_max_rel"].values()),
+                    "ms": network["times_ms"]["kernel"],
+                    "plain_ms": network["times_ms"]["plain_graphed"],
+                    "bound_ms": network["bound_ms"], "bound_by": "operations",
+                    "library_ms": None})
     # phase 32's, 33's, 34's and 35's runs, each counted from 0 just before it
     # (phase 34: the graphed sharded 200-cycle loop over NCCL; phase 35: one
     # replayed tick of a fleet of B_SPLIT robots, three launches)

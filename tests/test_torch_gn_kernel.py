@@ -250,9 +250,11 @@ def global_names(src):
 def test_no_entry_point_carries_the_trace_reader_s_kernel_name():
     """benchmark/trace.py matches the fused kernel by substring and
     work_refine splits a unit at its last match: a refine kernel so named
-    would zero refine_device_us.gn."""
+    would zero refine_device_us.gn, and a network rollout kernel so named
+    would count as the fused kernel."""
     names = [name for path in sorted(CSRC.glob("*.cu")) for name in global_names(path.read_text())]
     assert "gauss_newton_kernel" in names and "rollout_cost_kernel" in names
+    assert "network_rollout_kernel" in names
     assert [n for n in names if trace.KERNEL_NAME in n] == ["rollout_cost_kernel"]
 
 
