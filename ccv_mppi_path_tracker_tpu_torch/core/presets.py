@@ -15,6 +15,9 @@ core/device.py).
 - :func:`autorally_nn_launch`: AutoRally's learned network model
   (models/autorally_nn.py) on the full-body course: steering and throttle in
   [-1, 1], sigma 0.3, lambda 1, v_ref 2.0, path 10, speed 1.
+- :func:`pets_pe_launch`: PETS's probabilistic ensemble (models/pets_pe.py)
+  at K=5120 sequences of 20 particles, on the same course under the same
+  box, noise, temperature and cost.
 """
 
 from __future__ import annotations
@@ -96,6 +99,18 @@ def autorally_nn_launch(num_samples=102400, horizon=30, dtype=torch.float32, dev
     normalised chassis commands, sigma (0.3, 0.3), lambda 1, and the tracking
     cost with v_ref 2.0, path weight 10 and speed weight 1."""
     cfg = SolverConfig(model="autorally_nn", num_samples=num_samples, horizon=horizon)
+    sp = make_solver_params([0.3, 0.3], 1.0, [-1.0, -1.0], [1.0, 1.0], dtype=dtype,
+                            device=device)
+    cp = make_cost_params(v_ref=2.0, path_weight=10.0, v_weight=1.0, dtype=dtype,
+                          device=device)
+    return cfg, sp, cp, _course(1.5, 0.127, 20.0, dtype)
+
+
+def pets_pe_launch(num_samples=5120, horizon=30, dtype=torch.float32, device=None):
+    """PETS's probabilistic ensemble at K=5120 sequences (K·P = 102400
+    particle rollouts, the project's target count) and T=30, with
+    :func:`autorally_nn_launch`'s course, box, sigma, lambda and cost."""
+    cfg = SolverConfig(model="pets_pe", num_samples=num_samples, horizon=horizon)
     sp = make_solver_params([0.3, 0.3], 1.0, [-1.0, -1.0], [1.0, 1.0], dtype=dtype,
                             device=device)
     cp = make_cost_params(v_ref=2.0, path_weight=10.0, v_weight=1.0, dtype=dtype,

@@ -22,6 +22,12 @@ robot index ``b``. Both arms of the solver draw one stream.
   :func:`plant_normals`, at counter (p, 0, :data:`PLANT_PAIR`, 0): the
   kernel's pair word is below 3, so no control normal shares a counter
   with it.
+- A model that samples its own transitions (models/pets_pe.py) draws its
+  particles' normals from the same key as a robot of index
+  :data:`PROPAGATION_ROBOT` + robot, particle index first_sample·P + k·P + p
+  in place of the sample index: word 3 of a control normal's counter is a
+  robot index below 2^31, and the plant's pair word 2^31 is no pair index,
+  so neither shares a counter with them.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 # Counter word 2 of the plant's process noise (the kernel's pair index is
 # below 3).
 PLANT_PAIR = 0x80000000
+# Counter word 3's offset of the particles' propagation normals (a model's own
+# transitions), above every robot index.
+PROPAGATION_ROBOT = 0x80000000
 
 
 def philox4x32(counter, key):

@@ -3,6 +3,7 @@
 from ccv_mppi_path_tracker_tpu_torch.models import (  # noqa: F401
     autorally_nn,
     full_body,
+    pets_pe,
     rate_limited_steering,
     steering_unicycle,
     unicycle,

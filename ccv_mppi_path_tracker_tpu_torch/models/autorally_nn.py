@@ -125,14 +125,18 @@ def network(state, u, params: NNParams):
     return F.linear(h, params.w3, params.b3)
 
 
+def kinematics(state):
+    """The pose derivatives (x', y', yaw') (..., 3) of states (..., 7)."""
+    yaw, vx, vy, r = state[..., 2], state[..., 4], state[..., 5], state[..., 6]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([vx * c - vy * s, vx * s + vy * c, -r], dim=-1)
+
+
 def step(state, u, dt, params: NNParams = None):
     """One Euler step; ``params`` None: :func:`default_params`."""
     if params is None:
         params = default_params(state.device, state.dtype)
-    yaw, vx, vy, r = state[..., 2], state[..., 4], state[..., 5], state[..., 6]
-    c, s = torch.cos(yaw), torch.sin(yaw)
-    pose = torch.stack([vx * c - vy * s, vx * s + vy * c, -r], dim=-1)
-    return state + torch.cat([pose, network(state, u, params)], dim=-1) * dt
+    return state + torch.cat([kinematics(state), network(state, u, params)], dim=-1) * dt
 
 
 def euler_states(state0, controls, dt, params: NNParams):

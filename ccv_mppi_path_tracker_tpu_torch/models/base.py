@@ -39,6 +39,12 @@ class Model:
         (no ``debug_candidates``, no ``aux_from_rollout``): a model whose
         rollout and cost run as one kernel (models/autorally_nn.py) supplies
         it.
+    stochastic: the model samples its own transitions. Its ``rollout_cost``
+        then also takes the step's Philox key, as ``ControllerState.rng()``
+        gives it (``key``, ``seed``, ``step``), and ``first_sample``; the
+        eager path takes every sequence's cost from it, its particles' mean
+        (models/pets_pe.py), and refuses ``debug_candidates``. Its
+        ``rollout`` and ``step``, which get no key, are deterministic.
     """
 
     name: str
@@ -51,6 +57,7 @@ class Model:
     constants: Optional[dict] = None
     rollout: Optional[Callable] = None
     rollout_cost: Optional[Callable] = None
+    stochastic: bool = False
 
     @property
     def num_states(self) -> int:

@@ -85,13 +85,18 @@ def build_fleet_step(cfg: SolverConfig, shared_path: bool = True,
 
     ``use_kernel`` runs the fleet through one fused-kernel launch (float32,
     the four built-in models), else through the vmapped eager arm;
-    ``"auto"`` chooses by kernels/rollout_cost.py should_use_kernel. On the
+    ``"auto"`` chooses by kernels/rollout_cost.py should_use_kernel. A model
+    that samples its own transitions (``Model.stochastic``) raises
+    ValueError: the fleet draws no propagation stream per robot. On the
     card either is the replay of the tick's CUDA graph (captured by the
     first tick of its shapes; dt, the parameters and the paths are its
     inputs, the key is read and advanced on the device, and the step's host
     integer is set on the result; ``step.graphed`` counts the captures); on
     the CPU, op by op.
     """
+    if get_model(cfg.model).stochastic:
+        raise ValueError(f"the fleet step has no per-robot stream for the transitions that "
+                         f"{cfg.model} samples: run its robots one mppi_step each")
     tick = KeyedGraph(_tick)
 
     def step(ctrls: ControllerState, states, path: PathBuffer, dt, sp, cp,

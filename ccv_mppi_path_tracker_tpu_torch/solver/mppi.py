@@ -104,7 +104,9 @@ def mppi_step(
         kernel on the card, so the two sample the same controls. The key is
         read from ``ctrl.key`` on the device where the state has one (by
         value where it has none). The returned state's step and key are
-        advanced by one.
+        advanced by one. A model that samples its own transitions
+        (``Model.stochastic``) draws them from the key whether or not
+        ``noise`` is given.
     use_kernel: True runs sample + rollout + cost + update in the fused
         kernel (float32 only, any K, the four built-in models of
         ``KERNEL_MODELS``; another model raises), False the eager path. Only
@@ -142,7 +144,8 @@ def mppi_step(
     debug_candidates: also return the xy paths of the first M sampled
         rollouts in stats["candidates"] (M, T, 2), the reference's candidate
         path display (src/diff_drive_mppi.cpp:265-294); the eager path only
-        (the kernel keeps no rollout), and not with ``lean``.
+        (the kernel keeps no rollout), not with ``lean``, and not for a model
+        that samples its own transitions.
     group: a ``torch.distributed`` process group over the sample shards
         (parallel/sharded.py). This call is one shard: it runs
         ``num_samples`` samples (the shard's K/N; default cfg.num_samples)
@@ -166,6 +169,8 @@ def mppi_step(
         raise ValueError("lean drops the debug outputs: no debug_candidates with lean")
     k = cfg.num_samples if num_samples is None else num_samples
     model = get_model(cfg.model)
+    if model.stochastic and debug_candidates:
+        raise ValueError(f"{cfg.model} samples its own transitions: no debug_candidates")
     if delay is not None:
         state = model_rollout(model, state, ctrl.u_prev[:1], delay, model_params)[-1]
     u_mean = ctrl.u_prev
@@ -223,7 +228,12 @@ def mppi_step(
                                           device=state.device)
         u_samples = sample_controls(u_mean, sp, k, steer_off=cfg.steer_off, noise=noise)
         state0 = state.expand(k, -1)
-        if (model.rollout_cost is not None and not debug_candidates
+        if model.stochastic:
+            # particles of each sequence, their transitions drawn from the
+            # step's key at the shard's samples (Model.stochastic)
+            costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp,
+                                       **ctrl.rng(), first_sample=first_sample)
+        elif (model.rollout_cost is not None and not debug_candidates
                 and model.aux_from_rollout is None):
             # rollout and cost in one, no state kept (Model.rollout_cost)
             costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp)

@@ -260,7 +260,14 @@ failure ending the run with a non-zero exit:
      cell's inputs within 1e-6 of the box of op-by-op ones with the plain
      rollout; weights changed in place between replays reaching the kernel;
      one launch a replay; CUDA-event times of the kernel, the plain version
-     and the update with either, the kernel beside work_nn's bound.
+     and the update with either, the kernel beside work_nn's bound;
+ 39. PETS's probabilistic ensemble (models/pets_pe.py) at K=5120, P=20, T=30
+     through compile_step(use_kernel="auto", lean=True): chained updates, the
+     capture and replays of one graph, within the cell's u_gap limit of
+     benchmark/reference_pe.py; each replay's particles drawn anew (far from
+     a reference whose particles keep step 0's normals); model.pe_evals
+     K·P·(T-1) an update; the memory peak; CUDA-event ms, device ops and the
+     float32 peak's share of an update.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -271,7 +278,8 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 ...}, phase 30 with {"compiled": ...}, phase 31 with {"eager_compiled": ...},
 phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
 phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...},
-phase 36 with {"gauss_newton_kernel": ...}, phase 37 with {"step_prologue": ...}.
+phase 36 with {"gauss_newton_kernel": ...}, phase 37 with {"step_prologue": ...},
+phase 38 with {"network_rollout": ...}, phase 39 with {"pets_ensemble": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
@@ -3667,6 +3675,144 @@ def phase_38(dev, card, counters_zero):
     return record
 
 
+PE_SEEDS = (2**31 + 39, 2**32 + 9)   # phase 39: the cell's inputs, two seeds
+
+
+def pe_cell_case(seed, dev):
+    """(conf, course, cfg, sp, cp, path, pose) of PETS's ensemble as the cell
+    pets_pe.update draws them from a seed (benchmark/harness.py): the course
+    at a seeded offset, a seeded pose at its start, at rest."""
+    import torch
+
+    from benchmark import harness
+    from ccv_mppi_path_tracker_tpu_torch.core.presets import pets_pe_launch
+    from ccv_mppi_path_tracker_tpu_torch.paths import PathBuffer
+
+    with open(ROOT / "benchmark" / "configs" / "pets_pe-K5120-P20-T30.json") as f:
+        conf = json.load(f)
+    rng = harness.inputs_rng(seed)
+    course = harness.course_for(conf, {"course_offset_m": 1.0}, rng)
+    pose = torch.from_numpy(harness.start_pose(course, 7, rng, [0.05] * 3))
+    cfg, sp, cp, _ = pets_pe_launch(num_samples=conf["num_samples"], horizon=conf["horizon"],
+                                    device=dev)
+    path = PathBuffer.from_points(course, 0.1, device=dev)
+    return conf, course, cfg, sp, cp, path, pose.to(dev)
+
+
+def phase_39(dev, card):
+    """Phase 39: PETS's probabilistic ensemble (models/pets_pe.py) at its
+    published widths, K=5120 sequences of P=20 particles, T=30, through
+    compile_step(use_kernel="auto", lean=True) against
+    benchmark/reference_pe.py, float32 with TF32 off: (a) PE_SEEDS seeds of 3
+    chained updates, the first the capture and the others replays of one
+    CUDA graph, each within the cell's u_gap limit of the reference's update
+    at its own step; (b) each replay drew its propagation normals anew: it
+    lies far from the reference whose propagation stream is held at step 0;
+    (c) the device counter model.pe_evals K·P·(T-1) an update,
+    model.pe_nonfinite 0; (d) the memory peak of the updates; (e) 20 chained
+    replays timed by CUDA events and 3 profiled: ms, device ops and busy
+    time an update, the update's share of the float32 peak by
+    benchmark/work_pe.py. Returns its record."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from benchmark import reference, reference_pe, work, work_pe
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    with open(ROOT / "benchmark" / "limits" / "pets_pe.update.json") as f:
+        limit = json.load(f)["u_gap"]
+    record = {}
+    dt = torch.full((), 0.1, device=dev)
+    normals = reference.normals
+
+    def held(seed, step, robots, *rest):
+        """reference.normals with the propagation stream held at step 0."""
+        return normals(seed, 0 if robots[0] >= reference_pe.PROPAGATION_ROBOT else step,
+                       robots, *rest)
+
+    # (a)-(d) chained updates against the reference
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    profiling.reset()
+    runs, updates, peak = [], 0, 0
+    for seed in PE_SEEDS:
+        conf, course, cfg, sp, cp, path, pose = pe_cell_case(seed, dev)
+        step = compile_step(cfg, use_kernel="auto", lean=True)
+        ctrl = ControllerState.initial(seed, conf["horizon"], 2, device=dev)
+        for n in range(3):
+            u_prev = None if n == 0 else ctrl.u_prev[None].clone()
+            ctrl, res = step(ctrl, pose, path, dt, sp, cp)
+            runs.append((seed, n, conf, course, pose, u_prev, res.u_opt.clone()))
+            updates += 1
+        require(step.captures == 1, f"seed {seed}: {step.captures} captures of one shape")
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+    counted = profiling.counters()
+    box = 2.0
+    gaps, held_gaps = [], []
+    for seed, n, conf, course, pose, u_prev, got in runs:
+        want = reference_pe.update(conf, course, pose[None], u_prev, seed, n)[0]
+        gaps.append(float((got.double() - want.double()).abs().max()) / box)
+        line = f"  seed {seed} update {n}: |du|/box {gaps[-1]:.3e}"
+        if n:
+            reference.normals = held
+            try:
+                frozen = reference_pe.update(conf, course, pose[None], u_prev, seed, n)[0]
+            finally:
+                reference.normals = normals
+            held_gaps.append(float((got.double() - frozen.double()).abs().max()) / box)
+            line += f"; {held_gaps[-1]:.3e} from the reference with step 0's particles"
+        print(line, flush=True)
+    evals = conf["num_samples"] * conf["particles"] * (conf["horizon"] - 1)
+    record.update(u_gap=max(gaps), held_u_gap_min=min(held_gaps), counters=counted,
+                  memory_peak_bytes=peak)
+    print(f"[39 update] {updates} compiled updates against reference_pe: max |du|/box "
+          f"{max(gaps):.3e} (limit {limit}); the replays {min(held_gaps):.3e} or more from "
+          f"a reference whose particles keep step 0's normals; counters {counted}; memory "
+          f"peak {peak} B", flush=True)
+    require(max(gaps) <= limit, f"an update differs from the reference by {max(gaps)}")
+    require(min(held_gaps) > 10 * limit, "a replay did not draw its particles anew")
+    require(counted.get("model.pe_evals") == updates * evals
+            and not counted.get("model.pe_nonfinite"),
+            f"counters {counted}, not {evals} evaluations an update and no non-finite cost")
+
+    # (e) times and device ops of chained replays
+    conf, course, cfg, sp, cp, path, pose = pe_cell_case(PE_SEEDS[0], dev)
+    step = compile_step(cfg, use_kernel="auto", lean=True)
+    carry = [ControllerState.initial(7, conf["horizon"], 2, device=dev)]
+
+    def update():
+        carry[0], _ = step(carry[0], pose, path, dt, sp, cp)
+
+    for _ in range(3):
+        update()
+    torch.cuda.synchronize()
+    ms = statistics.median(event_ms(update, 20) for _ in range(3))
+    flops = work_pe.update_flops(conf["num_samples"], conf["horizon"], conf["particles"])
+    with profiling.device_profile() as prof:
+        for _ in range(3):
+            update()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    record.update(ms=ms, propagations_per_s=conf["num_samples"] * (conf["horizon"] - 1)
+                  / (ms * 1e-3), mfu=100.0 * flops / (ms * 1e-3 * work.FP32_PEAK),
+                  device_ops=len(events) / 3, busy_us=sum(by_name.values()),
+                  top_ops_us=[[name[:80], us] for name, us in top])
+    print(f"[39 timing] on {card} (sm clock, draw, limit, temp = {clocks}): {ms:.3f} ms an "
+          f"update, {record['propagations_per_s']:.4e} propagations/s, {record['mfu']:.2f} % "
+          f"of the float32 peak by work_pe; {record['device_ops']:.1f} device ops and "
+          f"{record['busy_us']:.1f} us busy an update; top ops (us an update): "
+          + "; ".join(f"{name[:60]} {us:.1f}" for name, us in top), flush=True)
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -5332,6 +5478,9 @@ def main():
     # --- 38. the eager update's network rollout ------------------------------------
     network = phase_38(dev, card, counters_zero)
     print(json.dumps({"network_rollout": network}), flush=True)
+
+    # --- 39. PETS's probabilistic ensemble through the eager arm --------------------
+    print(json.dumps({"pets_ensemble": phase_39(dev, card)}), flush=True)
 
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
