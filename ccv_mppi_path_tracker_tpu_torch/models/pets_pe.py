@@ -39,6 +39,11 @@ Inside a call the K·P particles are laid out member by member, (E, K·P/E):
 row e, column k·(P/E) + j holds particle p = j·E + e of sequence k, so that
 each layer is one product batched over the members (``torch.baddbmm``), in
 float32 as the caller leaves TF32 (the benchmark's configuration: off).
+Where the call is float32 on the card with the shapes of :data:`LAYERS`,
+:data:`MEMBERS` and :data:`PARTICLES`, no grad and no ``torch.func``
+transform (:func:`_fused_operands`), the particles' rollouts and costs are
+one launch of kernels/pets_rollout.py, which keeps every activation on chip
+and rounds each operation as this op-by-op version does.
 
 Paths that get no key (:func:`rollout` and :func:`step`: the planned path,
 ``delay``'s prediction, the refinement, a plant) propagate the ensemble's
@@ -67,6 +72,7 @@ import torch.nn.functional as F
 
 from ccv_mppi_path_tracker_tpu_torch.core.device import resolve_device
 from ccv_mppi_path_tracker_tpu_torch.core.random import PROPAGATION_ROBOT
+from ccv_mppi_path_tracker_tpu_torch.kernels import pets_rollout
 from ccv_mppi_path_tracker_tpu_torch.models.autorally_nn import cost, kinematics, states_cost
 from ccv_mppi_path_tracker_tpu_torch.models.base import Model
 from ccv_mppi_path_tracker_tpu_torch.models.registry import register_model
@@ -87,8 +93,9 @@ WEIGHTS = {"seed": 20181203, "hidden_gain": 6 ** 0.5, "output_scale": 0.2,
 NONFINITE_COST = 1e6
 # Device counters (utils/profiling.py): member evaluations, one a particle
 # and step (a mean step evaluates every member), and the particle costs
-# replaced by NONFINITE_COST
-EVALS = ("model.pe_evals",)
+# replaced by NONFINITE_COST; kernels/pets_rollout.py adds to the first too,
+# and to its own FUSED
+EVALS = pets_rollout.COUNTERS
 NONFINITE = ("model.pe_nonfinite",)
 
 
@@ -237,15 +244,56 @@ def particle_states(state0, controls, dt, params: PEParams, normals):
     return torch.stack(states)
 
 
+def _on_card(t) -> bool:
+    return t.is_cuda
+
+
+def _fused_operands(state0, controls, normals, dt, params, ref, cp):
+    """The operands of kernels/pets_rollout.py pets_rollout_cost for this
+    call, each contiguous (the start state as the one state state0 expands,
+    a number dt made a tensor), or None where the particles run op by op: off
+    the card, a start state that is not one state expanded over the
+    sequences, another dtype or shape, an input that requires grad, or a
+    ``torch.func`` transform."""
+    if not (_on_card(controls) and profiling.device_counting(state0, controls, normals)
+            and state0.dim() == 2 and controls.dim() == 3
+            and state0.shape[0] == controls.shape[1]
+            and (state0.stride(0) == 0 or state0.shape[0] == 1)):
+        return None
+    state = state0[0]
+    if not isinstance(dt, torch.Tensor):
+        dt = torch.full((), dt, dtype=controls.dtype, device=controls.device)
+    args = (state, controls, normals, dt, params, ref.xy, cp)
+    if not pets_rollout.takes(*args):
+        return None
+    rest = [getattr(params, n) for n in pets_rollout.PARAM_NAMES]
+    if not profiling.device_counting(dt, ref.xy, *params.w, *params.b, *rest,
+                                     *(getattr(cp, n) for n in pets_rollout.COST_NAMES)):
+        return None
+    params = PEParams(tuple(w.contiguous() for w in params.w),
+                      tuple(b.contiguous() for b in params.b), *[t.contiguous() for t in rest])
+    return (*[t.contiguous() for t in args[:4]], params, ref.xy.contiguous(),
+            dataclasses.replace(cp, **{n: getattr(cp, n).contiguous()
+                                       for n in pets_rollout.COST_NAMES}))
+
+
 def rollout_cost(state0, controls, dt, params, ref, cp, key=None, seed=None, step=None,
                  first_sample=0):
     """The model's ``rollout_cost`` hook (``Model.stochastic``): the (K,)
     costs of sequences controls (T-1, K, 2) from state0 (K, 7), each the mean
     over its P particles' costs, a non-finite one counted as 1e6. The
     propagation normals come from the step's key (``key`` on its device, or
-    ``seed`` and ``step``) at the sequences' ``first_sample``. Span
+    ``seed`` and ``step``) at the sequences' ``first_sample``. Where the
+    kernel takes the call (:func:`_fused_operands`: float32 CUDA tensors,
+    the start state one state expanded over the K sequences, controls (T-1,
+    K, 2), the ensemble of :data:`LAYERS`' shapes, a window of at most
+    kernels/pets_rollout.py MAX_REF points, nothing that requires grad, no
+    transform) the particles' costs are one launch of
+    kernels/pets_rollout.py; elsewhere, the CPU, float64, grad, vmap and
+    other shapes, ``states_cost(particle_states(...))`` op by op. Span
     ``model.pe_rollout``; adds K·P·(T-1) to the device counter
-    ``model.pe_evals`` and the replaced costs to ``model.pe_nonfinite``."""
+    ``model.pe_evals`` (the kernel also to ``model.pe_fused``) and the
+    replaced costs to ``model.pe_nonfinite``."""
     with profiling.span("model.pe_rollout"):
         if params is None:
             params = default_params(state0.device, state0.dtype)
@@ -254,13 +302,21 @@ def rollout_cost(state0, controls, dt, params, ref, cp, key=None, seed=None, ste
                                         robot=PROPAGATION_ROBOT,
                                         first_sample=first_sample * PARTICLES,
                                         dtype=controls.dtype, device=controls.device)
-        costs = states_cost(particle_states(state0, controls, dt, params, normals),
-                            ref.xy, cp)
+        operands = _fused_operands(state0, controls, normals, dt, params, ref, cp)
+        if operands is None:
+            costs = states_cost(particle_states(state0, controls, dt, params, normals),
+                                ref.xy, cp)
+        else:
+            device = controls.device
+            costs = pets_rollout.pets_rollout_cost(
+                *operands, evals=profiling.device_group(EVALS, device),
+                fused=profiling.device_group(pets_rollout.FUSED, device))
         finite = torch.isfinite(costs)
         costs = torch.where(finite, costs, NONFINITE_COST)
         members = costs.shape[0]
         per_sequence = costs.reshape(members, k, PARTICLES // members).permute(1, 2, 0)
-        _count(EVALS, PARTICLES * controls[..., 0].numel(), costs)
+        if operands is None:
+            _count(EVALS, PARTICLES * controls[..., 0].numel(), costs)
         _count(NONFINITE, (~finite).sum(), costs)
         return torch.mean(per_sequence.reshape(k, PARTICLES), dim=1)
 

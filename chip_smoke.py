@@ -267,7 +267,18 @@ failure ending the run with a non-zero exit:
      benchmark/reference_pe.py; each replay's particles drawn anew (far from
      a reference whose particles keep step 0's normals); model.pe_evals
      K·P·(T-1) an update; the memory peak; CUDA-event ms, device ops and the
-     float32 peak's share of an update.
+     float32 peak's share of an update;
+ 40. the eager update's PETS ensemble rollout (kernels/pets_rollout.py,
+     csrc/pets_rollout.cu): its build and ptxas report; each particle's cost
+     against the op-by-op version (models/pets_pe.py
+     states_cost(particle_states(...))) at K=5120 T=30 for two seeds and at a
+     ragged K=1001 T=15, the counters
+     model.pe_evals and model.pe_fused; the dispatch launching on the cell's
+     shape and not under float64, grad or vmap; compiled updates on the
+     cell's inputs within 1e-6 of the box of op-by-op ones; weights changed
+     in place between replays reaching the kernel; one launch a replay;
+     CUDA-event times of the kernel, the op-by-op chain and the update with
+     either, the kernel beside work_pe's bound.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -279,7 +290,8 @@ Phases 19-21 end with a JSON line of the serving runs' numbers
 phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
 phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...},
 phase 36 with {"gauss_newton_kernel": ...}, phase 37 with {"step_prologue": ...},
-phase 38 with {"network_rollout": ...}, phase 39 with {"pets_ensemble": ...}.
+phase 38 with {"network_rollout": ...}, phase 39 with {"pets_ensemble": ...},
+phase 40 with {"pets_rollout": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
@@ -3813,6 +3825,309 @@ def phase_39(dev, card):
     return record
 
 
+PE_CELL = (5120, 30)    # phase 40: (K, T) of the cell pets_pe.update
+PE_RAGGED = (1001, 15)  # phase 40: a K whose last tile is partial, a shorter T
+PE_COST_RTOL = 2e-5     # phase 40: kernel vs op by op, each particle's cost
+PE_U_GAP = 1e-6         # phase 40: kernel vs op by op, the update, of the box
+
+
+def phase_40(dev, card):
+    """Phase 40: the eager update's PETS ensemble rollout
+    (kernels/pets_rollout.py, csrc/pets_rollout.cu) against the op-by-op
+    version, models/pets_pe.py states_cost(particle_states(...)), on the
+    card, float32 with TF32 off: (a) its build and ptxas report (registers,
+    spills, shared memory); (b) each particle's cost at the cell's shape
+    (K=5120, P=20, T=30) for PE_SEEDS and at a ragged K=1001, T=15, within
+    PE_COST_RTOL, the counters
+    model.pe_evals and model.pe_fused K·P·(T-1) each; the dispatch
+    (pets_pe.rollout_cost) launching it on the cell's shape and taking the
+    op-by-op version under float64, grad and vmap; (c) compiled updates
+    (compile_step, "auto", lean) on the cell's inputs against op-by-op updates
+    from the same warm start, |du|/box under PE_U_GAP, 2 seeds of 3 chained
+    updates; (d) a hidden matrix and the head's mean rows changed in place
+    between two replays reach the kernel; (e) 20 replays of the compiled
+    update: 20 launches, the counters 20 K·P·(T-1) each, and by
+    torch.profiler the device ops and the kernel's time an update; (f)
+    CUDA-event times in turns: the kernel (a graph of 20 launches) and the
+    op-by-op chain (a graph of one), the compiled update with either; the
+    kernel beside benchmark/work_pe.py's bound. Every check is made before
+    the phase fails on the first that did not hold. Returns its record."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from benchmark import work, work_pe
+    from ccv_mppi_path_tracker_tpu_torch.core.random import PROPAGATION_ROBOT
+    from ccv_mppi_path_tracker_tpu_torch.core.types import ControllerState
+    from ccv_mppi_path_tracker_tpu_torch.kernels import build
+    from ccv_mppi_path_tracker_tpu_torch.kernels import pets_rollout as pr
+    from ccv_mppi_path_tracker_tpu_torch.models import pets_pe
+    from ccv_mppi_path_tracker_tpu_torch.ops.sampling import draw_standard_normals, sample_controls
+    from ccv_mppi_path_tracker_tpu_torch.paths import resample_reference
+    from ccv_mppi_path_tracker_tpu_torch.solver import compile_step, mppi_step
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record, failed = {}, []
+
+    def check(ok, what):
+        if not ok:
+            failed.append(what)
+            print(f"  FAILED: {what}", flush=True)
+
+    # (a) the build
+    lib_path, build_s, log = build.build("pets_rollout")
+    ptxas = build.ptxas_summary(log or "")
+    print(f"[40 build] {lib_path.name} in {build_s:.2f} s; ptxas {ptxas}", flush=True)
+    require(all("rollout_cost_kernel" not in name for name in ptxas),
+            "a PETS rollout entry point carries the fused kernel's name")
+    record["ptxas"] = ptxas
+    dt = torch.full((), 0.1, device=dev)
+
+    def operands(k, t, seed):
+        """(state (7,), controls, normals, params, ref, cp) of the cell's
+        course at K=k, T=t: a seeded start with a seeded roll and velocities,
+        a seeded warm start's samples, the step's propagation normals."""
+        conf, course, cfg, sp, cp, path, pose = pe_cell_case(seed, dev)
+        g = torch.Generator().manual_seed(seed)
+        pose = pose.clone()
+        pose[3:] = (0.2 * torch.randn(4, generator=g)).to(dev)
+        ref = resample_reference(path, pose[:2], cp.v_ref, dt, t)
+        u_prev = torch.clamp(0.4 * torch.randn((t - 1, 2), generator=g), -1.0, 1.0).to(dev)
+        noise = draw_standard_normals(None, seed, 3, shape=(t - 1, k, 2), device=dev)
+        u = sample_controls(u_prev, sp, k, noise=noise)
+        normals = draw_standard_normals(None, seed, 3, shape=(t - 1, k * pets_pe.PARTICLES, 4),
+                                        robot=PROPAGATION_ROBOT, device=dev)
+        return pose, u, normals, pets_pe.default_params(dev), ref, cp
+
+    def plain_costs(state, u, normals, p, ref, cp):
+        k = u.shape[1]
+        return pets_pe.states_cost(pets_pe.particle_states(
+            state.expand(k, 7), u, dt, p, normals), ref.xy, cp)
+
+    # (b) the costs against the op-by-op version, and the dispatch
+    worst = {}
+    for k, t, seed in [(*PE_CELL, seed) for seed in PE_SEEDS] + [(*PE_RAGGED, 77)]:
+        state, u, normals, p, ref, cp = operands(k, t, seed)
+        evals = torch.zeros(1, dtype=torch.int64, device=dev)
+        fused = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = pr.pets_rollout_cost(state, u, normals, dt, p, ref.xy.contiguous(), cp,
+                                   evals, fused)
+        want = plain_costs(state, u, normals, p, ref, cp)
+        torch.cuda.synchronize()
+        rel = float(((got.double() - want.double()).abs() / want.double().abs()).max())
+        key = f"K{k}_T{t}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        print(f"  K={k} T={t} seed {seed}: costs {float(want.min()):.4f} .. "
+              f"{float(want.max()):.4f}, max rel {rel:.3e}; counters "
+              f"{evals.item()} {fused.item()}", flush=True)
+        check(bool(torch.isfinite(got).all()) and rel <= PE_COST_RTOL,
+              f"K={k} T={t} seed {seed}: the kernel's costs differ by {rel}")
+        n = k * pets_pe.PARTICLES * (t - 1)
+        check(evals.item() == fused.item() == n,
+              f"K={k} T={t}: counters {evals.item()} {fused.item()}, not {n}")
+    record["cost_max_rel"] = worst
+    state, u, normals, p, ref, cp = operands(*PE_CELL, 9)
+    state0 = state.expand(PE_CELL[0], -1)
+    rng = dict(seed=9, step=3)
+    before = pr.pets_rollout_cost.launches
+    pets_pe.rollout_cost(state0, u, dt, p, ref, cp, **rng)
+    check(pr.pets_rollout_cost.launches == before + 1,
+          "rollout_cost did not launch the kernel on the cell's shape")
+    torch.cuda.synchronize()
+    few = min(64, PE_CELL[0])
+    p64 = pets_pe.default_params(dev, torch.float64)
+    cp64 = dataclasses.replace(cp, **{f.name: getattr(cp, f.name).double()
+                                      for f in dataclasses.fields(cp)})
+    plain_calls = {
+        "float64": lambda: pets_pe.rollout_cost(state0[:few].double(), u[:, :few].double(),
+                                                dt.double(), p64, type(ref)(
+                                                    ref.xy.double(), ref.yaw.double()),
+                                                cp64, **rng),
+        "grad": lambda: pets_pe.rollout_cost(state0[:few], u[:, :few].clone().requires_grad_(True),
+                                             dt, p, ref, cp, **rng),
+        "vmap": lambda: torch.func.vmap(
+            lambda s: pets_pe.rollout_cost(s.expand(few, -1), u[:, :few], dt, p, ref, cp,
+                                           **rng))(state[None].expand(2, -1)),
+    }
+    for name, call in plain_calls.items():
+        before = pr.pets_rollout_cost.launches
+        with torch.enable_grad():
+            call()
+        check(pr.pets_rollout_cost.launches == before,
+              f"rollout_cost launched the kernel under {name}")
+    print(f"[40 compare] the kernel against the op-by-op version: max rel cost {worst} "
+          f"(gate {PE_COST_RTOL}); counters K·P·(T-1) each; the dispatch launches on the "
+          f"cell's shape, not under {list(plain_calls)}", flush=True)
+
+    # (c) compiled updates against the op-by-op update
+    fused_operands = pets_pe._fused_operands
+
+    def plain_arm():
+        pets_pe._fused_operands = lambda *a: None
+
+    def kernel_arm():
+        pets_pe._fused_operands = fused_operands
+
+    def updates(seed, chained, box):
+        conf, course, cfg, sp, cp, path, pose = pe_cell_case(seed, dev)
+        step = compile_step(cfg, use_kernel="auto", lean=True)
+        ctrl = ControllerState.initial(seed, conf["horizon"], 2, device=dev)
+        gaps = []
+        for _ in range(chained):
+            before = pr.pets_rollout_cost.launches
+            nxt, res_k = step(ctrl, pose, path, dt, sp, cp)
+            plain_arm()
+            try:
+                _, res_p = mppi_step(cfg, ctrl, pose, path, dt, sp, cp, lean=True)
+            finally:
+                kernel_arm()
+            torch.cuda.synchronize()
+            check(pr.pets_rollout_cost.launches == before + 1, "not one launch an update")
+            gaps.append(float(((res_k.u_opt.double() - res_p.u_opt.double()).abs()
+                               / box).max()))
+            ctrl = nxt
+        return gaps
+
+    gaps = {}
+    for seed in PE_SEEDS:
+        gaps[seed] = updates(seed, 3, 2.0)
+        print(f"  cell seed {seed}: |du|/box {gaps[seed]}", flush=True)
+        check(max(gaps[seed]) <= PE_U_GAP,
+              f"seed {seed}: the compiled update differs by {max(gaps[seed])} of the box")
+    record["u_gap"] = max(max(g) for g in gaps.values())
+    print(f"[40 update] compiled updates with the kernel against op-by-op updates: max "
+          f"|du|/box {record['u_gap']:.3e} on the cell's inputs (gate {PE_U_GAP})", flush=True)
+
+    # (d) weights changed in place reach the kernel at a replay
+    conf, course, cfg, sp, cp, path, pose = pe_cell_case(PE_SEEDS[1], dev)
+    ctrl = ControllerState.initial(11, conf["horizon"], 2, device=dev)
+    params = pets_pe.default_params(dev)
+    step = compile_step(cfg, use_kernel="auto", lean=True)
+    for _ in range(2):
+        _, before_res = step(ctrl, pose, path, dt, sp, cp)
+
+    def flip():
+        params.w[2].mul_(-1.0)
+        params.w[-1][:, :4].mul_(-1.0)
+        params.b[-1][:, :4].mul_(-1.0)
+
+    flip()
+    try:
+        _, after_res = step(ctrl, pose, path, dt, sp, cp)
+        plain_arm()
+        try:
+            _, want = mppi_step(cfg, ctrl, pose, path, dt, sp, cp, lean=True)
+        finally:
+            kernel_arm()
+        torch.cuda.synchronize()
+    finally:
+        flip()
+    moved = float(((after_res.u_opt - before_res.u_opt).double().abs() / 2.0).max())
+    gap = float(((after_res.u_opt - want.u_opt).double().abs() / 2.0).max())
+    print(f"[40 in place] W3 and the head's mean rows negated in place between replays "
+          f"(captures {step.captures}): the update moved {moved:.3e} of the box, {gap:.3e} "
+          f"from the op-by-op update with the new weights", flush=True)
+    check(step.captures == 1 and moved > 1e-3 and gap <= PE_U_GAP,
+          "weights changed in place did not reach the kernel")
+
+    # (e) one launch a replay, the counters, the device ops
+    conf, course, cfg, sp, cp, path, pose = pe_cell_case(PE_SEEDS[0], dev)
+    step = compile_step(cfg, use_kernel="auto", lean=True)
+    carry = [ControllerState.initial(5, conf["horizon"], 2, device=dev)]
+
+    def update():
+        carry[0], _ = step(carry[0], pose, path, dt, sp, cp)
+
+    for _ in range(3):
+        update()
+    torch.cuda.synchronize()
+    profiling.reset()
+    before = pr.pets_rollout_cost.launches
+    for _ in range(20):
+        update()
+    torch.cuda.synchronize()
+    launched = pr.pets_rollout_cost.launches - before
+    counted = profiling.counters()
+    n_evals = 20 * conf["num_samples"] * conf["particles"] * (conf["horizon"] - 1)
+    print(f"[40 replay] 20 replays of the compiled update: {launched} kernel launches, "
+          f"counters {counted}", flush=True)
+    check(launched == 20 and counted.get("model.pe_evals") == n_evals
+          and counted.get("model.pe_fused") == n_evals,
+          "the replayed update does not take the kernel once")
+    record["launches_20_replays"] = launched
+    with profiling.device_profile() as prof:
+        for _ in range(3):
+            update()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine_ev = [e for e in events if "pets_rollout_kernel" in e.name]
+    if events:
+        kernel_us = [e.time_range.elapsed_us() for e in mine_ev]
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 3
+        others = sorted(((n, us) for n, us in by_name.items()
+                         if "pets_rollout_kernel" not in n), key=lambda kv: -kv[1])[:6]
+        record["replay"] = dict(device_ops=len(events) / 3, kernel_us=kernel_us,
+                                busy_us=sum(by_name.values()),
+                                top_others_us=[[n[:80], us] for n, us in others])
+        print(f"[40 profile] 3 replays: {len(events) / 3:.1f} device ops an update, "
+              f"{record['replay']['busy_us']:.1f} us busy an update; {len(mine_ev)} "
+              f"pets_rollout_kernel events of {kernel_us} us; others (us an update): "
+              + "; ".join(f"{n[:50]} {us:.1f}" for n, us in others), flush=True)
+        check(len(mine_ev) == 3, "not one PETS rollout launch a replay")
+    else:
+        print("[40 profile] the profiler recorded no device activity: not measured",
+              flush=True)
+
+    # (f) times in turns
+    state, u, normals, p, ref, cp = operands(*PE_CELL, 400)
+    xy = ref.xy.contiguous()
+    steps = {}
+
+    def updater(key):
+        conf, course, cfg, sp, cp_, path, pose = pe_cell_case(PE_SEEDS[1], dev)
+        step = compile_step(cfg, use_kernel="auto", lean=True)
+        steps[key] = [ControllerState.initial(13, conf["horizon"], 2, device=dev)]
+
+        def fn():
+            steps[key][0], _ = step(steps[key][0], pose, path, dt, sp, cp_)
+        fn()
+        return fn
+
+    update_kernel = updater("kernel")
+    plain_arm()
+    try:
+        update_plain = updater("plain")
+        chain_plain = graph_replay(lambda: plain_costs(state, u, normals, p, ref, cp), 1)
+    finally:
+        kernel_arm()
+    arms = {
+        "kernel": (graph_replay(lambda: pr.pets_rollout_cost(state, u, normals, dt, p, xy, cp),
+                                20), 1),
+        "plain_graphed": (chain_plain, 1),
+        "update/kernel": (update_kernel, 5),
+        "update/plain": (update_plain, 3),
+    }
+    times = time_interleaved(arms, 3, warm=1)
+    med = {name: statistics.median(v) for name, v in times.items()}
+    med["kernel"] /= 20
+    bound_ms = work_pe.update_flops(*PE_CELL, pets_pe.PARTICLES) / work.FP32_PEAK * 1e3
+    clocks = nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu")
+    props = {k: PE_CELL[0] * (PE_CELL[1] - 1) / (v * 1e-3) for k, v in med.items() if k.startswith("update/")}
+    record.update(times_ms=med, bound_ms=bound_ms, propagations_per_s=props)
+    print(f"[40 timing] median of 3 CUDA-event reps on {card} (after: sm clock, draw, limit, "
+          f"temp = {clocks}): " + "; ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+          + f"; the kernel at {100 * bound_ms / med['kernel']:.2f} % of work_pe's bound "
+            f"{bound_ms:.4f} ms; propagations/s "
+          + ", ".join(f"{k} {v:.4e}" for k, v in props.items()), flush=True)
+    require(not failed, "; ".join(failed))
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -5482,6 +5797,10 @@ def main():
     # --- 39. PETS's probabilistic ensemble through the eager arm --------------------
     print(json.dumps({"pets_ensemble": phase_39(dev, card)}), flush=True)
 
+    # --- 40. the eager update's PETS ensemble rollout ------------------------------
+    pets = phase_40(dev, card)
+    print(json.dumps({"pets_rollout": pets}), flush=True)
+
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of
         path_key's STEPS-cycle (or -tick) main-path run."""
@@ -5580,6 +5899,17 @@ def main():
                     "ms": network["times_ms"]["kernel"],
                     "plain_ms": network["times_ms"]["plain_graphed"],
                     "bound_ms": network["bound_ms"], "bound_by": "operations",
+                    "library_ms": None})
+    # the eager update's PETS ensemble rollout (phase 40); launches: 20 replays
+    # of the compiled pets_pe update, one an update
+    kernels.append({"name": "pets_rollout", "route": "cuda",
+                    "source": "ccv_mppi_path_tracker_tpu_torch/csrc/pets_rollout.cu",
+                    "replaces": None, "launches": pets["launches_20_replays"],
+                    "launches_per_update": pets["launches_20_replays"] // 20,
+                    "max_rel_cost_err": max(pets["cost_max_rel"].values()),
+                    "ms": pets["times_ms"]["kernel"],
+                    "plain_ms": pets["times_ms"]["plain_graphed"],
+                    "bound_ms": pets["bound_ms"], "bound_by": "operations",
                     "library_ms": None})
     # phase 32's, 33's, 34's and 35's runs, each counted from 0 just before it
     # (phase 34: the graphed sharded 200-cycle loop over NCCL; phase 35: one

@@ -458,8 +458,9 @@ def test_work_pe_at_the_cell_s_shape():
 
 
 def test_the_cell_s_entries():
-    """One configuration, one cell, four per-layer metrics of the eager
-    update, and the cell in propagations_per_s's list."""
+    """One configuration, one cell, five per-layer metrics of the eager
+    update (``pe_fused.pe``, the fused kernel's share, since it came), and
+    the cell in propagations_per_s's list."""
     bench = harness.load_benchmark()
     (conf,) = [c for c in bench["configs"] if c["name"] == "pets_pe-K5120-P20-T30"]
     assert conf["reduced"] == [] and conf["file"].endswith("pets_pe-K5120-P20-T30.json")
@@ -467,7 +468,7 @@ def test_the_cell_s_entries():
     assert (cell["config"], cell["traffic"], cell["chips"]) == (conf["name"], "update-pe", 1)
     mine = [m for m in bench["per_layer"] if "pets_pe.update" in m.get("workloads", [])]
     assert sorted(m["name"] for m in mine) == sorted(
-        ["pe_device_us.pe", "pe_ops.pe", "pe_evals.pe", "update_mfu.pe"])
+        ["pe_device_us.pe", "pe_ops.pe", "pe_evals.pe", "update_mfu.pe", "pe_fused.pe"])
     assert all(m["layer"] == "eager update" and m["moves"] == "propagations_per_s"
                and m["workloads"] == ["pets_pe.update"] for m in mine)
     assert "pets_pe.update" in harness.find(bench, "end_to_end", "propagations_per_s")[
