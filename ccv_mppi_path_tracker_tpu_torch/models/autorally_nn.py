@@ -151,20 +151,18 @@ def euler_states(state0, controls, dt, params: NNParams):
 def rollout(state0, controls, dt, params: NNParams = None):
     """The sequential Euler rollout of controls (T-1, ..., 2) from state0
     (..., 7) under ``params`` (None: :func:`default_params`): states (T, ...,
-    7). The span ``model.nn_rollout`` records its host time where it runs op
-    by op and at a CUDA graph's capture; the device counter
-    ``model.nn_evals`` adds the network's evaluations, one a sample and step,
-    in one launch (a graph's replay adds them again)."""
-    with profiling.span("model.nn_rollout"):
-        if params is None:
-            params = default_params(state0.device, state0.dtype)
-        states = euler_states(state0, controls, dt, params)
-        if profiling.device_counting(states):
-            evals = profiling.device_constant(controls[..., 0].numel(), torch.int64,
-                                              states.device)
-            if evals is not None:
-                profiling.count_on_device(COUNTERS, evals)
-        return states
+    7). The device counter ``model.nn_evals`` adds the network's
+    evaluations, one a sample and step, in one launch (a graph's replay adds
+    them again)."""
+    if params is None:
+        params = default_params(state0.device, state0.dtype)
+    states = euler_states(state0, controls, dt, params)
+    if profiling.device_counting(states):
+        evals = profiling.device_constant(controls[..., 0].numel(), torch.int64,
+                                          states.device)
+        if evals is not None:
+            profiling.count_on_device(COUNTERS, evals)
+    return states
 
 
 def states_cost(states, ref_xy, cp):

@@ -210,17 +210,16 @@ def step(state, u, dt, params: PEParams = None):
 
 def rollout(state0, controls, dt, params: PEParams = None):
     """The ensemble-mean rollout of controls (T-1, ..., 2) from state0 (...,
-    7): states (T, ..., 7). Span ``model.pe_rollout``; adds its member
-    evaluations, E a state and step, to ``model.pe_evals``."""
-    with profiling.span("model.pe_rollout"):
-        if params is None:
-            params = default_params(state0.device, state0.dtype)
-        states = [state0]
-        for u in controls:
-            states.append(step(states[-1], u, dt, params))
-        states = torch.stack(states)
-        _count(EVALS, len(params.w[0]) * states[1:, ..., 0].numel(), states)
-        return states
+    7): states (T, ..., 7). Adds its member evaluations, E a state and
+    step, to ``model.pe_evals``."""
+    if params is None:
+        params = default_params(state0.device, state0.dtype)
+    states = [state0]
+    for u in controls:
+        states.append(step(states[-1], u, dt, params))
+    states = torch.stack(states)
+    _count(EVALS, len(params.w[0]) * states[1:, ..., 0].numel(), states)
+    return states
 
 
 def particle_states(state0, controls, dt, params: PEParams, normals):
@@ -290,35 +289,33 @@ def rollout_cost(state0, controls, dt, params, ref, cp, key=None, seed=None, ste
     kernels/pets_rollout.py MAX_REF points, nothing that requires grad, no
     transform) the particles' costs are one launch of
     kernels/pets_rollout.py; elsewhere, the CPU, float64, grad, vmap and
-    other shapes, ``states_cost(particle_states(...))`` op by op. Span
-    ``model.pe_rollout``; adds K·P·(T-1) to the device counter
-    ``model.pe_evals`` (the kernel also to ``model.pe_fused``) and the
-    replaced costs to ``model.pe_nonfinite``."""
-    with profiling.span("model.pe_rollout"):
-        if params is None:
-            params = default_params(state0.device, state0.dtype)
-        tm1, k, _ = controls.shape
-        normals = draw_standard_normals(key, seed, step, shape=(tm1, k * PARTICLES, OUT),
-                                        robot=PROPAGATION_ROBOT,
-                                        first_sample=first_sample * PARTICLES,
-                                        dtype=controls.dtype, device=controls.device)
-        operands = _fused_operands(state0, controls, normals, dt, params, ref, cp)
-        if operands is None:
-            costs = states_cost(particle_states(state0, controls, dt, params, normals),
-                                ref.xy, cp)
-        else:
-            device = controls.device
-            costs = pets_rollout.pets_rollout_cost(
-                *operands, evals=profiling.device_group(EVALS, device),
-                fused=profiling.device_group(pets_rollout.FUSED, device))
-        finite = torch.isfinite(costs)
-        costs = torch.where(finite, costs, NONFINITE_COST)
-        members = costs.shape[0]
-        per_sequence = costs.reshape(members, k, PARTICLES // members).permute(1, 2, 0)
-        if operands is None:
-            _count(EVALS, PARTICLES * controls[..., 0].numel(), costs)
-        _count(NONFINITE, (~finite).sum(), costs)
-        return torch.mean(per_sequence.reshape(k, PARTICLES), dim=1)
+    other shapes, ``states_cost(particle_states(...))`` op by op. Adds
+    K·P·(T-1) to the device counter ``model.pe_evals`` (the kernel also to
+    ``model.pe_fused``) and the replaced costs to ``model.pe_nonfinite``."""
+    if params is None:
+        params = default_params(state0.device, state0.dtype)
+    tm1, k, _ = controls.shape
+    normals = draw_standard_normals(key, seed, step, shape=(tm1, k * PARTICLES, OUT),
+                                    robot=PROPAGATION_ROBOT,
+                                    first_sample=first_sample * PARTICLES,
+                                    dtype=controls.dtype, device=controls.device)
+    operands = _fused_operands(state0, controls, normals, dt, params, ref, cp)
+    if operands is None:
+        costs = states_cost(particle_states(state0, controls, dt, params, normals),
+                            ref.xy, cp)
+    else:
+        device = controls.device
+        costs = pets_rollout.pets_rollout_cost(
+            *operands, evals=profiling.device_group(EVALS, device),
+            fused=profiling.device_group(pets_rollout.FUSED, device))
+    finite = torch.isfinite(costs)
+    costs = torch.where(finite, costs, NONFINITE_COST)
+    members = costs.shape[0]
+    per_sequence = costs.reshape(members, k, PARTICLES // members).permute(1, 2, 0)
+    if operands is None:
+        _count(EVALS, PARTICLES * controls[..., 0].numel(), costs)
+    _count(NONFINITE, (~finite).sum(), costs)
+    return torch.mean(per_sequence.reshape(k, PARTICLES), dim=1)
 
 
 MODEL = register_model(

@@ -66,7 +66,7 @@ from ccv_mppi_path_tracker_tpu_torch.utils.cuda_graph import (
     collectives_capturable,
     scan,
 )
-from ccv_mppi_path_tracker_tpu_torch.utils.profiling import span, tracing
+from ccv_mppi_path_tracker_tpu_torch.utils.profiling import span, stage, tracing
 
 
 def mppi_step(
@@ -171,110 +171,126 @@ def mppi_step(
     model = get_model(cfg.model)
     if model.stochastic and debug_candidates:
         raise ValueError(f"{cfg.model} samples its own transitions: no debug_candidates")
-    if delay is not None:
-        state = model_rollout(model, state, ctrl.u_prev[:1], delay, model_params)[-1]
-    u_mean = ctrl.u_prev
-    if shift_warm_start:
-        u_mean = torch.cat([ctrl.u_prev[1:], ctrl.u_prev[-1:]], dim=0)
+    # each block a stage of utils/profiling.py: op by op a span while a
+    # profiler runs; in a captured graph the run of device nodes it launched
+    with stage("prologue"):
+        if delay is not None:
+            state = model_rollout(model, state, ctrl.u_prev[:1], delay, model_params)[-1]
+        u_mean = ctrl.u_prev
+        if shift_warm_start:
+            u_mean = torch.cat([ctrl.u_prev[1:], ctrl.u_prev[-1:]], dim=0)
+        next_key = None
+        if use_kernel:
+            # the window, the scalars, the kernel's centred operands and
+            # tickets, the default body parameters and the next key: one
+            # launch on the card (kernels/step_prologue.py)
+            pro = step_prologue(cfg, path, state, dt, sp, cp, model_params,
+                                elite_stale_thresh, ctrl.key, num_samples=k)
+            ref, model_params, next_key = pro.ref, pro.model_params, pro.next_key
+        else:
+            if model_params is None and model.default_params is not None:
+                model_params = model.default_params(device=state.device, dtype=state.dtype)
+            ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
 
-    next_key = None
     if use_kernel:
-        # the window, the scalars, the kernel's centred operands and tickets,
-        # the default body parameters and the next key: one launch on the
-        # card (kernels/step_prologue.py)
-        pro = step_prologue(cfg, path, state, dt, sp, cp, model_params, elite_stale_thresh,
-                            ctrl.key, num_samples=k)
-        ref, model_params, next_key = pro.ref, pro.model_params, pro.next_key
         two_pass = elite_frac is not None and elite_stale_thresh is None
         kargs = (u_mean, sp.control_noise, sp.u_min, sp.u_max, ref.xy, state)
         kw = dict(ctrl.rng(), num_samples=k, model=cfg.model, steer_off=cfg.steer_off,
                   noise=noise, second_moment=adapt_sigma, first_sample=first_sample,
                   prepared=pro.launch)
-        costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
-            *kargs, pro.scal, accumulate=not two_pass, **kw)
-        if lean:
-            stats = {}
-            if elite_frac is not None:
-                stats["elite_thresh"] = elite_threshold(costs, elite_frac, group)
-        else:
-            stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
-                                    elite_thresh=elite_stale_thresh, group=group)[1]
+        with stage("rollout_cost"):
+            costs, u_num, norm, *u2_num = fused_sample_rollout_cost(
+                *kargs, pro.scal, accumulate=not two_pass, **kw)
         if two_pass:
-            scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta,
-                                sp.lam, cost_thresh=stats["elite_thresh"])
-            _, u_num, norm, *u2_num = fused_sample_rollout_cost(
-                *kargs, scal, costs_in=costs, **kw)
-        if group is not None:
-            u_num, norm, u2_num = _sum_shards(costs, stats.get("min_cost"), sp.lam,
-                                              u_num, norm, u2_num, group)
-        safe_norm = norm
-        if elite_stale_thresh is not None:
-            empty = norm <= 0.0
-            stats["elite_stale_empty"] = empty
-            safe_norm = torch.where(empty, 1.0, norm)
-            u_opt = torch.where(empty, u_mean, u_num / safe_norm)
-        else:
-            u_opt = u_num / norm
-        if adapt_sigma:
-            stats["sigma_suggest"] = _sigma_suggest(u2_num[0] / safe_norm, u_opt)
-    else:
-        if model_params is None and model.default_params is not None:
-            model_params = model.default_params(device=state.device, dtype=state.dtype)
-        ref = resample_reference(path, state[:2], cp.v_ref, dt, cfg.horizon)
-        if noise is None:
-            tm1, u_dim = u_mean.shape
-            noise = draw_standard_normals(**ctrl.rng(), shape=(tm1, k, u_dim),
-                                          first_sample=first_sample, dtype=u_mean.dtype,
-                                          device=state.device)
-        u_samples = sample_controls(u_mean, sp, k, steer_off=cfg.steer_off, noise=noise)
-        state0 = state.expand(k, -1)
-        if model.stochastic:
-            # particles of each sequence, their transitions drawn from the
-            # step's key at the shard's samples (Model.stochastic)
-            costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp,
-                                       **ctrl.rng(), first_sample=first_sample)
-        elif (model.rollout_cost is not None and not debug_candidates
-                and model.aux_from_rollout is None):
-            # rollout and cost in one, no state kept (Model.rollout_cost)
-            costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp)
-        else:
-            if cfg.model in CLOSED_FORM_MODELS:
-                states = rollout_closed_form(cfg.model, state0, u_samples, dt)
+            # the threshold of the first pass's costs, then the pass that
+            # accumulates the masked update
+            with stage("average"):
+                stats = _kernel_stats(costs, sp.lam, elite_frac, elite_stale_thresh, lean,
+                                      group)
+            with stage("rollout_cost"):
+                scal = pack_scalars(dt, cp, ref.yaw[0], model_params, sp.noise_beta,
+                                    sp.lam, cost_thresh=stats["elite_thresh"])
+                _, u_num, norm, *u2_num = fused_sample_rollout_cost(
+                    *kargs, scal, costs_in=costs, **kw)
+        with stage("average"):
+            if not two_pass:
+                stats = _kernel_stats(costs, sp.lam, elite_frac, elite_stale_thresh, lean,
+                                      group)
+            if group is not None:
+                u_num, norm, u2_num = _sum_shards(costs, stats.get("min_cost"), sp.lam,
+                                                  u_num, norm, u2_num, group)
+            safe_norm = norm
+            if elite_stale_thresh is not None:
+                empty = norm <= 0.0
+                stats["elite_stale_empty"] = empty
+                safe_norm = torch.where(empty, 1.0, norm)
+                u_opt = torch.where(empty, u_mean, u_num / safe_norm)
             else:
-                states = model_rollout(model, state0, u_samples, dt, model_params)
-            aux = {}
-            if model.aux_from_rollout is not None:
-                aux = model.aux_from_rollout(states, u_samples, dt, model_params)
-            costs = trajectory_costs(cfg.model, states, u_samples, aux, ref, cp)
-        weights, stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
-                                         elite_thresh=elite_stale_thresh, group=group)
-        if debug_candidates:
-            stats["candidates"] = states[:, :debug_candidates, :2].transpose(0, 1)
-        u_opt = weighted_update(weights, u_samples, group)
-        if elite_stale_thresh is not None:
-            u_opt = torch.where(stats["elite_stale_empty"], u_mean, u_opt)
-        if adapt_sigma:
-            stats["sigma_suggest"] = _sigma_suggest(
-                weighted_update(weights, u_samples * u_samples, group), u_opt)
+                u_opt = u_num / norm
+            if adapt_sigma:
+                stats["sigma_suggest"] = _sigma_suggest(u2_num[0] / safe_norm, u_opt)
+    else:
+        if noise is None:
+            with stage("draw"):
+                tm1, u_dim = u_mean.shape
+                noise = draw_standard_normals(**ctrl.rng(), shape=(tm1, k, u_dim),
+                                              first_sample=first_sample, dtype=u_mean.dtype,
+                                              device=state.device)
+        with stage("samples"):
+            u_samples = sample_controls(u_mean, sp, k, steer_off=cfg.steer_off, noise=noise)
+        with stage("rollout_cost"):
+            state0 = state.expand(k, -1)
+            if model.stochastic:
+                # particles of each sequence, their transitions drawn from the
+                # step's key at the shard's samples (Model.stochastic)
+                costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp,
+                                           **ctrl.rng(), first_sample=first_sample)
+            elif (model.rollout_cost is not None and not debug_candidates
+                    and model.aux_from_rollout is None):
+                # rollout and cost in one, no state kept (Model.rollout_cost)
+                costs = model.rollout_cost(state0, u_samples, dt, model_params, ref, cp)
+            else:
+                if cfg.model in CLOSED_FORM_MODELS:
+                    states = rollout_closed_form(cfg.model, state0, u_samples, dt)
+                else:
+                    states = model_rollout(model, state0, u_samples, dt, model_params)
+                aux = {}
+                if model.aux_from_rollout is not None:
+                    aux = model.aux_from_rollout(states, u_samples, dt, model_params)
+                costs = trajectory_costs(cfg.model, states, u_samples, aux, ref, cp)
+        with stage("average"):
+            weights, stats = softmax_weights(costs, sp.lam, elite_frac=elite_frac,
+                                             elite_thresh=elite_stale_thresh, group=group)
+            if debug_candidates:
+                stats["candidates"] = states[:, :debug_candidates, :2].transpose(0, 1)
+            u_opt = weighted_update(weights, u_samples, group)
+            if elite_stale_thresh is not None:
+                u_opt = torch.where(stats["elite_stale_empty"], u_mean, u_opt)
+            if adapt_sigma:
+                stats["sigma_suggest"] = _sigma_suggest(
+                    weighted_update(weights, u_samples * u_samples, group), u_opt)
     if adapt_sigma and elite_stale_thresh is not None:
         # an empty stale cycle carries no information: suggest the
         # configured sigma, not a value that would poison the feedback
-        stats["sigma_suggest"] = torch.where(stats["elite_stale_empty"],
-                                             sp.control_noise, stats["sigma_suggest"])
+        with stage("average"):
+            stats["sigma_suggest"] = torch.where(stats["elite_stale_empty"],
+                                                 sp.control_noise, stats["sigma_suggest"])
     if refine_steps:
-        u_opt = _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, refine_steps,
-                        refine_step_size, refine_method)
+        with stage("refine"):
+            u_opt = _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, refine_steps,
+                            refine_step_size, refine_method)
 
-    next_ctrl = ctrl.advanced(u_opt, next_key=next_key)
-    if lean:
-        # only what a caller feeds back survives
-        keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}
-        return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=None,
-                                     opt_states=None, stats=keep)
-    opt_states = _opt_rollout(cfg.model, model, state, u_opt, dt, model_params)
-    return next_ctrl, StepResult(
-        u_opt=u_opt, u0=u_opt[0], ref=ref, opt_states=opt_states, stats=stats
-    )
+    with stage("finish"):
+        next_ctrl = ctrl.advanced(u_opt, next_key=next_key)
+        if lean:
+            # only what a caller feeds back survives
+            keep = {k: stats[k] for k in ("sigma_suggest", "elite_thresh") if k in stats}
+            return next_ctrl, StepResult(u_opt=u_opt, u0=u_opt[0], ref=None,
+                                         opt_states=None, stats=keep)
+        opt_states = _opt_rollout(cfg.model, model, state, u_opt, dt, model_params)
+        return next_ctrl, StepResult(
+            u_opt=u_opt, u0=u_opt[0], ref=ref, opt_states=opt_states, stats=stats
+        )
 
 
 class KeyedGraph:
@@ -485,6 +501,17 @@ def _sum_shards(costs, global_min, lam, u_num, norm, u2_num, group):
     return flat[:nu].reshape(u_num.shape), flat[nu], u2
 
 
+def _kernel_stats(costs, lam, elite_frac, elite_stale_thresh, lean, group) -> dict:
+    """The kernel path's stats of the sampled ``costs``: lean, only the elite
+    threshold (where ``elite_frac`` asks for one); else softmax_weights'."""
+    if not lean:
+        return softmax_weights(costs, lam, elite_frac=elite_frac,
+                               elite_thresh=elite_stale_thresh, group=group)[1]
+    if elite_frac is None:
+        return {}
+    return {"elite_thresh": elite_threshold(costs, elite_frac, group)}
+
+
 def _sigma_suggest(m2, u_opt):
     """Per-channel std of the weighted sample distribution, averaged over t:
     sqrt(mean_t max(E_w[u^2] - u_opt^2, 0))."""
@@ -508,25 +535,23 @@ def _refine(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, 
 
 def refine_stage(cfg, u_opt, state, ref, dt, sp, cp, model_params, steps, step_size, method):
     """The refine stage, eagerly: ``steps`` refinement steps of ``method``,
-    the steer channel held at zero under ``cfg.steer_off``. The span
-    ``refine.stage`` (utils/profiling.py) records its host time where it runs
-    op by op and at a capture; a replay runs no host code."""
-    with span("refine.stage"):
-        if method == "gauss_newton":
-            u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
-                                        model_params=model_params, num_steps=steps)
-        elif method == "gradient":
-            u_opt = gradient_refine(cfg, u_opt, state, ref, dt, sp, cp,
-                                    model_params=model_params, step_size=step_size,
-                                    num_steps=steps)
-        else:
-            raise ValueError(f"refine_method must be 'gradient' or 'gauss_newton', "
-                             f"got {method!r}")
-        if cfg.steer_off and u_opt.shape[1] > STEER_DIM:
-            # the gradient has no reason to keep the disabled channel at zero
-            u_opt = u_opt.clone()
-            u_opt[:, STEER_DIM] = 0.0
-        return u_opt
+    the steer channel held at zero under ``cfg.steer_off``. ``mppi_step``
+    marks it as the stage ``refine`` (utils/profiling.py)."""
+    if method == "gauss_newton":
+        u_opt = gauss_newton_refine(cfg, u_opt, state, ref, dt, sp, cp,
+                                    model_params=model_params, num_steps=steps)
+    elif method == "gradient":
+        u_opt = gradient_refine(cfg, u_opt, state, ref, dt, sp, cp,
+                                model_params=model_params, step_size=step_size,
+                                num_steps=steps)
+    else:
+        raise ValueError(f"refine_method must be 'gradient' or 'gauss_newton', "
+                         f"got {method!r}")
+    if cfg.steer_off and u_opt.shape[1] > STEER_DIM:
+        # the gradient has no reason to keep the disabled channel at zero
+        u_opt = u_opt.clone()
+        u_opt[:, STEER_DIM] = 0.0
+    return u_opt
 
 
 # The refine stage's CUDA graphs: one per refine configuration and shapes a

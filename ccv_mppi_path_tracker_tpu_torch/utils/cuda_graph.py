@@ -34,7 +34,9 @@ utils/profiling.py (``graphed.walk``: the guard, or the full path where it
 refuses; ``graphed.load``, ``graphed.replay``, ``graphed.outputs``), and its
 copied inputs and the guard's hits and misses counters
 (``graphed.inputs_copied``, ``graphed.guard_hits``, ``graphed.guard_misses``);
-a capture is always the span ``graphed.capture``.
+a capture is always the span ``graphed.capture``, and records the stage
+table of its graph among the process's (utils/profiling.py
+``capturing_stages``, ``stage_tables``); a replay runs none of it.
 
 The function must be free of host syncs: its first run is made under
 torch's sync debug mode "error", so a host sync (``.item()``, a Python branch
@@ -414,11 +416,12 @@ class _Graph:
             self.graph = torch.cuda.CUDAGraph()
             self.graph.capture_begin()
             try:
-                args = fill_tensors(template, self.inputs)
-                output = fn(*args)
-                if carry:
-                    self.carry = self._carry_buffers(args[0], output[0])
-                    torch._foreach_copy_(self.carry, _leaves(output[0]))
+                with profiling.capturing_stages():
+                    args = fill_tensors(template, self.inputs)
+                    output = fn(*args)
+                    if carry:
+                        self.carry = self._carry_buffers(args[0], output[0])
+                        torch._foreach_copy_(self.carry, _leaves(output[0]))
             except BaseException:
                 with contextlib.suppress(RuntimeError):
                     self.graph.capture_end()

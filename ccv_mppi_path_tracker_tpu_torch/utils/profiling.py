@@ -7,9 +7,8 @@ process-wide registry of spans and counters that the program records into.
 
 - A span is a named block of host time on ``time.perf_counter_ns``: the
   registry keeps, per name, how many ran and their total (:func:`spans`).
-  While a ``torch.profiler`` runs, a span is also a ``record_function``
-  range of the same name, so it sits in the profiler's Chrome trace on the
-  device trace's clock.
+  While a ``torch.profiler`` runs, a span is also a range of the same name,
+  so it sits in the profiler's Chrome trace on the device trace's clock.
 - A counter adds whole numbers under a name (:func:`counters`).
 - A device counter (:func:`count_on_device`) is a 0-d int64 tensor on a
   device, one a name and device, allocated once and added to in place, so
@@ -24,7 +23,17 @@ process-wide registry of spans and counters that the program records into.
   a profiler runs: the call asks :func:`tracing` once at its entry and takes
   its plain path when it is off, so that tracing costs a call that one check.
   Cold spans (a graph's capture, a kernel library's load) run once a process
-  and record always, as do :class:`PhaseTimer`'s phases.
+  and record always, as do :class:`PhaseTimer`'s phases. A span's range is
+  torch's fast range (``_RecordFunctionFast``, a ``cpu_op`` of the trace,
+  ~1 us on the CPU, where ``record_function`` takes ~9 us).
+- A stage (:class:`stage`) marks a block of the control step (solver/mppi.py
+  ``mppi_step``: prologue, draw, samples, rollout_cost, average, refine,
+  finish). Op by op it is the span ``stage.<name>`` while a profiler runs;
+  under the capture of a CUDA graph (utils/cuda_graph.py) it records which of
+  the graph's device nodes the block captured, into the capture's
+  :class:`StageTable` (:func:`stage_tables`), read through libcuda; a
+  replay runs no host code, and its device operations fall into stages by
+  their place in the graph.
 
 ``cli profile`` prints the registry; the benchmark's readers
 (``benchmark/metrics/``) read it after a traced window.
@@ -32,9 +41,13 @@ process-wide registry of spans and counters that the program records into.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import os
+import threading
 import time
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -157,12 +170,12 @@ def reset():
 
 
 class span:
-    """``with span(name): ...`` records the block as a span ``name``, a
-    ``record_function`` range too while a profiler runs (``ranged``: whether
-    one does, where the caller already asked :func:`tracing`). The time
-    includes the range's own cost, so that spans laid end to end cover their
-    caller. ``table``: a second table that the span is added to
-    (:class:`PhaseTimer`'s own)."""
+    """``with span(name): ...`` records the block as a span ``name``, a range
+    of the profiler's trace too while a profiler runs (torch's fast range,
+    a ``cpu_op``; ``ranged``: whether one does, where the caller already asked
+    :func:`tracing`). The time includes the range's own cost, so that spans
+    laid end to end cover their caller. ``table``: a second table that the
+    span is added to (:class:`PhaseTimer`'s own)."""
 
     __slots__ = ("name", "ranged", "table", "range", "t0")
 
@@ -172,7 +185,7 @@ class span:
     def __enter__(self):
         self.t0 = time.perf_counter_ns()
         ranged = tracing() if self.ranged is None else self.ranged
-        self.range = torch.autograd.profiler.record_function(self.name) if ranged else None
+        self.range = torch._C._profiler._RecordFunctionFast(self.name) if ranged else None
         if self.range is not None:
             self.range.__enter__()
         return self
@@ -184,6 +197,204 @@ class span:
         record(self.name, ns)
         if self.table is not None:
             record(self.name, ns, table=self.table)
+        return False
+
+
+# --- stages -------------------------------------------------------------------------------
+
+class StageTable(NamedTuple):
+    """The stages of one captured CUDA graph. ``stages``: (name, first,
+    count) in node order, the run of the graph's device nodes that one
+    stage block captured (``first`` the index of its first device node; a
+    stage may appear twice, as the two-pass elite update's do). ``kinds``:
+    one letter a device node, in capture order: K a kernel, C a copy, S a
+    set, the nodes a profiler shows as device operations of a replay (event
+    and empty nodes are left out). Nodes in no stage are the graph's own."""
+
+    stages: tuple
+    kinds: str
+
+
+# cuGraphNodeType of the device nodes -> their letter in StageTable.kinds
+_DEVICE_NODES = {0: "K", 1: "C", 2: "S"}
+_CAPTURE_ACTIVE = 1           # CU_STREAM_CAPTURE_STATUS_ACTIVE
+# the tables of the process's captures that marked stages, newest last
+_TABLES: collections.deque = collections.deque(maxlen=64)
+# thread id -> the _Capture in progress on that thread
+_CAPTURES: dict = {}
+# .name: the stage open on this thread while a profiler runs
+_OPEN = threading.local()
+# libcuda's graph calls (_LibCuda), None before the first capture, False
+# where they cannot be had
+_LIBCUDA = None
+
+
+class _LibCuda:
+    """The stream-capture and graph queries of libcuda (the library torch
+    already loaded), through ctypes."""
+
+    def __init__(self):
+        lib = ctypes.CDLL("libcuda.so.1")
+        ptr, size, enum = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
+        # (stream, status*, id*, graph*, dependencies*, count*)
+        info = lib.cuStreamGetCaptureInfo_v2
+        info.argtypes = [ptr, ctypes.POINTER(enum), ptr, ctypes.POINTER(ptr), ptr, ptr]
+        info.restype = enum
+        lib.cuGraphGetNodes.argtypes = [ptr, ptr, ctypes.POINTER(size)]
+        lib.cuGraphGetNodes.restype = enum
+        lib.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(enum)]
+        lib.cuGraphNodeGetType.restype = enum
+        self.info, self.get_nodes, self.get_type = info, lib.cuGraphGetNodes, lib.cuGraphNodeGetType
+
+    def kinds(self, stream: int, cache: dict) -> Optional[str]:
+        """The letters of the device nodes of the graph being captured on
+        ``stream``, in libcuda's node order; None where the stream is not
+        capturing or a call fails. ``cache``: node -> letter ("" for another
+        node), kept by the caller for one capture."""
+        status, graph = ctypes.c_int(), ctypes.c_void_p()
+        if (self.info(stream, ctypes.byref(status), None, ctypes.byref(graph), None, None)
+                or status.value != _CAPTURE_ACTIVE):
+            return None
+        n = ctypes.c_size_t()
+        if self.get_nodes(graph, None, ctypes.byref(n)):
+            return None
+        if not n.value:
+            return ""
+        nodes = (ctypes.c_void_p * n.value)()
+        if self.get_nodes(graph, nodes, ctypes.byref(n)):
+            return None
+        kind, letters = ctypes.c_int(), []
+        for node in nodes[:n.value]:
+            letter = cache.get(node)
+            if letter is None:
+                if self.get_type(node, ctypes.byref(kind)):
+                    return None
+                letter = cache[node] = _DEVICE_NODES.get(kind.value, "")
+            letters.append(letter)
+        return "".join(letters)
+
+
+def _capture_kinds(stream: int, cache: dict) -> Optional[str]:
+    """:meth:`_LibCuda.kinds` of the process's libcuda, loaded at the first
+    call; None where it cannot be loaded."""
+    global _LIBCUDA
+    if _LIBCUDA is None:
+        try:
+            _LIBCUDA = _LibCuda()
+        except (OSError, AttributeError):
+            _LIBCUDA = False
+    return _LIBCUDA.kinds(stream, cache) if _LIBCUDA else None
+
+
+class _Capture:
+    """The stage marks of one CUDA graph's capture on ``stream``: each mark
+    reads the graph's device nodes (:func:`_capture_kinds`) at its entry and
+    its exit. ``kinds``: the last read, None once one failed (the capture
+    then records nothing); ``table``: the graph's StageTable after
+    :func:`capturing_stages`, None where no stage was marked; ``ns``: the
+    time the reads took."""
+
+    def __init__(self, stream: int):
+        self.stream, self.cache, self.ns = stream, {}, 0
+        self.stages, self.open, self.table = [], None, None
+        self.kinds = ""
+        self.read()
+
+    def read(self) -> int:
+        """Read the graph's device nodes anew; their count (0 once a read
+        failed)."""
+        if self.kinds is not None:
+            t0 = time.perf_counter_ns()
+            self.kinds = _capture_kinds(self.stream, self.cache)
+            self.ns += time.perf_counter_ns() - t0
+        return len(self.kinds or "")
+
+    def enter(self, name: str):
+        _refuse_nesting(name, self.open[0] if self.open else None)
+        self.open = (name, self.read())
+
+    def exit(self, ok: bool):
+        (name, first), self.open = self.open, None
+        last = self.read()
+        if ok and self.kinds is not None:
+            self.stages.append((name, first, last - first))
+
+    def finish(self):
+        self.read()
+        if self.kinds is None:
+            return
+        if self.stages:
+            self.table = StageTable(tuple(self.stages), self.kinds)
+            _TABLES.append(self.table)
+        record("graphed.stage_reads", self.ns)
+
+
+def _refuse_nesting(name: str, open_name):
+    if open_name is not None:
+        raise RuntimeError(f"stage {name!r} opened inside stage {open_name!r}: stages "
+                           "do not nest")
+
+
+@contextlib.contextmanager
+def capturing_stages(stream: Optional[int] = None):
+    """Around the body of a CUDA graph's capture on ``stream`` (a CUDA
+    stream handle; None: this thread's current stream), as utils/cuda_graph.py
+    ``_Graph`` captures: the :class:`stage` blocks run inside record the
+    device nodes they capture. Yields the :class:`_Capture`, whose ``table``
+    is set after a block that ends without an error, and which records the
+    span ``graphed.stage_reads``, the reads' time. Where libcuda cannot
+    read the graph (no capture on the stream, no libcuda) the stages record
+    nothing."""
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    capture = _Capture(stream)
+    me = threading.get_ident()
+    if capture.kinds is not None:
+        _CAPTURES[me] = capture
+    try:
+        yield capture
+    finally:
+        _CAPTURES.pop(me, None)
+    if capture.kinds is not None:
+        capture.finish()
+
+
+def stage_tables() -> list:
+    """The :class:`StageTable` of each of the process's recent captures that
+    marked stages, newest last."""
+    return list(_TABLES)
+
+
+class stage:
+    """``with stage(name): ...`` marks the block as the control step's stage
+    ``name``; no stage opens inside another (RuntimeError). Under the capture
+    of a CUDA graph (:func:`capturing_stages`) it records the block's device
+    nodes into the graph's table; op by op, while a profiler runs, it is the
+    span ``stage.<name>``, and while none runs it costs one :func:`tracing`
+    check. A replay of the graph runs none of it."""
+
+    __slots__ = ("name", "capture", "span")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.span = None
+        self.capture = _CAPTURES.get(threading.get_ident()) if _CAPTURES else None
+        if self.capture is not None:
+            self.capture.enter(self.name)
+        elif tracing():
+            _refuse_nesting(self.name, getattr(_OPEN, "name", None))
+            _OPEN.name = self.name
+            self.span = span("stage." + self.name, True).__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.capture is not None:
+            self.capture.exit(exc[0] is None)
+        elif self.span is not None:
+            _OPEN.name = None
+            self.span.__exit__(*exc)
         return False
 
 

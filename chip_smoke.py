@@ -278,7 +278,17 @@ failure ending the run with a non-zero exit:
      cell's inputs within 1e-6 of the box of op-by-op ones; weights changed
      in place between replays reaching the kernel; one launch a replay;
      CUDA-event times of the kernel, the op-by-op chain and the update with
-     either, the kernel beside work_pe's bound.
+     either, the kernel beside work_pe's bound;
+ 41. the control step's stages (utils/profiling.py stage): the update graph
+     of each of the four update cells (benchmark/programs.py Port, the
+     cell's configuration, course and pose) captured, its stage table
+     covering every device node once, in order, in the cell's stages; one
+     replay traced by torch.profiler, its ops matched to the table
+     (benchmark/stages.py), each named kernel in its stage
+     (rollout_cost_kernel, network_rollout_kernel or pets_rollout_kernel in
+     rollout_cost, gauss_newton_kernel in refine, philox_normals_kernel in
+     draw, step_prologue_kernel in prologue); the capture's node reads'
+     time (span graphed.stage_reads) and each stage's device us.
 
 After every phase that launches the kernel, the finish's ticket counters are
 back at 0.
@@ -291,7 +301,7 @@ phase 32 with {"evaluations": ...}, phase 33 with {"training_programs": ...},
 phase 34 with {"sharded_programs": ...}, phase 35 with {"big_fleets": ...},
 phase 36 with {"gauss_newton_kernel": ...}, phase 37 with {"step_prologue": ...},
 phase 38 with {"network_rollout": ...}, phase 39 with {"pets_ensemble": ...},
-phase 40 with {"pets_rollout": ...}.
+phase 40 with {"pets_rollout": ...}, phase 41 with {"stages": ...}.
 The last three lines are the kernels JSON line (each entry with its bound:
 kernels/rollout_cost.py rollout_cost_bound_ms or philox_normals_bound_ms, and
 its launches per update: the main-path run's count over its cycles; where
@@ -4128,6 +4138,108 @@ def phase_40(dev, card):
     return record
 
 
+# cell -> the stages of its update graph in order, and the kernels each holds
+STAGE_CELLS = {
+    "full_body.update": (("prologue", "rollout_cost", "average", "finish"),
+                         {"prologue": "step_prologue_kernel",
+                          "rollout_cost": "rollout_cost_kernel"}),
+    "full_body_gn.update": (("prologue", "rollout_cost", "average", "refine", "finish"),
+                            {"prologue": "step_prologue_kernel",
+                             "rollout_cost": "rollout_cost_kernel",
+                             "refine": "gauss_newton_kernel"}),
+    "autorally_nn.update": (("prologue", "draw", "samples", "rollout_cost", "average",
+                             "finish"),
+                            {"draw": "philox_normals_kernel",
+                             "rollout_cost": "network_rollout_kernel"}),
+    "pets_pe.update": (("prologue", "draw", "samples", "rollout_cost", "average", "finish"),
+                       {"draw": "philox_normals_kernel",
+                        "rollout_cost": "pets_rollout_kernel"}),
+}
+
+
+def phase_41(dev, card):
+    """Phase 41: the control step's stages (utils/profiling.py stage) in the
+    CUDA graph of each update cell's compiled update, built as the benchmark
+    builds it (benchmark/programs.py Port at the cell's configuration, course
+    and pose): (a) the capture's stage table covers every device node once,
+    in order, in the cell's stages (STAGE_CELLS); (b) one replay traced by
+    torch.profiler (profiling.device_profile, whose discarded warm-up keeps
+    the first records) matches the table (benchmark/stages.py: one block of
+    the table's nodes, its copies and sets on Memcpy and Memset ops), and
+    each named kernel lies in its stage; (c) the capture's node reads' time
+    (span graphed.stage_reads) and each stage's device us of the replay.
+    Returns its record."""
+    import torch
+
+    from benchmark import harness, programs, stages, trace
+    from ccv_mppi_path_tracker_tpu_torch.utils import profiling
+
+    bench = harness.load_benchmark(ROOT)
+    record = {}
+    for cell, (order, kernels) in STAGE_CELLS.items():
+        files = harness.cell_files(bench, cell, ROOT)
+        conf, traffic = files["config"], files["traffic"]
+        rng = harness.inputs_rng(2**31 + 41)
+        course = harness.course_for(conf, traffic, rng)
+        ref = harness.reference_module(conf, ROOT)
+        prog = programs.Port(conf, dev, course, ref)
+        pose = torch.from_numpy(harness.start_pose(course, ref.num_states(conf), rng,
+                                                   traffic["pose_sigma"])).to(dev)
+        path, step = prog.path(course), prog.update_step()
+        dt = torch.full((), conf["dt"], dtype=torch.float32, device=dev)
+        ctrl = prog.initial(41)
+        before = len(profiling.stage_tables())
+        reads = profiling.spans().get("graphed.stage_reads", {"total_s": 0.0})["total_s"]
+        ctrl, _ = step(ctrl, pose, path, dt)             # the capture
+        torch.cuda.synchronize()
+        tables = profiling.stage_tables()
+        require(len(tables) == before + 1, f"[41] {cell}: the capture kept no stage table")
+        table = tables[-1]
+        reads_ms = 1e3 * (profiling.spans()["graphed.stage_reads"]["total_s"] - reads)
+        names = tuple(name for name, _, _ in table.stages)
+        ends = [first + count for _, first, count in table.stages]
+        require(names == order, f"[41] {cell}: stages {names}, not {order}")
+        require(table.stages[0][1] == 0 and ends[-1] == len(table.kinds)
+                and all(e == nxt[1] for e, nxt in zip(ends, table.stages[1:])),
+                f"[41] {cell}: the stages {table.stages} do not cover the "
+                f"{len(table.kinds)} device nodes once, in order")
+        for _ in range(2):
+            ctrl, _ = step(ctrl, pose, path, dt)         # replays
+        torch.cuda.synchronize()
+        with profiling.device_profile() as prof:
+            with torch.profiler.record_function(harness.MARK):
+                ctrl, _ = step(ctrl, pose, path, dt)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        units = trace.unit_ops(events, harness.MARK)
+        ops = [units["names"][i] for i in units["name"]]
+        letters = "".join(stages._letter(n) for n in ops)
+        start = stages._place(letters, table.kinds)
+        require(start is not None, f"[41] {cell}: the traced replay's ops {letters} do not "
+                f"match the table's {table.kinds}")
+        where = {}
+        for name, first, count in table.stages:
+            for op in ops[start + first:start + first + count]:
+                where.setdefault(name, []).append(op)
+        for name, kernel in kernels.items():
+            require(any(kernel in op for op in where.get(name, [])),
+                    f"[41] {cell}: {kernel} is not in the stage {name}: {where}")
+        obs = {"units": {"update": units}}
+        us = {name: stages.stage_us(obs, name) for name in order + (stages.OUTSIDE,)}
+        record[cell] = {"nodes": len(table.kinds), "kinds": table.kinds,
+                        "stages": table.stages, "reads_ms": reads_ms, "us": us,
+                        "unit_us": float(units["dur_us"].sum())}
+        print(f"[41 stages] {cell}: {len(table.kinds)} device nodes in {len(names)} stages, "
+              f"read in {reads_ms:.3f} ms at the capture; one replay "
+              + ", ".join(f"{n} {v:.2f}" for n, v in us.items()) + " us "
+              f"of {record[cell]['unit_us']:.2f}; kernels in their stages", flush=True)
+        del prog, step
+    return record
+
+
 def main():
     import numpy as np
     import torch
@@ -5800,6 +5912,9 @@ def main():
     # --- 40. the eager update's PETS ensemble rollout ------------------------------
     pets = phase_40(dev, card)
     print(json.dumps({"pets_rollout": pets}), flush=True)
+
+    # --- 41. the control step's stages in the update graphs -------------------------
+    print(json.dumps({"stages": phase_41(dev, card)}), flush=True)
 
     def entry(name, path_key, err_key, ms, plain_ms, bound, replaces=REPLACES):
         """One kernels entry; launches and launches_per_update are those of

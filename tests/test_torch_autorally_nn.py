@@ -200,10 +200,14 @@ def test_nn_evals_adds_k_t_minus_1_an_update():
     _, cfg, sp, cp, _, path, pose = case(3)
     ctrl = ControllerState.initial(3, T, 2, device="cpu")
     step = compile_step(cfg, use_kernel="auto", lean=True)
-    for n in range(1, 4):
-        ctrl, _ = step(ctrl, pose, path, dt(), sp, cp)
-        assert profiling.counters()["model.nn_evals"] == n * K * (T - 1)
-    assert profiling.spans()["model.nn_rollout"]["count"] == 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for n in range(1, 4):
+            ctrl, _ = step(ctrl, pose, path, dt(), sp, cp)
+            assert profiling.counters()["model.nn_evals"] == n * K * (T - 1)
+    # the stages of the eager arm, each once a step, spans under the profiler
+    assert {n: v["count"] for n, v in profiling.spans().items() if n.startswith("stage.")} == {
+        f"stage.{n}": 3 for n in ("prologue", "draw", "samples", "rollout_cost", "average",
+                                  "finish")}
     profiling.reset()
     mppi_step(cfg, ctrl, pose, path, dt(), sp, cp)          # not lean: the planned path too
     assert profiling.counters()["model.nn_evals"] == K * (T - 1) + T - 1

@@ -346,10 +346,14 @@ def test_pe_evals_adds_k_p_t_minus_1_an_update():
     _, cfg, sp, cp, _, path, pose = case(3)
     ctrl = ControllerState.initial(3, T, 2, device="cpu")
     step = compile_step(cfg, use_kernel="auto", lean=True)
-    for n in range(1, 4):
-        ctrl, _ = step(ctrl, pose, path, dt(), sp, cp)
-        assert profiling.counters()["model.pe_evals"] == n * K * P * (T - 1)
-    assert profiling.spans()["model.pe_rollout"]["count"] == 3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for n in range(1, 4):
+            ctrl, _ = step(ctrl, pose, path, dt(), sp, cp)
+            assert profiling.counters()["model.pe_evals"] == n * K * P * (T - 1)
+    # the stages of the eager arm, each once a step, spans under the profiler
+    assert {n: v["count"] for n, v in profiling.spans().items() if n.startswith("stage.")} == {
+        f"stage.{n}": 3 for n in ("prologue", "draw", "samples", "rollout_cost", "average",
+                                  "finish")}
     profiling.reset()
     mppi_step(cfg, ctrl, pose, path, dt(), sp, cp)          # not lean: the planned path too
     assert profiling.counters()["model.pe_evals"] == K * P * (T - 1) + E * (T - 1)
@@ -459,14 +463,22 @@ def test_work_pe_at_the_cell_s_shape():
 
 def test_the_cell_s_entries():
     """One configuration, one cell, five per-layer metrics of the eager
-    update (``pe_fused.pe``, the fused kernel's share, since it came), and
-    the cell in propagations_per_s's list."""
+    update (``pe_fused.pe``, the fused kernel's share, since it came), the
+    control step's stage readers of an eager update (every ``stage_us.*`` but
+    the refine stage's, and ``stage_matched.update``), and the cell in
+    propagations_per_s's list."""
     bench = harness.load_benchmark()
     (conf,) = [c for c in bench["configs"] if c["name"] == "pets_pe-K5120-P20-T30"]
     assert conf["reduced"] == [] and conf["file"].endswith("pets_pe-K5120-P20-T30.json")
     cell = harness.find(bench, "workloads", "pets_pe.update")
     assert (cell["config"], cell["traffic"], cell["chips"]) == (conf["name"], "update-pe", 1)
     mine = [m for m in bench["per_layer"] if "pets_pe.update" in m.get("workloads", [])]
+    stage_readers = [m for m in mine if m["name"].startswith("stage_")]
+    assert sorted(m["name"] for m in stage_readers) == sorted(
+        [f"stage_us.{n}" for n in ("prologue", "draw", "samples", "rollout_cost", "average",
+                                   "finish", "outside")] + ["stage_matched.update"])
+    assert all(m["layer"] == "control step" for m in stage_readers)
+    mine = [m for m in mine if m not in stage_readers]
     assert sorted(m["name"] for m in mine) == sorted(
         ["pe_device_us.pe", "pe_ops.pe", "pe_evals.pe", "update_mfu.pe", "pe_fused.pe"])
     assert all(m["layer"] == "eager update" and m["moves"] == "propagations_per_s"

@@ -27,6 +27,8 @@ from ccv_mppi_path_tracker_tpu_torch.utils.profiling import PhaseTimer, span
 
 PARTS = ("graphed.walk", "graphed.load", "graphed.replay", "graphed.outputs",
          "compiled.wrap_out")
+# the stages of a kernel-lean update, as the stand-in's replay runs them op by op
+LEAN_STAGES = ("stage.prologue", "stage.rollout_cost", "stage.average", "stage.finish")
 
 
 @pytest.fixture(autouse=True)
@@ -110,8 +112,10 @@ def test_hot_spans_record_only_under_the_profiler(kind, on_the_cpu, tmp_path):
     records each part once (the update's wrap-in twice: its options and the
     graph's arguments), the inputs copied and the guard's hits are counted
     (the plain call before took the full path and built the guard of the
-    graph put in by hand), and the parts are ranges of the Chrome trace. The traced calls compute what the plain
-    ones do."""
+    graph put in by hand), and the parts are ranges of the Chrome trace (fast
+    ranges, ``cpu_op``). The stand-in's replay runs the
+    update op by op, so its stages record too; the fleet tick marks none. The
+    traced calls compute what the plain ones do."""
     call, ctrl, copied = program(kind)
     plain, _, _ = program(kind)
     c_traced, c_plain = call(ctrl)[0], plain(ctrl)[0]
@@ -123,14 +127,15 @@ def test_hot_spans_record_only_under_the_profiler(kind, on_the_cpu, tmp_path):
         c_plain, u_plain = plain(c_plain)
     assert torch.equal(u_traced, u_plain) and c_traced.step == c_plain.step == 4
     spans = profiling.spans()
+    stages = LEAN_STAGES if kind == "update" else ()
     assert {n: s["count"] for n, s in spans.items()} == dict(
-        {"compiled.wrap_in": 6 if kind == "update" else 3}, **{n: 3 for n in PARTS})
+        {"compiled.wrap_in": 6 if kind == "update" else 3}, **{n: 3 for n in PARTS + stages})
     assert all(s["total_s"] > 0 for s in spans.values())
     assert profiling.counters() == {"graphed.inputs_copied": 3 * copied,
                                     "graphed.guard_hits": 3}
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
-    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    ranges = [e["name"] for e in events if e.get("cat") == "cpu_op"]
     assert {n: ranges.count(n) for n in spans} == {n: s["count"] for n, s in spans.items()}
 
 
@@ -151,7 +156,7 @@ def test_cold_spans_record_either_way(monkeypatch, tmp_path):
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert {"cold", "kernel.load"} <= {e["name"] for e in events
-                                       if e.get("cat") == "user_annotation"}
+                                       if e.get("cat") == "cpu_op"}
 
 
 def test_phases_are_spans_of_the_registry():
